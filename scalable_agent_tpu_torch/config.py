@@ -11,6 +11,11 @@ never ignores a setting silently.
 import dataclasses
 from typing import Optional
 
+import torch
+
+# The JAX CLI's `--compute_dtype` enum (experiment.py), by torch dtype.
+COMPUTE_DTYPES = {'float32': torch.float32, 'bfloat16': torch.bfloat16}
+
 
 @dataclasses.dataclass
 class Config:
@@ -52,7 +57,10 @@ class Config:
   scan_unroll: int = 10
   # None = auto by level name (resolved_use_instruction).
   use_instruction: Optional[bool] = None
-  compute_dtype: str = 'float32'          # float32 (bfloat16: later slice)
+  # Layer compute dtype (Flax's `dtype=`): float32 | bfloat16. Params,
+  # optimizer state, the LSTM carry between calls, V-trace and the losses
+  # stay float32 either way.
+  compute_dtype: str = 'float32'
   use_associative_scan: bool = False      # V-trace by recursive doubling
   # The fused hand-written V-trace kernel (ops/vtrace_cuda.py,
   # csrc/vtrace.cu). The JAX name is kept so configs carry across.
@@ -89,15 +97,16 @@ class Config:
     if self.curriculum != 'uniform':
       later.append(f'curriculum={self.curriculum!r} (population: ROADMAP '
                    'Queue A, population slice)')
-    if self.compute_dtype != 'float32':
-      later.append(f'compute_dtype={self.compute_dtype!r} (ROADMAP Queue '
-                   'A, bf16 slice)')
     if self.torso not in ('deep', 'shallow'):
       later.append(f'torso={self.torso!r} (the port has deep and '
                    'shallow; ROADMAP Queue A)')
     if later:
       raise NotImplementedError(
           'not in the PyTorch port yet: ' + '; '.join(later))
+    if self.compute_dtype not in COMPUTE_DTYPES:
+      raise ValueError(f'compute_dtype must be one of '
+                       f'{sorted(COMPUTE_DTYPES)}, got '
+                       f'{self.compute_dtype!r}')
     if self.use_pallas_vtrace and self.use_associative_scan:
       raise ValueError('use_pallas_vtrace and use_associative_scan are '
                        'mutually exclusive — pick one V-trace form')

@@ -14,7 +14,7 @@ that `ImpalaAgent.load_state_dict` accepts:
 This module imports numpy and torch only; the tests hand it the tree.
 """
 
-from typing import Dict, Mapping
+from typing import Dict, Mapping, Tuple
 
 import numpy as np
 import torch
@@ -26,10 +26,16 @@ def _tensor(x) -> torch.Tensor:
   return torch.from_numpy(np.array(x, dtype=np.float32, copy=True))
 
 
+def conv_from_jax(kernel, bias) -> Tuple[torch.Tensor, torch.Tensor]:
+  """A Flax conv's HWIO kernel and bias -> the port's OIHW weight and
+  bias (float32 CPU tensors)."""
+  return (_tensor(np.transpose(np.asarray(kernel, np.float32), (3, 2, 0, 1))),
+          _tensor(bias))
+
+
 def _conv(prefix: str, p: Mapping, out: Dict):
-  out[prefix + '.weight'] = _tensor(
-      np.transpose(np.asarray(p['kernel']), (3, 2, 0, 1)))
-  out[prefix + '.bias'] = _tensor(p['bias'])
+  out[prefix + '.weight'], out[prefix + '.bias'] = conv_from_jax(
+      p['kernel'], p['bias'])
 
 
 def _dense(prefix: str, p: Mapping, out: Dict):

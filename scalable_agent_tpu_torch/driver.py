@@ -7,7 +7,7 @@ slices (ROADMAP.md).
 
 import torch
 
-from scalable_agent_tpu_torch.config import Config
+from scalable_agent_tpu_torch.config import COMPUTE_DTYPES, Config
 from scalable_agent_tpu_torch.models import ImpalaAgent
 
 
@@ -24,7 +24,9 @@ def resolve_device(device) -> torch.device:
 
 def build_agent(config: Config, num_actions: int) -> ImpalaAgent:
   """The config's agent, on the CPU with PyTorch's default init: callers
-  initialise it (models.init_params) and move it to their device."""
+  initialise it (models.init_params) and move it to their device. Its
+  parameters are float32 whatever `config.compute_dtype` says."""
   return ImpalaAgent(num_actions=num_actions,
                      frame_shape=(config.height, config.width, 3),
-                     torso=config.torso)
+                     torso=config.torso,
+                     dtype=COMPUTE_DTYPES[config.compute_dtype])

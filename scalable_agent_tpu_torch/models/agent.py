@@ -10,6 +10,13 @@
   `nn.LSTMCell` has two. `bias_ih` is therefore a zero *buffer*, not a
   parameter, so the trainable parameters are exactly Flax's.
 - Heads (policy logits, baseline) run over the merged [T*B] batch.
+- `dtype` is Flax's compute dtype. In bfloat16 the torso, the core input,
+  the LSTM step and the heads compute in bf16; the carry is cast to bf16
+  on entry and back to float32 on exit, and logits and baseline come out
+  float32. The bf16 LSTM step is OptimizedLSTMCell's arithmetic written
+  out (`_lstm_step`), since `nn.LSTMCell`'s fused CUDA cell computes its
+  gates in float32 and rounds only c and h. The float32 path keeps
+  `nn.LSTMCell`.
 - With no generator the action is argmax; with one it is sampled
   (Gumbel-max, drawn from that generator on the logits' device).
 
@@ -24,8 +31,21 @@ import torch
 from torch import nn
 from torch.nn import functional as F
 
-from scalable_agent_tpu_torch.models.torsos import TORSOS
+from scalable_agent_tpu_torch.models.torsos import TORSOS, Dense
 from scalable_agent_tpu_torch.structs import AgentOutput, map_structure
+
+
+def _lstm_step(cell: nn.LSTMCell, input_product, c, h, dtype):
+  """One step of Flax's OptimizedLSTMCell in `dtype` on the port's
+  LSTMCell parameters: `input_product` (x @ W_ih, no bias, precomputed
+  for all steps at once: a row's product does not depend on the others)
+  plus the hidden product with its bias, then i, f, g, o,
+  `c' = f*c + i*g` and `h' = o*tanh(c')`, every op rounding in `dtype`.
+  Returns (c', h')."""
+  hidden = F.linear(h, cell.weight_hh.to(dtype)) + cell.bias_hh.to(dtype)
+  i, f, g, o = (hidden + input_product).chunk(4, dim=-1)
+  c = torch.sigmoid(f) * c + torch.sigmoid(i) * torch.tanh(g)
+  return c, torch.sigmoid(o) * torch.tanh(c)
 
 
 class ImpalaAgent(nn.Module):
@@ -36,20 +56,22 @@ class ImpalaAgent(nn.Module):
   """
 
   def __init__(self, num_actions: int, frame_shape=(72, 96, 3),
-               torso: str = 'deep', hidden_size: int = 256):
+               torso: str = 'deep', hidden_size: int = 256,
+               dtype: torch.dtype = torch.float32):
     super().__init__()
     self.num_actions = num_actions
     self.hidden_size = hidden_size
-    self.torso = TORSOS[torso](tuple(frame_shape))
+    self.dtype = dtype
+    self.torso = TORSOS[torso](tuple(frame_shape), dtype=dtype)
     core_input = self.torso.linear.out_features + 1 + num_actions
     self.core = nn.LSTMCell(core_input, hidden_size)
     del self.core.bias_ih
     self.core.register_buffer('bias_ih', torch.zeros(4 * hidden_size))
-    self.policy_logits = nn.Linear(hidden_size, num_actions)
-    self.baseline = nn.Linear(hidden_size, 1)
+    self.policy_logits = Dense(hidden_size, num_actions, compute_dtype=dtype)
+    self.baseline = Dense(hidden_size, 1, compute_dtype=dtype)
 
   def initial_state(self, batch_size: int, device=None):
-    """Zeroed LSTM carry (c, h), each [B, hidden]."""
+    """Zeroed float32 LSTM carry (c, h), each [B, hidden]."""
     shape = (batch_size, self.hidden_size)
     return (torch.zeros(shape, device=device),
             torch.zeros(shape, device=device))
@@ -80,19 +102,25 @@ class ImpalaAgent(nn.Module):
         [torso_out, clipped_reward.to(torso_out.dtype), one_hot_action],
         dim=-1).reshape(t, b, -1)
 
-    c, h = core_state
+    c, h = (s.to(self.dtype) for s in core_state)
+    if self.dtype != torch.float32:
+      input_product = F.linear(core_input, self.core.weight_ih.to(self.dtype))
     outputs = []
     for step in range(t):
       reset = done[step].reshape(b, 1)
       c = c.masked_fill(reset, 0.0)
       h = h.masked_fill(reset, 0.0)
-      h, c = self.core(core_input[step], (h, c))
+      if self.dtype == torch.float32:
+        h, c = self.core(core_input[step], (h, c))
+      else:
+        c, h = _lstm_step(self.core, input_product[step], c, h, self.dtype)
       outputs.append(h)
     flat_core = torch.stack(outputs).reshape(t * b, -1)
+    c, h = c.float(), h.float()
 
-    policy_logits = self.policy_logits(flat_core).reshape(
+    policy_logits = self.policy_logits(flat_core).float().reshape(
         t, b, self.num_actions)
-    baseline = self.baseline(flat_core).reshape(t, b, 1)[..., 0]
+    baseline = self.baseline(flat_core).float().reshape(t, b, 1)[..., 0]
 
     if sample_generator is not None:
       uniform = torch.rand(policy_logits.shape, generator=sample_generator,

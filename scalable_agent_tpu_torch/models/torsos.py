@@ -12,6 +12,12 @@ to match Flax exactly:
 - Flax flattens NHWC before the Dense layer, so the port permutes back to
   NHWC before its flatten; converted Dense weights then need no row
   permutation.
+
+`dtype` is Flax's `dtype=`: the compute dtype. Parameters stay float32;
+each layer casts its input and its parameters to `dtype`, computes there,
+and adds the bias to the rounded product (`Conv`, `Dense`), as Flax does.
+The frame is scaled in `dtype` (`frame.to(dtype) / 255`), and the pool,
+residual adds, flatten and relus stay in it.
 """
 
 import math
@@ -42,12 +48,55 @@ def _flatten_nhwc(x):
   return x.permute(0, 2, 3, 1).reshape(x.shape[0], -1)
 
 
+class Conv(nn.Conv2d):
+  """`nn.Conv2d` computing in `compute_dtype` like Flax's
+  `nn.Conv(dtype=)`; its parameters stay float32.
+
+  In bfloat16 the bias is added to the bf16-rounded convolution, where
+  cuDNN's fused bias would add it before the rounding. In float32 the two
+  round alike, and the fused form is kept."""
+
+  def __init__(self, *args, compute_dtype: torch.dtype = torch.float32,
+               **kwargs):
+    super().__init__(*args, **kwargs)
+    self.compute_dtype = compute_dtype
+
+  def forward(self, x):
+    dtype = self.compute_dtype
+    if dtype == torch.float32:
+      return super().forward(x)
+    y = self._conv_forward(x.to(dtype), self.weight.to(dtype), None)
+    return y + self.bias.to(dtype)[:, None, None]
+
+
+class Dense(nn.Linear):
+  """`nn.Linear` computing in `compute_dtype` like Flax's
+  `nn.Dense(dtype=)`: the bias is added to the rounded product."""
+
+  def __init__(self, *args, compute_dtype: torch.dtype = torch.float32,
+               **kwargs):
+    super().__init__(*args, **kwargs)
+    self.compute_dtype = compute_dtype
+
+  def forward(self, x):
+    dtype = self.compute_dtype
+    if dtype == torch.float32:
+      return super().forward(x)
+    return F.linear(x.to(dtype), self.weight.to(dtype)) + self.bias.to(dtype)
+
+
+def scaled_nchw(frame, dtype):
+  """uint8 NHWC frames -> NCHW `frame.to(dtype) / 255`: in bfloat16 the
+  quotient is rounded to bfloat16, as in Flax."""
+  return frame.permute(0, 3, 1, 2).to(dtype) / 255.0
+
+
 class ResidualBlock(nn.Module):
 
-  def __init__(self, channels: int):
+  def __init__(self, channels: int, dtype: torch.dtype = torch.float32):
     super().__init__()
-    self.conv0 = nn.Conv2d(channels, channels, 3, padding=1)
-    self.conv1 = nn.Conv2d(channels, channels, 3, padding=1)
+    self.conv0 = Conv(channels, channels, 3, padding=1, compute_dtype=dtype)
+    self.conv1 = Conv(channels, channels, 3, padding=1, compute_dtype=dtype)
 
   def forward(self, x):
     y = self.conv0(F.relu(x))
@@ -57,11 +106,12 @@ class ResidualBlock(nn.Module):
 
 class _Section(nn.Module):
 
-  def __init__(self, in_channels: int, channels: int, num_blocks: int):
+  def __init__(self, in_channels: int, channels: int, num_blocks: int,
+               dtype: torch.dtype = torch.float32):
     super().__init__()
-    self.conv = nn.Conv2d(in_channels, channels, 3, padding=1)
+    self.conv = Conv(in_channels, channels, 3, padding=1, compute_dtype=dtype)
     self.blocks = nn.ModuleList(
-        ResidualBlock(channels) for _ in range(num_blocks))
+        ResidualBlock(channels, dtype) for _ in range(num_blocks))
 
   def forward(self, x):
     x = max_pool_same(self.conv(x))
@@ -77,18 +127,21 @@ class DeepResNetTorso(nn.Module):
   def __init__(self, frame_shape: Tuple[int, int, int],
                sections: Sequence[Tuple[int, int]] = ((16, 2), (32, 2),
                                                       (32, 2)),
-               output_size: int = 256):
+               output_size: int = 256, dtype: torch.dtype = torch.float32):
     super().__init__()
+    self.dtype = dtype
     height, width, in_channels = frame_shape
     self.sections = nn.ModuleList()
     for channels, num_blocks in sections:
-      self.sections.append(_Section(in_channels, channels, num_blocks))
+      self.sections.append(_Section(in_channels, channels, num_blocks,
+                                    dtype))
       in_channels = channels
       height, width = -(-height // 2), -(-width // 2)
-    self.linear = nn.Linear(height * width * in_channels, output_size)
+    self.linear = Dense(height * width * in_channels, output_size,
+                        compute_dtype=dtype)
 
   def forward(self, frame):
-    x = frame.permute(0, 3, 1, 2).to(torch.float32) / 255.0
+    x = scaled_nchw(frame, self.dtype)
     for section in self.sections:
       x = section(x)
     x = _flatten_nhwc(F.relu(x))
@@ -100,21 +153,22 @@ class ShallowTorso(nn.Module):
   flatten -> Linear(256), relu between layers, VALID padding."""
 
   def __init__(self, frame_shape: Tuple[int, int, int],
-               output_size: int = 256):
+               output_size: int = 256, dtype: torch.dtype = torch.float32):
     super().__init__()
+    self.dtype = dtype
     height, width, in_channels = frame_shape
     if height < 20 or width < 20:
       raise ValueError(
           f'shallow torso needs frames >= 20x20, got {height}x{width} '
           '(--height/--width)')
-    self.conv0 = nn.Conv2d(in_channels, 16, 8, stride=4)
-    self.conv1 = nn.Conv2d(16, 32, 4, stride=2)
+    self.conv0 = Conv(in_channels, 16, 8, stride=4, compute_dtype=dtype)
+    self.conv1 = Conv(16, 32, 4, stride=2, compute_dtype=dtype)
     height, width = (height - 8) // 4 + 1, (width - 8) // 4 + 1
     height, width = (height - 4) // 2 + 1, (width - 4) // 2 + 1
-    self.linear = nn.Linear(height * width * 32, output_size)
+    self.linear = Dense(height * width * 32, output_size, compute_dtype=dtype)
 
   def forward(self, frame):
-    x = frame.permute(0, 3, 1, 2).to(torch.float32) / 255.0
+    x = scaled_nchw(frame, self.dtype)
     x = F.relu(self.conv0(x))
     x = F.relu(self.conv1(x))
     return F.relu(self.linear(_flatten_nhwc(x)))

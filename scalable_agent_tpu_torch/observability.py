@@ -5,14 +5,20 @@ JSONL appender they share inlined.
 Summaries are JSONL events, one object per line (wall_time, step, tag,
 value), in `<logdir>/summaries.jsonl`: the same file and format as the JAX
 package writes.
+
+`cuda_median_ms` is the port's own: the kernel timer of chip_smoke.py and
+scripts/conv_pool.py.
 """
 
 import collections
 import json
 import os
+import statistics
 import threading
 import time
 from typing import Dict
+
+import torch
 
 
 class SummaryWriter:
@@ -75,3 +81,21 @@ class FpsMeter:
     if span <= 0:
       return 0.0
     return sum(delta for _, delta in self._events) / span
+
+
+def cuda_median_ms(fn, repeats: int, warmup: int = 10) -> float:
+  """Median time of one call of `fn` on the current CUDA device, each call
+  timed by its own pair of CUDA events after `warmup` untimed calls."""
+  for _ in range(warmup):
+    fn()
+  torch.cuda.synchronize()
+  times = []
+  for _ in range(repeats):
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    fn()
+    end.record()
+    end.synchronize()
+    times.append(start.elapsed_time(end))
+  return statistics.median(times)

@@ -1,9 +1,11 @@
 """Where the time of one fused Anakin step goes, on one NVIDIA card.
 
-  python -m scalable_agent_tpu_torch.profile_anakin
+  python -m scalable_agent_tpu_torch.profile_anakin \
+      [--compute_dtype=bfloat16]
 
 Runs the chip_smoke.py slice configuration (deep torso, 72x96 frames,
-T=100, B=32, 9 actions, float32 with TF32 off, fused V-trace) and prints:
+T=100, B=32, 9 actions, fused V-trace; `--compute_dtype` float32, the
+default, with TF32 off, or bfloat16) and prints:
 
 - host wall time per fused step, split into acting (T policy steps and
   env steps) and learning (the train step), each ended by a
@@ -16,7 +18,9 @@ T=100, B=32, 9 actions, float32 with TF32 off, fused V-trace) and prints:
 then one JSON line with those numbers. It needs CUDA.
 """
 
+import argparse
 import json
+import sys
 import time
 
 import torch
@@ -41,11 +45,16 @@ def _device_us(event):
   return 0.0
 
 
-def main():
+def main(argv=None):
+  parser = argparse.ArgumentParser(
+      prog='python -m scalable_agent_tpu_torch.profile_anakin')
+  parser.add_argument('--compute_dtype', default='float32',
+                      choices=('float32', 'bfloat16'))
+  args = parser.parse_args(argv)
   driver.resolve_device('cuda')
   torch.backends.cudnn.allow_tf32 = False
   torch.backends.cuda.matmul.allow_tf32 = False
-  config = Config(**SLICE)
+  config = Config(**SLICE, compute_dtype=args.compute_dtype)
   env_core = anakin.make_env_core(config)
   agent = driver.build_agent(config, env_core.num_actions)
   train = learner.make_train_step_fn(agent, config)
@@ -96,8 +105,12 @@ def main():
                max(sum(e.count for e in vtrace), 1)) if vtrace else None
 
   card = torch.cuda.get_device_name(0)
-  print(f'{card}: fused step {step_ms:.1f} ms = acting '
-        f'{step_ms - learn_ms:.1f} ms + learning {learn_ms:.1f} ms '
+  torch.cuda.reset_peak_memory_stats()
+  carry, metrics = step(carry)
+  torch.cuda.synchronize()
+  peak_gib = torch.cuda.max_memory_allocated() / 2**30
+  print(f'{card}, {config.compute_dtype}: fused step {step_ms:.1f} ms = '
+        f'acting {step_ms - learn_ms:.1f} ms + learning {learn_ms:.1f} ms '
         f'({config.frames_per_step / step_ms * 1e3:.0f} env-frames/s)')
   print(f'profiled window: {STEPS} steps in {window_s * 1e3:.1f} ms, '
         f'device busy {busy_us / 1e3:.1f} ms, idle share '
@@ -107,9 +120,11 @@ def main():
           f'{e.count // STEPS:6d} calls/step  {e.key[:90]}')
   if vtrace_us is not None:
     print(f'vtrace kernel: {vtrace_us:.2f} us device time per launch')
+  print(f'peak {peak_gib:.3f} GiB allocated over one fused step')
   print(json.dumps({
-      'card': card, 'step_ms': step_ms, 'acting_ms': step_ms - learn_ms,
-      'learning_ms': learn_ms,
+      'card': card, 'compute_dtype': config.compute_dtype,
+      'peak_gib': peak_gib, 'step_ms': step_ms,
+      'acting_ms': step_ms - learn_ms, 'learning_ms': learn_ms,
       'env_frames_per_sec': config.frames_per_step / step_ms * 1e3,
       'device_busy_ms_per_step': busy_us / 1e3 / STEPS,
       'idle_share': 1 - busy_us / 1e6 / window_s,
@@ -119,4 +134,4 @@ def main():
 
 
 if __name__ == '__main__':
-  main()
+  main(sys.argv[1:])

@@ -6,9 +6,12 @@ no JAX, so it also runs where JAX is not installed:
 
   python -m pytest --noconftest -m requires_cuda tests/test_torch_cuda.py
 
-Tolerance: the kernel against its twin on the card, rtol 1e-5 / atol 1e-6
-(the same arithmetic; the compiler may contract a multiply-add into an
-FMA, which rounds once instead of twice).
+Tolerances: the V-trace kernel against its twin on the card, rtol 1e-5 /
+atol 1e-6 (the same arithmetic; the compiler may contract a multiply-add
+into an FMA, which rounds once instead of twice). The fused conv+pool
+kernel against its twin, max|kernel - plain| <= 2**-7 * max|plain|: one
+bf16 ulp at the output's scale, since the two sum the float32 products in
+another order before rounding to bf16.
 """
 
 import numpy as np
@@ -16,8 +19,10 @@ import pytest
 import torch
 
 from scalable_agent_tpu_torch.config import Config
+from scalable_agent_tpu_torch.ops import conv_pool_cuda
 from scalable_agent_tpu_torch.ops import vtrace_cuda
 from scalable_agent_tpu_torch.parallel import anakin
+from scalable_agent_tpu_torch.scripts import conv_pool as conv_pool_script
 
 pytestmark = pytest.mark.requires_cuda
 
@@ -87,3 +92,32 @@ def test_anakin_on_card_launches_the_kernel_once_per_step(cuda):
   assert vtrace_cuda.from_importance_weights.launches == 3
   assert carry.train_state.update_steps == 3
   assert all(np.isfinite(h['total_loss']) for h in history)
+
+
+@pytest.mark.parametrize('shape', [(3232, 72, 96), (32, 72, 96), (5, 21, 27),
+                                   (1, 1, 1)], ids=str)
+def test_conv_pool_kernel_matches_twin(cuda, shape):
+  frames, weight, bias = conv_pool_script.make_inputs(*shape, cuda, seed=1)
+  before = conv_pool_cuda.fused_conv_pool.launches
+  out = conv_pool_cuda.fused_conv_pool(frames, weight, bias)
+  torch.cuda.synchronize()
+  assert conv_pool_cuda.fused_conv_pool.launches == before + 1
+  assert out.dtype == torch.bfloat16
+  assert out.shape == conv_pool_cuda.output_shape(*shape)
+  ref = conv_pool_cuda.plain_conv_pool(frames, weight, bias)
+  conv_pool_script.parity(out, ref)  # raises past 2**-7 * max|plain|
+
+
+def test_bf16_anakin_on_card_keeps_float32_state(cuda):
+  cfg = Config(env_backend='bandit', batch_size=4, unroll_length=5,
+               num_action_repeats=1, episode_length=4, height=24,
+               width=32, torso='deep', use_instruction=False,
+               use_pallas_vtrace=True, compute_dtype='bfloat16', seed=0)
+  vtrace_cuda.from_importance_weights.launches = 0
+  carry, history, _ = anakin.run(cfg, 3)
+  assert vtrace_cuda.from_importance_weights.launches == 3
+  assert carry.train_state.update_steps == 3
+  assert all(np.isfinite(h['total_loss']) for h in history)
+  assert all(p.dtype == torch.float32 and p.is_cuda
+             for p in carry.train_state.params.values())
+  assert all(s.dtype == torch.float32 for s in carry.core_state)

@@ -264,9 +264,8 @@ def test_watchdog_keeps_old_state_on_a_nan_batch():
 def test_unported_settings_raise():
   for kw in ({'use_popart': True}, {'pixel_control_cost': 0.1},
              {'surrogate': 'impact'}, {'replay_k': 2},
-             {'curriculum': 'regret'}, {'compute_dtype': 'bfloat16'},
-             {'use_instruction': True}, {'level_name': 'dmlab30'},
-             {'torso': 'deep_fast'}):
+             {'curriculum': 'regret'}, {'use_instruction': True},
+             {'level_name': 'dmlab30'}, {'torso': 'deep_fast'}):
     with pytest.raises(NotImplementedError, match='not in the PyTorch'):
       Config(**kw)
   with pytest.raises(ValueError, match='mutually exclusive'):
