@@ -40,18 +40,43 @@ Phases, each of which raises (exit code != 0) when it fails:
 9. conv_pool_entry — K2's entry point, `python -m
              scalable_agent_tpu_torch.scripts.conv_pool`, at its card
              shape [3232, 72, 96].
+10. vtrace_sharded — the sharded V-trace kernel (K1b) once per rank of an
+             explicit-rank mesh, at [100, 32] over 2 and 4 ranks and
+             [6, 70, 3] over 2, three threshold pairs: the ranks' results
+             together are bit-equal to K1 on the whole batch, and within
+             rtol 1e-5 / atol 1e-6 of the plain twin; B=70 over 4 ranks
+             raises. Its median time over 200 launches at the per-rank
+             shape [100, 16] (CUDA events, and device time by
+             torch.profiler), the twin's, and the bound.
+11. slice_dp — 2 ranks on the one card over gloo, the slice's config
+             (global B=32, 16 per rank) for 4 fused steps through
+             `anakin.run(mesh=...)`: finite losses, update_steps == 4, the
+             ranks' params bit-equal (a checksum over the group), K1b
+             launched once per step per rank; global env-frames/s, peak
+             memory per rank and the gloo all-reduce's share of the step.
+             Then the sharded train step on a fixed full-width global
+             batch against the 1-rank step: loss rtol 2e-4, params rtol
+             5e-4 / atol 5e-6.
+12. cli_dp — `python -m torch.distributed.run --standalone
+             --nproc_per_node=1 -m scalable_agent_tpu_torch.experiment
+             --mode=anakin` for 2 full-width steps: an NCCL group of one;
+             its summaries.jsonl must hold a finite total_loss.
 
-Every kernel's launch count is set to 0 just before each path (the two
-slices and the K2 entry point) and read just after; a kernel that its path
-did not launch fails the run. The second-to-last line of the output is the
+Every kernel's launch count is set to 0 just before each path (the three
+slices and the K2 entry point; slice_dp's ranks count their own and
+report them) and read just after; a kernel that its path did not launch
+fails the run. The second-to-last line of the output is the
 JSON `{"kernels": [...]}` record, the last `{"ok": true, "device": {...}}`.
 Without CUDA, or run outside the repo, it exits non-zero before printing
 either.
 """
 
+import dataclasses
+import hashlib
 import json
 import math
 import os
+import socket
 import subprocess
 import sys
 import tempfile
@@ -59,6 +84,8 @@ import time
 
 import numpy as np
 import torch
+import torch.distributed as dist
+import torch.multiprocessing as mp
 
 # The port first: outside the repo this import fails before any output.
 from scalable_agent_tpu_torch import driver
@@ -71,6 +98,10 @@ from scalable_agent_tpu_torch.ops import build
 from scalable_agent_tpu_torch.ops import conv_pool_cuda
 from scalable_agent_tpu_torch.ops import vtrace_cuda
 from scalable_agent_tpu_torch.parallel import anakin
+from scalable_agent_tpu_torch.parallel import distributed
+from scalable_agent_tpu_torch.parallel import mesh as mesh_lib
+from scalable_agent_tpu_torch.parallel import sharding
+from scalable_agent_tpu_torch.parallel import train_parallel
 from scalable_agent_tpu_torch.profile_anakin import SLICE
 from scalable_agent_tpu_torch.scripts import conv_pool as conv_pool_script
 from scalable_agent_tpu_torch.structs import (ActorOutput, AgentOutput,
@@ -91,9 +122,19 @@ SLICE_STEPS = 4
 
 CONV_POOL_SHAPES = [(3232, 72, 96), (32, 72, 96), (5, 21, 27)]
 
+CLIPS = [(1.0, 1.0), (None, None), (3.7, 2.2)]
+# K1b: (global shape, ranks); timed at the slice's per-rank shape.
+K1B_CASES = [((100, 32), 2), ((100, 32), 4), ((6, 70, 3), 2)]
+K1B_TIMED = ((100, 32), 2)
+
+DP_RANKS = 2
+DP_TIMEOUT_SECS = 900
+GROUP_TIMEOUT_SECS = 300
+
 # Launch counters of every kernel of the port, by kernel name.
 COUNTERS = {'vtrace': vtrace_cuda.from_importance_weights,
-            'conv_pool': conv_pool_cuda.fused_conv_pool}
+            'conv_pool': conv_pool_cuda.fused_conv_pool,
+            'vtrace_sharded': vtrace_cuda.sharded_from_importance_weights}
 
 
 def log(*args):
@@ -149,7 +190,7 @@ def phase_kernels():
   record = None
   worst = 0.0
   for seed, shape in enumerate([(100, 32), (7, 300), (6, 70, 3)]):
-    for clips in [(1.0, 1.0), (None, None), (3.7, 2.2)]:
+    for clips in CLIPS:
       x = _vtrace_inputs(shape, seed)
       kw = dict(clip_rho_threshold=clips[0], clip_pg_rho_threshold=clips[1])
       vs, pg = vtrace_cuda.from_importance_weights(**x, **kw)
@@ -175,6 +216,98 @@ def phase_kernels():
                       bound_by=bound_by)
   record['max_abs_err'] = worst
   return record
+
+
+def _k1b_per_rank(x, shards, kw):
+  """K1b on each rank's block of `x` (an explicit-rank mesh per rank):
+  the ranks' (vs, pg) concatenated along the batch dim."""
+  ndim = x['log_rhos'].ndim
+  batch = x['log_rhos'].shape[1]
+  outs = []
+  for rank in range(shards):
+    local = {k: sharding.local_shard(
+        v, (sharding.spec_batch_lead(ndim - 1) if k == 'bootstrap_value'
+            else sharding.spec_time_major(ndim)), rank, shards).contiguous()
+             for k, v in x.items()}
+    mesh = mesh_lib.Mesh(rank=rank, size=shards,
+                         device=x['log_rhos'].device)
+    outs.append(vtrace_cuda.sharded_from_importance_weights(
+        mesh, **local, **kw, batch_size=batch))
+  return tuple(torch.cat(parts, dim=1) for parts in zip(*outs))
+
+
+def _profiled_device_us(fn, launches, kernel_name):
+  """Device time per launch of the kernel named `kernel_name` over
+  `launches` calls of `fn`, by torch.profiler; None when the profiler
+  shows no device time."""
+  activities = [torch.profiler.ProfilerActivity.CPU,
+                torch.profiler.ProfilerActivity.CUDA]
+  with torch.profiler.profile(activities=activities) as prof:
+    for _ in range(launches):
+      fn()
+    torch.cuda.synchronize()
+  found = [e for e in prof.key_averages() if kernel_name in e.key]
+  total = sum(getattr(e, 'self_device_time_total',
+                      getattr(e, 'self_cuda_time_total', 0.0))
+              for e in found)
+  count = sum(e.count for e in found)
+  return total / count if count and total else None
+
+
+def phase_vtrace_sharded():
+  """K1b per rank against K1 on the whole batch (bit-equal) and the
+  plain twin; its times at the per-rank shape [100, 16]."""
+  worst = 0.0
+  for seed, (shape, shards) in enumerate(K1B_CASES):
+    for clips in CLIPS:
+      x = _vtrace_inputs(shape, seed)
+      kw = dict(clip_rho_threshold=clips[0], clip_pg_rho_threshold=clips[1])
+      vs, pg = _k1b_per_rank(x, shards, kw)
+      whole_vs, whole_pg = vtrace_cuda.from_importance_weights(**x, **kw)
+      torch.cuda.synchronize()
+      if not (torch.equal(vs, whole_vs) and torch.equal(pg, whole_pg)):
+        raise AssertionError(
+            f'K1b over {shards} ranks at {list(shape)} clips={clips} is not '
+            f'bit-equal to K1: max diff '
+            f'{float((vs - whole_vs).abs().max())}, '
+            f'{float((pg - whole_pg).abs().max())}')
+      ref_vs, ref_pg = vtrace_cuda.plain_from_importance_weights(**x, **kw)
+      torch.testing.assert_close(vs, ref_vs, rtol=KERNEL_RTOL,
+                                 atol=KERNEL_ATOL)
+      torch.testing.assert_close(pg, ref_pg, rtol=KERNEL_RTOL,
+                                 atol=KERNEL_ATOL)
+      err = max(float((vs - ref_vs).abs().max()),
+                float((pg - ref_pg).abs().max()))
+      worst = max(worst, err)
+      log(f'vtrace_sharded {list(shape)} over {shards} ranks clips={clips}: '
+          f'bit-equal to K1; max_abs_err vs plain {err:.3e}')
+  x = _vtrace_inputs((6, 70, 3), 0)
+  try:
+    _k1b_per_rank(x, 4, {})
+  except ValueError as e:
+    log(f'vtrace_sharded [6, 70, 3] over 4 ranks raises: {e}')
+  else:
+    raise AssertionError('K1b split B=70 over 4 ranks')
+
+  (shape, shards) = K1B_TIMED
+  local_shape = (shape[0], shape[1] // shards) + shape[2:]
+  x = _vtrace_inputs(local_shape, 0)
+  mesh = mesh_lib.Mesh(rank=0, size=shards, device=x['log_rhos'].device)
+  launch = lambda: vtrace_cuda.sharded_from_importance_weights(  # noqa: E731
+      mesh, **x, batch_size=shape[1])
+  ms = cuda_median_ms(launch, 200)
+  device_us = _profiled_device_us(launch, 200, 'vtrace_kernel')
+  plain_ms = cuda_median_ms(
+      lambda: vtrace_cuda.plain_from_importance_weights(**x), 30)
+  bound_ms, bound_by, nbytes = _vtrace_bound_ms(local_shape)
+  device = ('not measured (no device events)' if device_us is None
+            else f'{device_us:.2f} us')
+  log(f'vtrace_sharded per-rank shape {list(local_shape)}: {ms:.5f} ms per '
+      f'call (CUDA events), device time per launch {device}; plain '
+      f'{plain_ms:.5f} ms; bound {bound_ms:.3e} ms ({bound_by}, {nbytes} '
+      'bytes)')
+  return dict(ms=ms, device_us=device_us, plain_ms=plain_ms,
+              bound_ms=bound_ms, bound_by=bound_by, max_abs_err=worst)
 
 
 def _param_snapshot(params):
@@ -434,6 +567,185 @@ def phase_cli(compute_dtype='float32'):
       f'total_loss {losses}')
 
 
+@dataclasses.dataclass(frozen=True)
+class _TimedMesh(mesh_lib.Mesh):
+  """A mesh whose all-reduce is timed on the host, from a synchronize
+  before it (gloo copies a CUDA tensor to the host, which waits for the
+  stream anyway) to one after; the wait for the other rank is in it."""
+  seconds: list = dataclasses.field(default_factory=list)
+
+  def all_reduce_sum_(self, tensor):
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = super().all_reduce_sum_(tensor)
+    torch.cuda.synchronize()
+    self.seconds.append(time.perf_counter() - t0)
+    return out
+
+
+def _params_digest(params):
+  digest = hashlib.sha256()
+  for k, v in sorted(params.items()):
+    digest.update(k.encode())
+    digest.update(v.detach().cpu().numpy().tobytes())
+  return digest.hexdigest()
+
+
+def _seeded_agent(config, device):
+  agent = driver.build_agent(config, SLICE['num_actions'])
+  init_params(agent, torch.Generator().manual_seed(config.seed))
+  return agent.to(device)
+
+
+def _dp_rank(rank, world, port, outdir):
+  """One rank of the slice_dp phase (a spawned process): 4 fused steps
+  over a gloo group on the shared card, then the sharded train step on a
+  fixed full-width batch (rank 0 also the 1-rank step). Writes its
+  results to `outdir`/rank<r>.json."""
+  torch.backends.cudnn.allow_tf32 = False
+  torch.backends.cuda.matmul.allow_tf32 = False
+  config = Config(**SLICE, coordinator_address=f'localhost:{port}',
+                  num_processes=world, process_id=rank)
+  device = distributed.maybe_initialize(config, backend='gloo',
+                                        device='cuda:0',
+                                        timeout_secs=GROUP_TIMEOUT_SECS)
+  group_mesh = mesh_lib.make_mesh(device)
+  mesh = _TimedMesh(group_mesh.rank, group_mesh.size, group_mesh.device,
+                    group_mesh.group)
+  torch.cuda.reset_peak_memory_stats()
+  for counter in COUNTERS.values():
+    counter.launches = 0
+  t0 = time.perf_counter()
+  carry, history, fps = anakin.run(config, SLICE_STEPS, device='cuda',
+                                   mesh=mesh)
+  wall = time.perf_counter() - t0
+  counts = {name: counter.launches for name, counter in COUNTERS.items()}
+  peak_gib = torch.cuda.max_memory_allocated() / 2**30
+  digests = [None] * world
+  dist.all_gather_object(digests, _params_digest(carry.train_state.params))
+  # Two all-reduces per fused step: the learner's, and mean_reward's.
+  reduce_s = mesh.seconds
+  result = dict(
+      rank=rank, counts=counts, fps=fps, wall_s=wall, peak_gib=peak_gib,
+      losses=[h['total_loss'] for h in history],
+      mean_reward=[h['mean_reward'] for h in history],
+      update_steps=carry.train_state.update_steps, digests=digests,
+      all_reduce_ms=[1e3 * v for v in reduce_s])
+  del carry
+
+  batch = _small_batch(SLICE['unroll_length'], SLICE['batch_size'],
+                       SLICE['num_actions'], SLICE['height'], SLICE['width'])
+  agent = _seeded_agent(config, device)
+  state = train_parallel.make_sharded_train_state(agent, config, group_mesh)
+  step, place = train_parallel.make_sharded_train_step(agent, config,
+                                                       group_mesh, batch)
+  state, metrics = step(state, place(batch))
+  result['step_loss'] = float(metrics['total_loss'])
+  if rank == 0:
+    params = _param_snapshot(state.params)
+    agent1 = _seeded_agent(config, device)
+    state1, metrics1 = learner.make_train_step_fn(agent1, config)(
+        learner.make_train_state(agent1, config),
+        map_structure(lambda v: v.to(device), batch))
+    single_loss = float(metrics1['total_loss'])
+    np.testing.assert_allclose(result['step_loss'], single_loss, rtol=2e-4)
+    single = _param_snapshot(state1.params)
+    err = 0.0
+    for k in single:
+      np.testing.assert_allclose(params[k].numpy(), single[k].numpy(),
+                                 rtol=5e-4, atol=5e-6, err_msg=k)
+      err = max(err, float((params[k] - single[k]).abs().max()))
+    result.update(single_loss=single_loss, max_param_diff=err)
+  with open(os.path.join(outdir, f'rank{rank}.json'), 'w') as f:
+    json.dump(result, f)
+  distributed.shutdown()
+
+
+def _free_port():
+  with socket.socket() as s:
+    s.bind(('localhost', 0))
+    return s.getsockname()[1]
+
+
+def phase_slice_dp():
+  """2 ranks sharing the card over gloo (see _dp_rank); returns the
+  launch counts of the fused-step path, summed over the ranks."""
+  with tempfile.TemporaryDirectory(prefix='chip_smoke_dp_') as outdir:
+    context = mp.start_processes(
+        _dp_rank, args=(DP_RANKS, _free_port(), outdir), nprocs=DP_RANKS,
+        join=False, start_method='spawn')
+    deadline = time.monotonic() + DP_TIMEOUT_SECS
+    # join raises when a rank fails, after stopping the others.
+    while not context.join(timeout=max(deadline - time.monotonic(), 1.0)):
+      if time.monotonic() >= deadline:
+        for process in context.processes:
+          process.kill()
+        raise RuntimeError(f'slice_dp ranks still running after '
+                           f'{DP_TIMEOUT_SECS} s')
+    ranks = []
+    for rank in range(DP_RANKS):
+      with open(os.path.join(outdir, f'rank{rank}.json')) as f:
+        ranks.append(json.load(f))
+  counts = {name: sum(r['counts'][name] for r in ranks) for name in COUNTERS}
+  log(f'slice_dp: kernel launches {counts} (by rank: '
+      f'{[r["counts"] for r in ranks]})')
+  for r in ranks:
+    if not all(math.isfinite(v) for v in r['losses']):
+      raise AssertionError(f'rank {r["rank"]}: losses {r["losses"]}')
+    if r['update_steps'] != SLICE_STEPS:
+      raise AssertionError(f'rank {r["rank"]}: update_steps '
+                           f'{r["update_steps"]}')
+    if r['counts']['vtrace_sharded'] != SLICE_STEPS or r['counts']['vtrace']:
+      raise AssertionError(f'rank {r["rank"]}: launches {r["counts"]} in '
+                           f'{SLICE_STEPS} fused steps')
+    if len(set(r['digests'])) != 1:
+      raise AssertionError(f'ranks\' params differ: {r["digests"]}')
+  config = Config(**SLICE)
+  for r in ranks:
+    # Timed steps 2..4; two all-reduces per step (learner, mean_reward).
+    timed = r['all_reduce_ms'][2:]
+    reduce_ms = sum(timed) / (SLICE_STEPS - 1)
+    step_ms = config.frames_per_step / r['fps'] * 1e3
+    log(f'slice_dp rank {r["rank"]}: {r["fps"]:.1f} global env-frames/s, '
+        f'{step_ms:.2f} ms per fused step, all-reduce {reduce_ms:.2f} ms '
+        f'per step ({reduce_ms / step_ms:.4f} of the step; per call '
+        f'{[round(v, 3) for v in r["all_reduce_ms"]]} ms), peak '
+        f'{r["peak_gib"]:.3f} GiB; losses {r["losses"]}; mean_reward '
+        f'{r["mean_reward"]}; params sha256 {r["digests"][0][:16]}')
+  log(f'slice_dp sharded train step at full width: loss 2 ranks '
+      f'{ranks[0]["step_loss"]} / {ranks[1]["step_loss"]}, 1 rank '
+      f'{ranks[0]["single_loss"]}; max |param diff| '
+      f'{ranks[0]["max_param_diff"]:.3e}')
+  return counts
+
+
+def phase_cli_dp():
+  """The CLI under torch.distributed.run: an NCCL group of one rank."""
+  config = Config(**SLICE)
+  with tempfile.TemporaryDirectory(prefix='chip_smoke_cli_dp_') as logdir:
+    cmd = [sys.executable, '-m', 'torch.distributed.run', '--standalone',
+           '--nproc_per_node=1', '-m', 'scalable_agent_tpu_torch.experiment',
+           '--mode=anakin', f'--logdir={logdir}', '--summary_secs=0',
+           f'--total_environment_frames={2 * config.frames_per_step}']
+    for field, value in SLICE.items():
+      cmd.append(f'--{field}={value}')
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, capture_output=True, text=True, timeout=600,
+                          cwd=os.path.dirname(os.path.abspath(__file__)))
+    if proc.returncode != 0:
+      raise RuntimeError(f'CLI under torch.distributed.run failed '
+                         f'({proc.returncode}):\n{proc.stderr}')
+    if 'process group (nccl): rank 0 of 1' not in proc.stderr:
+      raise AssertionError(f'no NCCL group joined:\n{proc.stderr}')
+    with open(os.path.join(logdir, 'summaries.jsonl')) as f:
+      events = [json.loads(line) for line in f]
+  losses = [e['value'] for e in events if e['tag'] == 'total_loss']
+  if not losses or not all(math.isfinite(v) for v in losses):
+    raise AssertionError(f'CLI total_loss: {losses}')
+  log(f'cli_dp: 2 steps in {time.perf_counter() - t0:.1f} s in an NCCL '
+      f'group of one, total_loss {losses}')
+
+
 def main():
   phases = []
 
@@ -461,6 +773,9 @@ def main():
   timed('slice_bf16_reference', phase_slice_bf16_reference)
   timed('cli_bf16', phase_cli, 'bfloat16')
   paths['conv_pool_entry'] = timed('conv_pool_entry', phase_conv_pool_entry)
+  k1b = timed('vtrace_sharded', phase_vtrace_sharded)
+  paths['slice_dp'] = timed('slice_dp', phase_slice_dp)
+  timed('cli_dp', phase_cli_dp)
   log('phases: ' + ', '.join(f'{n} {s:.1f} s' for n, s in phases))
   launches = {name: {path: counts[name] for path, counts in paths.items()}
               for name in COUNTERS}
@@ -487,7 +802,18 @@ def main():
       plain_ms=k2['plain_ms'], bound_ms=k2['bound_ms'],
       bound_by=k2['bound_by'], library_ms=k2['library_ms'],
       ok=True, max_err=k2['max_abs_err'], kernel_ms=k2['ms'])
-  print(json.dumps({'kernels': [vtrace, conv_pool]}))
+  vtrace_sharded = dict(
+      name='vtrace_sharded', route='cuda',
+      source='scalable_agent_tpu_torch/csrc/vtrace.cu',
+      replaces='scalable_agent_tpu/ops/vtrace_pallas.py:177',
+      launches=sum(launches['vtrace_sharded'].values()),
+      launches_by_path=launches['vtrace_sharded'],
+      max_abs_err=k1b['max_abs_err'], ms=k1b['ms'],
+      plain_ms=k1b['plain_ms'], bound_ms=k1b['bound_ms'],
+      bound_by=k1b['bound_by'], library_ms=None,
+      device_us=k1b['device_us'],
+      ok=True, max_err=k1b['max_abs_err'], kernel_ms=k1b['ms'])
+  print(json.dumps({'kernels': [vtrace, conv_pool, vtrace_sharded]}))
   print(json.dumps({'ok': True, 'device': {
       'platform': 'gpu', 'kind': torch.cuda.get_device_name(0),
       'count': torch.cuda.device_count()}}))

@@ -9,7 +9,7 @@ never ignores a setting silently.
 """
 
 import dataclasses
-from typing import Optional
+from typing import List, Optional
 
 import torch
 
@@ -22,6 +22,14 @@ class Config:
   # Experiment / run control.
   logdir: str = '/tmp/agent'
   mode: str = 'train'                     # train | test | anakin
+
+  # Process group (parallel/distributed.py). 'host:port' of rank 0; empty
+  # = no group, or one joined by the caller or by torch.distributed.run.
+  # In the port a process is one rank with one device: num_processes is
+  # the group's size and process_id this process's rank (-1 = 0).
+  coordinator_address: str = ''
+  num_processes: int = 1
+  process_id: int = -1
 
   # Training.
   total_environment_frames: int = int(1e9)
@@ -51,6 +59,7 @@ class Config:
   num_actions: Optional[int] = None       # backend default when None
   episode_length: int = 100               # bandit episode length
   torso: str = 'deep'                     # deep | shallow
+  model_parallelism: int = 1              # TP width: 1 (TP: ROADMAP A5b)
   # The JAX package's LSTM time-scan unroll factor (an XLA loop knob).
   # The port's core is an eager loop: it accepts the field so configs
   # carry across, and ignores it.
@@ -97,6 +106,9 @@ class Config:
     if self.curriculum != 'uniform':
       later.append(f'curriculum={self.curriculum!r} (population: ROADMAP '
                    'Queue A, population slice)')
+    if self.model_parallelism != 1:
+      later.append(f'model_parallelism={self.model_parallelism} (tensor '
+                   'parallelism: ROADMAP A5b)')
     if self.torso not in ('deep', 'shallow'):
       later.append(f'torso={self.torso!r} (the port has deep and '
                    'shallow; ROADMAP Queue A)')
@@ -124,3 +136,46 @@ class Config:
     if self.level_name == 'dmlab30':
       return True
     return self.level_name.startswith(('language_', 'psychlab_'))
+
+
+def resolve_process_id(config: Config) -> int:
+  """This process's rank as the config declares it: process_id, floored
+  at 0 (the JAX package's rule with its `task` field at its default)."""
+  return max(config.process_id, 0)
+
+
+def validate_distributed(config: Config) -> List[str]:
+  """The hard checks of the JAX package's `validate_distributed` on the
+  process-group fields: raises ValueError on an error, returns the
+  warnings. Its multi-process cross-links concern settings the port does
+  not have (SDC, TP, the hybrid filler); its refusal of multi-host
+  Anakin is the CLI's (experiment.py), where a rank is a device."""
+  warnings = []
+  if config.num_processes < 1:
+    raise ValueError(f'num_processes must be >= 1, got '
+                     f'{config.num_processes}')
+  if config.coordinator_address:
+    host, sep, port = config.coordinator_address.rpartition(':')
+    if not sep or not host or not port.isdigit():
+      raise ValueError(
+          f'coordinator_address must be host:port, got '
+          f'{config.coordinator_address!r}')
+    if config.num_processes == 1:
+      warnings.append(
+          'coordinator_address=%r with num_processes=1: a one-process '
+          'group works but coordinates nothing — drop the flag or raise '
+          'the count' % config.coordinator_address)
+    resolved_id = resolve_process_id(config)
+    if resolved_id >= config.num_processes:
+      raise ValueError(
+          f'process_id {resolved_id} out of range for num_processes='
+          f'{config.num_processes}')
+  elif config.num_processes > 1:
+    raise ValueError(
+        f'num_processes={config.num_processes} needs '
+        'coordinator_address (host:port of process 0)')
+  elif config.process_id >= 0:
+    warnings.append(
+        'process_id=%d without coordinator_address: nothing will join a '
+        'process group' % config.process_id)
+  return warnings

@@ -5,11 +5,22 @@
       --use_pallas_vtrace=true --use_instruction=false \\
       --total_environment_frames=1000000 --logdir=/path/to/run
 
+Data-parallel over N ranks of one host, one card each (NCCL):
+
+  python -m torch.distributed.run --standalone --nproc_per_node=N \\
+      -m scalable_agent_tpu_torch.experiment --mode=anakin ...
+
 The flags are the JAX CLI's (experiment.py at the repo root), for the
 config fields this slice reads; booleans take `--flag`, `--flag=true` or
-`--flag=false`. `--device` (default cuda) is the port's own: with no CUDA
-the run raises unless `--device=cpu` is given. Only `--mode=anakin` is
-ported; the other modes raise and name the slice that brings them.
+`--flag=false`. `--device` (default cuda) is the port's own: with no
+CUDA the run raises unless `--device=cpu` is given. A group is joined
+when torch.distributed.run's environment or `--coordinator_address`
+declares one (with `--num_processes` and `--process_id`); each rank then
+trains its block of the batch, as the JAX CLI's Anakin does over the
+devices of one host. Its backend follows the device: NCCL for CUDA ranks,
+one card each, gloo for CPU ranks. Anakin stays on one host: a group
+across nodes raises, as in the JAX CLI. Only `--mode=anakin` is ported;
+the other modes raise and name the slice that brings them.
 """
 
 import argparse
@@ -19,7 +30,10 @@ import sys
 import typing
 from typing import List, Optional
 
+import torch
+
 from scalable_agent_tpu_torch.config import Config
+from scalable_agent_tpu_torch.parallel import distributed
 
 
 def _bool(text: str) -> bool:
@@ -76,8 +90,29 @@ def main(argv: Optional[List[str]] = None):
     raise NotImplementedError(
         f'--mode={config.mode} (evaluation) is not in the PyTorch port '
         'yet (ROADMAP Queue A); use --mode=anakin')
+  topology = distributed.declared_topology(config)
+  if topology is not None and topology.num_nodes > 1:
+    # A rank here is a JAX device, and the JAX CLI's Anakin spans the
+    # devices of one host.
+    raise ValueError(
+        f'--mode=anakin is single-host: the group spans '
+        f'{topology.num_nodes} nodes; use --mode=train (the fleet runtime, '
+        'ROADMAP Queue A) for more than one host')
+  from scalable_agent_tpu_torch import driver
   from scalable_agent_tpu_torch.parallel import anakin
-  carry = anakin.train(config, device=device)
+  backend = 'gloo' if torch.device(device).type == 'cpu' else 'nccl'
+  rank_device = distributed.maybe_initialize(config, backend=backend,
+                                             device=device)
+  if rank_device is None:
+    carry = anakin.train(config, device=device)
+  else:
+    try:
+      carry = anakin.train(config, device=rank_device,
+                           mesh=driver.choose_mesh(config, rank_device))
+    except BaseException:
+      distributed.shutdown(wait=False)
+      raise
+    distributed.shutdown()
   logging.info('anakin training done at %d frames',
                carry.train_state.update_steps * config.frames_per_step)
   return carry

@@ -13,6 +13,12 @@ Trajectory layout reminder (time-major [T+1, B]):
   agent_outputs[i].action = a_{i-1} (action *before* o_i)
 so rewards[1:] pair with values[:-1] and the bootstrap is V(o_T).
 
+Under a mesh (parallel/mesh.py) each rank holds B/D columns of the batch
+and a replica of the parameters. The losses are sums over columns, so the
+JAX sharded step's gradient is the sum of the ranks' gradients: one SUM
+all-reduce of a flat buffer of the gradients and the four losses, after
+which every rank takes the same norm, clip, watchdog decision and update.
+
 RMSProp is written by hand because optax's differs from
 `torch.optim.RMSprop`: optax puts eps *inside* the square root,
     nu <- decay * nu + (1 - decay) * g^2
@@ -84,8 +90,12 @@ def align_batch(env_outputs, agent_outputs, learner_outputs,
       bootstrap_value=learner_outputs.baseline[-1])
 
 
-def loss_fn(agent, batch: ActorOutput, config: Config):
-  """Total IMPALA loss for one batch: (loss, metrics)."""
+LOSS_KEYS = ('total_loss', 'pg_loss', 'baseline_loss', 'entropy_loss')
+
+
+def loss_fn(agent, batch: ActorOutput, config: Config, mesh=None):
+  """Total IMPALA loss for one batch: (loss, metrics). With `mesh` the
+  batch is this rank's shard and so are the loss and metrics."""
   learner_outputs, _ = agent(batch.agent_outputs.action, batch.env_outputs,
                              batch.agent_state)
   inputs = align_batch(batch.env_outputs, batch.agent_outputs,
@@ -99,7 +109,8 @@ def loss_fn(agent, batch: ActorOutput, config: Config):
       values=inputs.values,
       bootstrap_value=inputs.bootstrap_value,
       use_associative_scan=config.use_associative_scan,
-      use_pallas=config.use_pallas_vtrace)
+      use_pallas=config.use_pallas_vtrace, mesh=mesh,
+      batch_size=config.batch_size if mesh is not None else None)
   pg_loss = losses_lib.compute_policy_gradient_loss(
       inputs.target_logits, inputs.actions, vtrace_returns.pg_advantages)
   baseline_loss = losses_lib.compute_baseline_loss(
@@ -177,22 +188,39 @@ def make_train_state(agent, config: Config) -> TrainState:
                     update_steps=0)
 
 
-def make_train_step_fn(agent, config: Config):
+def _all_reduce_sum(mesh, grads, metrics):
+  """The gradients and the losses summed over the mesh's ranks, in one
+  all-reduce of one flat float32 buffer."""
+  leaves = list(grads.values()) + [metrics[k] for k in LOSS_KEYS]
+  flat = mesh.all_reduce_sum_(torch.cat([x.reshape(-1) for x in leaves]))
+  parts = [part.view_as(x) for part, x in
+           zip(torch.split(flat, [x.numel() for x in leaves]), leaves)]
+  metrics = dict(metrics, **dict(zip(LOSS_KEYS, parts[len(grads):])))
+  return dict(zip(grads, parts)), metrics
+
+
+def make_train_step_fn(agent, config: Config, mesh=None):
   """The train step: (TrainState, batch) -> (TrainState, metrics).
 
   The returned state holds the same parameter tensors, updated in place.
   Metrics are 0-d device tensors; reading one waits for the device. With
   `health_watchdog` a non-finite loss or gradient norm keeps the old
   parameters and optimizer state (one `where` per tensor, no host sync)
-  and `update_steps` still advances."""
+  and `update_steps` still advances.
+
+  With `mesh` the batch is this rank's shard (parallel/train_parallel.py
+  places it), the gradients and losses are summed over the ranks, and
+  the metrics are the global batch's."""
   schedule = make_schedule(config)
 
   def train_step(state: TrainState, batch: ActorOutput):
     params = state.params
-    total_loss, metrics = loss_fn(agent, batch, config)
+    total_loss, metrics = loss_fn(agent, batch, config, mesh=mesh)
     grads = dict(zip(params, torch.autograd.grad(total_loss,
                                                  list(params.values()))))
     with torch.no_grad():
+      if mesh is not None:
+        grads, metrics = _all_reduce_sum(mesh, grads, metrics)
       # Pre-clip norm: explosions stay visible even with clipping on.
       metrics['grad_norm'] = global_norm(grads)
       updates, opt_state = rmsprop_update(grads, state.opt_state, config,

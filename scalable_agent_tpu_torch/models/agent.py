@@ -18,20 +18,24 @@
   gates in float32 and rounds only c and h. The float32 path keeps
   `nn.LSTMCell`.
 - With no generator the action is argmax; with one it is sampled
-  (Gumbel-max, drawn from that generator on the logits' device).
+  (Gumbel-max, drawn from that generator on the logits' device). A rank
+  holding block `index` of `count` of a batch draws the noise of the
+  whole batch and keeps its block's columns (`sample_shard`), so a
+  sharded run samples as the unsharded one does.
 
 `scan_unroll` is an XLA loop knob in the JAX package; the eager loop here
 has nothing to unroll, so the port accepts the field and ignores it.
 """
 
 import math
-from typing import Dict, Optional
+from typing import Dict, Optional, Tuple
 
 import torch
 from torch import nn
 from torch.nn import functional as F
 
 from scalable_agent_tpu_torch.models.torsos import TORSOS, Dense
+from scalable_agent_tpu_torch.parallel.sharding import shard_range
 from scalable_agent_tpu_torch.structs import AgentOutput, map_structure
 
 
@@ -77,7 +81,8 @@ class ImpalaAgent(nn.Module):
             torch.zeros(shape, device=device))
 
   def forward(self, prev_actions, env_outputs, core_state,
-              sample_generator: Optional[torch.Generator] = None):
+              sample_generator: Optional[torch.Generator] = None,
+              sample_shard: Tuple[int, int] = (0, 1)):
     """Unroll over a [T, B] trajectory.
 
     Args:
@@ -87,6 +92,8 @@ class ImpalaAgent(nn.Module):
       core_state: LSTM carry (c, h), each [B, hidden], at unroll start.
       sample_generator: a torch.Generator on the logits' device -> the
         action is sampled from the policy; None -> argmax.
+      sample_shard: (index, count): the batch is block `index` of
+        `count` equal blocks of the batch the noise is drawn for.
 
     Returns:
       (AgentOutput of [T, B, ...] tensors, final carry (c, h)).
@@ -123,8 +130,11 @@ class ImpalaAgent(nn.Module):
     baseline = self.baseline(flat_core).float().reshape(t, b, 1)[..., 0]
 
     if sample_generator is not None:
-      uniform = torch.rand(policy_logits.shape, generator=sample_generator,
-                           device=policy_logits.device)
+      index, count = sample_shard
+      start, stop = shard_range(b * count, index, count)
+      uniform = torch.rand((t, b * count, self.num_actions),
+                           generator=sample_generator,
+                           device=policy_logits.device)[:, start:stop]
       gumbel = -torch.log(-torch.log(uniform.clamp_min(1e-20)))
       action = torch.argmax(policy_logits + gumbel, dim=-1)
     else:
@@ -132,19 +142,21 @@ class ImpalaAgent(nn.Module):
     return AgentOutput(action, policy_logits, baseline), (c, h)
 
 
-def make_step_fn(agent: ImpalaAgent):
+def make_step_fn(agent: ImpalaAgent,
+                 sample_shard: Tuple[int, int] = (0, 1)):
   """Single-step (T=1) policy for actors: batch-shaped, no time axis.
 
   Returns f(generator, prev_action [B], env_output of [B, ...],
   core_state) -> (AgentOutput of [B, ...], new carry). It runs without
-  autograd: acting records no graph.
+  autograd: acting records no graph. `sample_shard` is the forward's.
   """
 
   def step(generator, prev_action, env_output, core_state):
     with torch.no_grad():
       out, new_state = agent(
           prev_action[None], map_structure(lambda x: x[None], env_output),
-          core_state, sample_generator=generator)
+          core_state, sample_generator=generator,
+          sample_shard=sample_shard)
     return map_structure(lambda x: x[0], out), new_state
 
   return step

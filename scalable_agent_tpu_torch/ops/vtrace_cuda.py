@@ -11,8 +11,14 @@ Pallas kernel is `_vtrace_kernel`). Dispatch is by the tensors' device:
   as a sequential reverse loop in PyTorch. The CPU tests use it, and
   chip_smoke.py holds the kernel to it on the card.
 
-`from_importance_weights.launches` counts kernel launches (plain-twin
-calls do not count), so a run can show that it went through the kernel.
+`sharded_from_importance_weights` is the port of the same module's
+`sharded_from_importance_weights` (K1b), the kernel under `shard_map`
+over the data axis. A rank holds only its own columns, so K1b is K1 on
+this rank's [T, B/D, ...] shard, with no collectives: the same kernel and
+the same source, launched from a wrapper of its own.
+
+Each wrapper's `launches` counts its own kernel launches (plain-twin
+calls do not count), so a run can show which of the two it went through.
 The kernel's design and bound are described in csrc/vtrace.cu.
 
 Rank-generic: inputs are [T, ...] and the trailing dims are flattened into
@@ -91,6 +97,55 @@ def from_importance_weights(log_rhos, discounts, rewards, values,
   """Fused V-trace on [T, ...] float32 tensors (bootstrap [...]); returns
   (vs, pg_advantages) of log_rhos' shape. A threshold of None is no
   clipping."""
+  return _dispatch(from_importance_weights, log_rhos, discounts, rewards,
+                   values, bootstrap_value, clip_rho_threshold,
+                   clip_pg_rho_threshold)
+
+
+from_importance_weights.launches = 0
+
+
+def sharded_from_importance_weights(mesh, log_rhos, discounts, rewards,
+                                    values, bootstrap_value,
+                                    clip_rho_threshold=1.0,
+                                    clip_pg_rho_threshold=1.0,
+                                    batch_axis='data', batch_size=None
+                                    ) -> Tuple[torch.Tensor, torch.Tensor]:
+  """Fused V-trace on this rank's shard of a batch split over
+  `batch_axis` of `mesh` (parallel/mesh.py): [T, B/D, ...] float32
+  tensors, bootstrap [B/D, ...], D = mesh.shape[batch_axis]. Returns
+  this rank's (vs, pg_advantages); no collectives.
+
+  `batch_size` is the global batch B (None: the local batch times D). B
+  must split into D equal shards, as under `shard_map`: otherwise, or
+  when the local batch is not B/D, it raises ValueError."""
+  if batch_axis not in mesh.shape:
+    raise ValueError(f'mesh has no axis {batch_axis!r}: {mesh.shape}')
+  shards = mesh.shape[batch_axis]
+  if log_rhos.ndim < 2:
+    raise ValueError(f'log_rhos must be [T, B, ...], got shape '
+                     f'{tuple(log_rhos.shape)}')
+  local = log_rhos.shape[1]
+  if batch_size is None:
+    batch_size = local * shards
+  if batch_size % shards:
+    raise ValueError(f'batch of {batch_size} does not split over the '
+                     f'{shards} shards of mesh axis {batch_axis!r}')
+  if local * shards != batch_size:
+    raise ValueError(f'local batch {local} is not batch {batch_size} / '
+                     f'{shards} shards of mesh axis {batch_axis!r}')
+  return _dispatch(sharded_from_importance_weights, log_rhos, discounts,
+                   rewards, values, bootstrap_value, clip_rho_threshold,
+                   clip_pg_rho_threshold)
+
+
+sharded_from_importance_weights.launches = 0
+
+
+def _dispatch(wrapper, log_rhos, discounts, rewards, values,
+              bootstrap_value, clip_rho_threshold, clip_pg_rho_threshold):
+  """Check the inputs; run the plain twin on CPU tensors, or launch the
+  kernel on CUDA tensors and count the launch on `wrapper`."""
   shape = tuple(log_rhos.shape)
   device = log_rhos.device
   for name, x in (('log_rhos', log_rhos), ('discounts', discounts),
@@ -123,8 +178,5 @@ def from_importance_weights(log_rhos, discounts, rewards, values,
              _threshold(clip_pg_rho_threshold), stream)
   if err != 0:
     raise RuntimeError(f'vtrace kernel launch failed: CUDA error {err}')
-  from_importance_weights.launches += 1
+  wrapper.launches += 1
   return vs.reshape(shape), pg.reshape(shape)
-
-
-from_importance_weights.launches = 0

@@ -16,9 +16,21 @@ module:
 - the first env output has done=True and a zero priming agent output.
 
 PyTorch runs it eagerly: the JAX `lax.scan` over acting steps is a Python
-loop, and acting records no autograd graph. The JAX module's mesh
-scale-out, vectorized population and hybrid filler are later slices, as
-are its other env cores (ROADMAP.md).
+loop, and acting records no autograd graph.
+
+Scale-out over a mesh (parallel/mesh.py), the JAX module's data-parallel
+form: each rank holds B/D environments, their LSTM carry and pending
+outputs, acts and learns on them, and the learner sums the gradients over
+the ranks. Every rank draws the env contexts and the acting noise at the
+global batch shape from the same generators and keeps its own columns,
+so a D-rank run follows the 1-rank run up to the order of the gradient
+sum. Frames are counted globally; only rank 0 writes the logdir. Unlike
+the JAX module, whose fused step builds its train step without the mesh,
+the train step runs the sharded V-trace kernel (K1b) on each rank's
+columns: the same function, since each column is its own recursion.
+
+The JAX module's vectorized population and hybrid filler are later
+slices, as are its other env cores (ROADMAP.md).
 """
 
 import dataclasses
@@ -36,6 +48,10 @@ from scalable_agent_tpu_torch import observability
 from scalable_agent_tpu_torch.config import Config
 from scalable_agent_tpu_torch.models import init_params
 from scalable_agent_tpu_torch.models.agent import make_step_fn
+from scalable_agent_tpu_torch.parallel import distributed
+from scalable_agent_tpu_torch.parallel import train_parallel
+from scalable_agent_tpu_torch.parallel.sharding import (DATA_AXIS,
+                                                       shard_range)
 from scalable_agent_tpu_torch.structs import (ActorOutput, AgentOutput,
                                               StepOutput, StepOutputInfo,
                                               map_structure)
@@ -63,16 +79,21 @@ class BanditCore:
   tensors: the frame's dominant colour channel is the rewarded action,
   `episode_length` steps per context. The rewarded channel is
   `randint(num_actions) % 3`, the host env's own draw, so a wider policy
-  head (num_actions > 3) is legal."""
+  head (num_actions > 3) is legal.
+
+  `shard=(index, count)`: the core's batch is block `index` of `count`
+  equal blocks of a global batch, and each context draw is made for the
+  global batch, keeping this block's."""
 
   def __init__(self, height=24, width=32, episode_length=5,
-               num_action_repeats=1, num_actions=3):
+               num_action_repeats=1, num_actions=3, shard=(0, 1)):
     if num_actions < 1:
       raise ValueError(f'num_actions must be >= 1, got {num_actions}')
     self.height, self.width = height, width
     self.episode_length = episode_length
     self.num_action_repeats = num_action_repeats
     self.num_actions = num_actions
+    self.shard = shard
 
   def _observation(self, state):
     b = state.context.shape[0]
@@ -82,8 +103,11 @@ class BanditCore:
     return (frame, instr)
 
   def _sample_context(self, rng, batch):
-    return torch.randint(0, self.num_actions, (batch,), generator=rng,
-                         device=rng.device) % 3
+    index, count = self.shard
+    start, stop = shard_range(batch * count, index, count)
+    draw = torch.randint(0, self.num_actions, (batch * count,),
+                         generator=rng, device=rng.device) % 3
+    return draw[start:stop]
 
   def init(self, rng: torch.Generator, batch: int
            ) -> Tuple[EnvCoreState, StepOutput]:
@@ -131,9 +155,21 @@ class BanditCore:
 _LATER_CORES = ('cue_memory', 'gridworld', 'procgen')
 
 
-def make_env_core(config: Config):
+def _check_divisible(config: Config, mesh):
+  if mesh is not None and config.batch_size % mesh.shape[DATA_AXIS]:
+    raise ValueError(
+        f'batch_size={config.batch_size} not divisible by the data axis '
+        f'({mesh.shape[DATA_AXIS]} ranks)')
+
+
+def _shard(mesh):
+  return (0, 1) if mesh is None else (mesh.rank, mesh.shape[DATA_AXIS])
+
+
+def make_env_core(config: Config, mesh=None):
   """The env core a config names, with config.num_actions as its head
-  width (None: the core's default)."""
+  width (None: the core's default); with `mesh`, this rank's block of
+  the batch."""
   if config.env_backend in _LATER_CORES:
     raise NotImplementedError(
         f'env core {config.env_backend!r} is not in the PyTorch port yet '
@@ -145,7 +181,8 @@ def make_env_core(config: Config):
         'a later slice')
   kwargs = dict(height=config.height, width=config.width,
                 episode_length=config.episode_length,
-                num_action_repeats=config.num_action_repeats)
+                num_action_repeats=config.num_action_repeats,
+                shard=_shard(mesh))
   if config.num_actions is not None:
     kwargs['num_actions'] = config.num_actions
   return BanditCore(**kwargs)
@@ -162,13 +199,18 @@ class AnakinCarry(NamedTuple):
 
 
 def init_carry(agent, env_core, config: Config, seed: int,
-               device) -> AnakinCarry:
+               device, mesh=None) -> AnakinCarry:
   """Initial params/optimizer/env/agent state for `make_anakin_step`.
 
   Initialises `agent` in place from a CPU generator seeded with `seed`
   (so the params do not depend on the device), moves it to `device`, and
   seeds the env's and the action sampler's generators on `device` from
-  the same stream."""
+  the same stream.
+
+  With `mesh` (whose env core is `make_env_core(config, mesh)`), the env
+  state, pending outputs and LSTM carry are this rank's B/D columns, and
+  the params are rank 0's (train_parallel.make_sharded_train_state)."""
+  _check_divisible(config, mesh)
   device = torch.device(device)
   seeder = torch.Generator().manual_seed(seed)
   init_params(agent, seeder)
@@ -178,28 +220,35 @@ def init_carry(agent, env_core, config: Config, seed: int,
     sub_seed = int(torch.randint(2**62, (), generator=seeder))
     return torch.Generator(device=device).manual_seed(sub_seed)
 
-  b = config.batch_size
+  start, stop = shard_range(config.batch_size, *_shard(mesh))
+  b = stop - start
   env_state, env_output = env_core.init(generator(), b)
   agent_output = AgentOutput(  # the actor's priming output
       action=torch.zeros((b,), dtype=torch.int64, device=device),
       policy_logits=torch.zeros((b, env_core.num_actions), device=device),
       baseline=torch.zeros((b,), device=device))
   core_state = agent.initial_state(b, device=device)
-  train_state = learner.make_train_state(agent, config)
+  if mesh is None:
+    train_state = learner.make_train_state(agent, config)
+  else:
+    train_state = train_parallel.make_sharded_train_state(agent, config,
+                                                          mesh)
   return AnakinCarry(train_state, env_state, env_output, agent_output,
                      core_state, generator())
 
 
 def make_anakin_step(agent, env_core, config: Config,
-                     return_batch: bool = False, train_step_fn=None):
+                     return_batch: bool = False, train_step_fn=None,
+                     mesh=None):
   """One fused step: act T steps, then the SGD update.
 
-  Returns `f(carry) -> (carry, metrics)`; metrics are 0-d device tensors.
-  With `return_batch` the assembled [T+1, B] ActorOutput is added to the
-  metrics under 'batch'."""
+  Returns `f(carry) -> (carry, metrics)`; metrics are 0-d device tensors,
+  of the global batch under `mesh`. With `return_batch` the assembled
+  [T+1, B] ActorOutput (this rank's columns) is added to the metrics
+  under 'batch'."""
   if train_step_fn is None:
-    train_step_fn = learner.make_train_step_fn(agent, config)
-  act = make_step_fn(agent)
+    train_step_fn = learner.make_train_step_fn(agent, config, mesh=mesh)
+  act = make_step_fn(agent, sample_shard=_shard(mesh))
   t = config.unroll_length
 
   def anakin_step(carry: AnakinCarry):
@@ -218,13 +267,17 @@ def make_anakin_step(agent, env_core, config: Config,
     # T+1 assembly with the overlap frame (the actor's unroll()).
     stack = lambda *xs: torch.stack(xs)  # noqa: E731
     batch = ActorOutput(
-        level_name=torch.zeros((config.batch_size,), dtype=torch.int32,
-                               device=env_output.reward.device),
+        level_name=torch.zeros_like(env_output.reward, dtype=torch.int32),
         agent_state=carry.core_state,
         env_outputs=map_structure(stack, *env_outputs),
         agent_outputs=map_structure(stack, *agent_outputs))
     train_state, metrics = train_step_fn(carry.train_state, batch)
-    metrics['mean_reward'] = torch.mean(batch.env_outputs.reward[1:])
+    rewards = batch.env_outputs.reward[1:]
+    if mesh is None:
+      metrics['mean_reward'] = torch.mean(rewards)
+    else:
+      metrics['mean_reward'] = mesh.all_reduce_sum_(
+          rewards.sum().reshape(1))[0] / (t * config.batch_size)
     if return_batch:
       metrics['batch'] = batch
     return (AnakinCarry(train_state, env_state, env_output, agent_output,
@@ -234,15 +287,23 @@ def make_anakin_step(agent, env_core, config: Config,
   return anakin_step
 
 
-def build_run(config: Config, device='cuda'):
+def build_run(config: Config, device='cuda', mesh=None):
   """Shared construction for run()/train(): env core, agent, fused step,
   initial carry seeded from config.seed. `device` 'cuda' with no CUDA
-  raises."""
+  raises. With `mesh` the run is this rank's and its device the mesh's,
+  which must be of `device`'s type; a batch the data axis does not
+  divide raises ValueError before any work."""
+  _check_divisible(config, mesh)
   device = driver.resolve_device(device)
-  env_core = make_env_core(config)
+  if mesh is not None:
+    if mesh.device.type != device.type:
+      raise ValueError(f'the mesh is on {mesh.device}, the run on {device}')
+    device = mesh.device
+  env_core = make_env_core(config, mesh)
   agent = driver.build_agent(config, env_core.num_actions)
-  step = make_anakin_step(agent, env_core, config)
-  carry = init_carry(agent, env_core, config, config.seed, device)
+  step = make_anakin_step(agent, env_core, config, mesh=mesh)
+  carry = init_carry(agent, env_core, config, config.seed, device,
+                     mesh=mesh)
   return env_core, agent, step, carry
 
 
@@ -250,14 +311,14 @@ def _to_host(metrics):
   return {k: (v if k == 'batch' else float(v)) for k, v in metrics.items()}
 
 
-def run(config: Config, num_steps: int, device='cuda'):
+def run(config: Config, num_steps: int, device='cuda', mesh=None):
   """Build the run and take `num_steps` fused steps; returns (carry,
   list of metric dicts of floats, env_frames_per_sec). The first step
   (kernel builds, cuDNN set-up) is not timed; num_steps=1 has no timed
-  window and reports nan."""
+  window and reports nan. Under `mesh`, frames are the global batch's."""
   if num_steps < 1:
     raise ValueError(f'num_steps must be >= 1, got {num_steps}')
-  _, _, step, carry = build_run(config, device=device)
+  _, _, step, carry = build_run(config, device=device, mesh=mesh)
 
   carry, metrics = step(carry)
   history = [metrics]
@@ -273,24 +334,30 @@ def run(config: Config, num_steps: int, device='cuda'):
   return carry, [_to_host(m) for m in history], fps
 
 
-def train(config: Config, max_steps: Optional[int] = None, device='cuda'):
+def train(config: Config, max_steps: Optional[int] = None, device='cuda',
+          mesh=None):
   """Operator-facing Anakin training (`python -m
   scalable_agent_tpu_torch.experiment --mode=anakin`): fused steps until
   total_environment_frames (or `max_steps`), with config.json and JSONL
   summaries (total_loss, mean_reward, learning_rate,
-  env_frames_per_sec). Returns the final AnakinCarry.
+  env_frames_per_sec). Returns the final AnakinCarry. In a process
+  group every rank trains and only rank 0 writes the logdir.
 
   Checkpoint and resume are the checkpoint slice's (ROADMAP.md): this
   loop starts from fresh params and saves nothing."""
-  _, _, step, carry = build_run(config, device=device)
-  os.makedirs(config.logdir, exist_ok=True)
-  with open(os.path.join(config.logdir, 'config.json'), 'w') as f:
-    json.dump(dataclasses.asdict(config), f, indent=2, sort_keys=True)
-  writer = observability.SummaryWriter(config.logdir)
+  _, _, step, carry = build_run(config, device=device, mesh=mesh)
+  writer = None
+  if distributed.rank() == 0:
+    os.makedirs(config.logdir, exist_ok=True)
+    with open(os.path.join(config.logdir, 'config.json'), 'w') as f:
+      json.dump(dataclasses.asdict(config), f, indent=2, sort_keys=True)
+    writer = observability.SummaryWriter(config.logdir)
   fps_meter = observability.FpsMeter()
   metrics = None
 
   def flush(step_num):
+    if writer is None:
+      return
     writer.scalars(
         {'total_loss': float(metrics['total_loss']),
          'mean_reward': float(metrics['mean_reward']),
@@ -317,5 +384,6 @@ def train(config: Config, max_steps: Optional[int] = None, device='cuda'):
       # A short run can finish inside one summary window.
       flush(steps_done)
   finally:
-    writer.close()
+    if writer is not None:
+      writer.close()
   return carry

@@ -8,10 +8,15 @@ acc_{t+1}`, chosen as in the reference:
 - `use_pallas=True`: the fused hand-written V-trace kernel
   (ops/vtrace_cuda.py, csrc/vtrace.cu). The JAX field name
   `use_pallas_vtrace` is kept so configs carry across. On CPU tensors it
-  runs the kernel's plain twin.
+  runs the kernel's plain twin. With a `mesh` (parallel/mesh.py) the
+  inputs are this rank's columns and the sharded kernel (K1b) runs on
+  them, as the JAX package runs its kernel under `shard_map`.
 - `use_associative_scan=True`: recursive doubling over time, O(log T)
   passes (the reference's lax.associative_scan form).
 - otherwise: a plain sequential reverse loop (the reference's lax.scan).
+
+Every column is an independent recursion, so without the fused kernel
+the plain forms run on a rank's own columns unchanged.
 
 The outputs carry no gradient, as in the reference.
 """
@@ -41,10 +46,12 @@ def log_probs_from_logits_and_actions(policy_logits, actions):
 def from_logits(behaviour_policy_logits, target_policy_logits, actions,
                 discounts, rewards, values, bootstrap_value,
                 clip_rho_threshold=1.0, clip_pg_rho_threshold=1.0,
-                use_associative_scan=False, use_pallas=False):
+                use_associative_scan=False, use_pallas=False, mesh=None,
+                batch_axis='data', batch_size=None):
   """V-trace for softmax policies. Shapes (time-major): logits
   [T, B, A], actions [T, B], discounts/rewards/values [T, B], bootstrap
-  [B]; extra trailing dims are allowed everywhere."""
+  [B]; extra trailing dims are allowed everywhere. With `mesh`, B is this
+  rank's shard of the global `batch_size` (see from_importance_weights)."""
   behaviour_action_log_probs = log_probs_from_logits_and_actions(
       behaviour_policy_logits, actions)
   target_action_log_probs = log_probs_from_logits_and_actions(
@@ -55,7 +62,8 @@ def from_logits(behaviour_policy_logits, target_policy_logits, actions,
       values=values, bootstrap_value=bootstrap_value,
       clip_rho_threshold=clip_rho_threshold,
       clip_pg_rho_threshold=clip_pg_rho_threshold,
-      use_associative_scan=use_associative_scan, use_pallas=use_pallas)
+      use_associative_scan=use_associative_scan, use_pallas=use_pallas,
+      mesh=mesh, batch_axis=batch_axis, batch_size=batch_size)
   return VTraceFromLogitsReturns(
       log_rhos=log_rhos,
       behaviour_action_log_probs=behaviour_action_log_probs,
@@ -81,11 +89,16 @@ def _vs_minus_v_xs_doubling(deltas, discounts_cs):
 def from_importance_weights(log_rhos, discounts, rewards, values,
                             bootstrap_value, clip_rho_threshold=1.0,
                             clip_pg_rho_threshold=1.0,
-                            use_associative_scan=False, use_pallas=False):
+                            use_associative_scan=False, use_pallas=False,
+                            mesh=None, batch_axis='data', batch_size=None):
   """V-trace from log importance weights: rhos = exp(log_rhos), clipped
   at `clip_rho_threshold` for the value targets and at
   `clip_pg_rho_threshold` for the policy-gradient advantages (None = no
-  clip); cs = min(1, rhos). Returns detached VTraceReturns."""
+  clip); cs = min(1, rhos). Returns detached VTraceReturns.
+
+  With `mesh` and `use_pallas`, the inputs are this rank's shard of the
+  batch over `batch_axis` and the sharded kernel checks it against the
+  global `batch_size` (None: the shard times the axis' size)."""
   if use_pallas and use_associative_scan:
     raise ValueError('use_pallas and use_associative_scan are mutually '
                      'exclusive — pick one V-trace form')
@@ -93,10 +106,17 @@ def from_importance_weights(log_rhos, discounts, rewards, values,
       x.detach().float().contiguous()
       for x in (log_rhos, discounts, rewards, values, bootstrap_value))
   if use_pallas:
-    vs, pg_advantages = vtrace_cuda.from_importance_weights(
-        log_rhos, discounts, rewards, values, bootstrap_value,
-        clip_rho_threshold=clip_rho_threshold,
-        clip_pg_rho_threshold=clip_pg_rho_threshold)
+    if mesh is not None:
+      vs, pg_advantages = vtrace_cuda.sharded_from_importance_weights(
+          mesh, log_rhos, discounts, rewards, values, bootstrap_value,
+          clip_rho_threshold=clip_rho_threshold,
+          clip_pg_rho_threshold=clip_pg_rho_threshold,
+          batch_axis=batch_axis, batch_size=batch_size)
+    else:
+      vs, pg_advantages = vtrace_cuda.from_importance_weights(
+          log_rhos, discounts, rewards, values, bootstrap_value,
+          clip_rho_threshold=clip_rho_threshold,
+          clip_pg_rho_threshold=clip_pg_rho_threshold)
     return VTraceReturns(vs=vs, pg_advantages=pg_advantages)
 
   recursion = (_vs_minus_v_xs_doubling if use_associative_scan

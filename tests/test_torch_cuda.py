@@ -22,6 +22,8 @@ from scalable_agent_tpu_torch.config import Config
 from scalable_agent_tpu_torch.ops import conv_pool_cuda
 from scalable_agent_tpu_torch.ops import vtrace_cuda
 from scalable_agent_tpu_torch.parallel import anakin
+from scalable_agent_tpu_torch.parallel import distributed
+from scalable_agent_tpu_torch.parallel import mesh as mesh_lib
 from scalable_agent_tpu_torch.scripts import conv_pool as conv_pool_script
 
 pytestmark = pytest.mark.requires_cuda
@@ -80,6 +82,40 @@ def test_vtrace_wrapper_refuses_mixed_devices(cuda):
   x['values'] = x['values'].cpu()
   with pytest.raises(ValueError, match='expected cuda'):
     vtrace_cuda.from_importance_weights(**x)
+
+
+@pytest.mark.parametrize('shards', [1, 2, 4])
+def test_sharded_vtrace_kernel_is_k1_per_rank(cuda, shards):
+  """K1b on each rank's block of columns, the blocks together: bit-equal
+  to K1 on the whole batch, and counted on K1b's own counter."""
+  x = _inputs((100, 32), cuda, seed=shards)
+  before = (vtrace_cuda.from_importance_weights.launches,
+            vtrace_cuda.sharded_from_importance_weights.launches)
+  parts = []
+  for rank in range(shards):
+    local = {k: (v[rank * 32 // shards:(rank + 1) * 32 // shards]
+                 if k == 'bootstrap_value'
+                 else v[:, rank * 32 // shards:(rank + 1) * 32 // shards]
+                 ).contiguous() for k, v in x.items()}
+    mesh = mesh_lib.Mesh(rank=rank, size=shards, device=cuda)
+    parts.append(vtrace_cuda.sharded_from_importance_weights(
+        mesh, **local, batch_size=32))
+  vs, pg = vtrace_cuda.from_importance_weights(**x)
+  torch.cuda.synchronize()
+  assert torch.equal(torch.cat([p[0] for p in parts], dim=1), vs)
+  assert torch.equal(torch.cat([p[1] for p in parts], dim=1), pg)
+  assert (vtrace_cuda.from_importance_weights.launches,
+          vtrace_cuda.sharded_from_importance_weights.launches) == (
+              before[0] + 1, before[1] + shards)
+
+
+def test_nccl_refuses_more_ranks_than_cards(cuda):
+  count = torch.cuda.device_count()
+  topology = distributed.Topology(0, count + 1, 0, count + 1)
+  with pytest.raises(RuntimeError, match='one card per rank'):
+    distributed.rank_device(topology, 'nccl')
+  assert distributed.rank_device(distributed.Topology(0, count, 0, count),
+                                 'nccl') == torch.device('cuda', 0)
 
 
 def test_anakin_on_card_launches_the_kernel_once_per_step(cuda):
