@@ -8,11 +8,16 @@ Phases, each of which raises (exit code != 0) when it fails:
 1. device  — assert CUDA, print the card's name and power limit
              (nvidia-smi --query-gpu=name,power.limit --format=csv,noheader).
 2. build   — build every CUDA kernel of the port with nvcc, one process per
-             source, all at once.
+             source, all at once; log each kernel's registers, shared
+             memory and spills from `nvcc -Xptxas -v`, and fail on a spill.
+   launch_floor — the device time of a one-element `add_` (torch.profiler):
+             the least a kernel launch takes on the card.
 3. kernels — the fused V-trace kernel against its plain twin on the card at
-             [100, 32] (the learner's shape), [7, 300] and [6, 70, 3], for
-             three threshold pairs, rtol 1e-5 / atol 1e-6; its median time
-             over 200 launches (CUDA events), the twin's, and the bound.
+             [100, 32] (the learner's shape), [7, 300], [6, 70, 3], [257, 45]
+             and [1000, 32] (several time chunks and blocks), for three
+             threshold pairs: bit-equal (torch.equal); its median time over
+             200 launches (CUDA events: host work included), its device
+             time per launch (torch.profiler), the twin's, and the bound.
 4. slice   — the port's Anakin trainer at the full width of the reference's
              deep agent (72x96 frames, T=100, B=32, 9 actions, deep torso,
              LSTM 256, float32, fused V-trace) for 4 fused steps through
@@ -25,11 +30,13 @@ Phases, each of which raises (exit code != 0) when it fails:
              summaries.jsonl must hold a finite total_loss.
 6. conv_pool — the fused conv3x3+max-pool kernel (K2) against its plain
              twin at [3232, 72, 96] (the learner's (T+1)*B frames),
-             [32, 72, 96] (the acting batch) and [5, 21, 27] (odd sizes),
-             nonzero bias, max|kernel - plain| <= 2**-7 * max|plain|; the
-             count of elements that differ at all; the median time over 50
-             launches of the kernel, the twin and cuDNN's conv + pool
-             (`library_conv_pool`), and the bound.
+             [32, 72, 96] (the acting batch), [5, 21, 27] (odd sizes),
+             [7, 72, 96] and [3, 1, 1], nonzero bias,
+             max|kernel - plain| <= 2**-7 * max|plain|; the count of
+             elements that differ at all; the median time over 50 launches
+             of the kernel, the twin and cuDNN's conv + pool
+             (`library_conv_pool`), the kernel's device time per launch
+             (torch.profiler) and the bound.
 7. conv_pool_torso — K2 against the port's bf16 deep torso's section 1
              (`sections[0].conv`, then `max_pool_same`) on the section's
              own weights, on [32, 72, 96] frames.
@@ -94,6 +101,7 @@ from scalable_agent_tpu_torch.config import Config
 from scalable_agent_tpu_torch.models import init_params
 from scalable_agent_tpu_torch.models.torsos import max_pool_same, scaled_nchw
 from scalable_agent_tpu_torch.observability import cuda_median_ms
+from scalable_agent_tpu_torch.observability import profiled_device_us
 from scalable_agent_tpu_torch.ops import build
 from scalable_agent_tpu_torch.ops import conv_pool_cuda
 from scalable_agent_tpu_torch.ops import vtrace_cuda
@@ -116,11 +124,11 @@ F32_OPS_PER_S = 67e12
 # twelve adds and multiplies.
 VTRACE_OPS_PER_ELEMENT = 16
 
-KERNEL_RTOL, KERNEL_ATOL = 1e-5, 1e-6
-
 SLICE_STEPS = 4
 
-CONV_POOL_SHAPES = [(3232, 72, 96), (32, 72, 96), (5, 21, 27)]
+CONV_POOL_SHAPES = [(3232, 72, 96), (32, 72, 96), (5, 21, 27), (7, 72, 96),
+                    (3, 1, 1)]
+VTRACE_SHAPES = [(100, 32), (7, 300), (6, 70, 3), (257, 45), (1000, 32)]
 
 CLIPS = [(1.0, 1.0), (None, None), (3.7, 2.2)]
 # K1b: (global shape, ranks); timed at the slice's per-rank shape.
@@ -157,11 +165,32 @@ def phase_device():
 
 
 def phase_build():
+  """Build every kernel; returns {source: {kernel: ptxas's numbers}}."""
   t0 = time.perf_counter()
   paths = build.build_all()
   log(f'build: {len(paths)} kernel libraries in '
       f'{time.perf_counter() - t0:.2f} s: '
       + ', '.join(os.path.relpath(p) for p in paths))
+  reports = {name: build.ptxas_report(name) for name in build.sources()}
+  for name, kernels in reports.items():
+    if not kernels:
+      raise AssertionError(f'no ptxas report for csrc/{name}.cu')
+    for kernel, numbers in kernels.items():
+      log(f'ptxas {name}: {kernel}: {numbers}')
+      if numbers.get('spill_stores') or numbers.get('spill_loads'):
+        raise AssertionError(f'{kernel} spills: {numbers}')
+  return reports
+
+
+def phase_launch_floor():
+  """Device time per launch of a one-element add_ (torch.profiler)."""
+  one = torch.zeros(1, device='cuda')
+  floor_us = profiled_device_us(lambda: one.add_(1.0), 200, None)
+  if floor_us is None:
+    raise AssertionError('torch.profiler showed no device time')
+  log(f'launch floor: one-element add_ {floor_us:.3f} us device time per '
+      'launch (torch.profiler, 200 launches)')
+  return floor_us
 
 
 def _vtrace_inputs(shape, seed):
@@ -186,36 +215,44 @@ def _vtrace_bound_ms(shape):
 
 
 def phase_kernels():
-  """V-trace kernel vs its plain twin; returns the record at [100, 32]."""
+  """V-trace kernel vs its plain twin, bit for bit; returns the record at
+  [100, 32]."""
   record = None
-  worst = 0.0
-  for seed, shape in enumerate([(100, 32), (7, 300), (6, 70, 3)]):
+  for seed, shape in enumerate(VTRACE_SHAPES):
     for clips in CLIPS:
       x = _vtrace_inputs(shape, seed)
       kw = dict(clip_rho_threshold=clips[0], clip_pg_rho_threshold=clips[1])
       vs, pg = vtrace_cuda.from_importance_weights(**x, **kw)
       torch.cuda.synchronize()
       ref_vs, ref_pg = vtrace_cuda.plain_from_importance_weights(**x, **kw)
-      torch.testing.assert_close(vs, ref_vs, rtol=KERNEL_RTOL,
-                                 atol=KERNEL_ATOL)
-      torch.testing.assert_close(pg, ref_pg, rtol=KERNEL_RTOL,
-                                 atol=KERNEL_ATOL)
       err = max(float((vs - ref_vs).abs().max()),
                 float((pg - ref_pg).abs().max()))
-      worst = max(worst, err)
-      ms = cuda_median_ms(
-          lambda: vtrace_cuda.from_importance_weights(**x, **kw), 200)
-      plain_ms = cuda_median_ms(
-          lambda: vtrace_cuda.plain_from_importance_weights(**x, **kw), 30)
-      bound_ms, bound_by, nbytes = _vtrace_bound_ms(shape)
-      log(f'vtrace {list(shape)} clips={clips}: max_abs_err {err:.3e} '
-          f'kernel {ms:.5f} ms plain {plain_ms:.5f} ms bound '
-          f'{bound_ms:.3e} ms ({bound_by}, {nbytes} bytes)')
-      if shape == (100, 32) and clips == (1.0, 1.0):
-        record = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
-                      bound_by=bound_by)
-  record['max_abs_err'] = worst
+      if not (torch.equal(vs, ref_vs) and torch.equal(pg, ref_pg)):
+        raise AssertionError(f'vtrace {list(shape)} clips={clips} is not '
+                             f'bit-equal to its twin: max diff {err}')
+      line = f'vtrace {list(shape)} clips={clips}: bit-equal to the twin'
+      if clips == (1.0, 1.0):
+        launch = lambda: vtrace_cuda.from_importance_weights(**x, **kw)  # noqa: E731
+        ms = cuda_median_ms(launch, 200)
+        device_us = profiled_device_us(launch, 200, 'vtrace_kernel')
+        plain_ms = cuda_median_ms(
+            lambda: vtrace_cuda.plain_from_importance_weights(**x, **kw), 30)
+        bound_ms, bound_by, nbytes = _vtrace_bound_ms(shape)
+        line += (f'; kernel {ms:.5f} ms per call (CUDA events), '
+                 f'{_us(device_us)} device time per launch; plain '
+                 f'{plain_ms:.5f} ms; bound {bound_ms:.3e} ms ({bound_by}, '
+                 f'{nbytes} bytes)')
+        if shape == VTRACE_SHAPES[0]:
+          record = dict(ms=ms, device_us=device_us, plain_ms=plain_ms,
+                        bound_ms=bound_ms, bound_by=bound_by,
+                        max_abs_err=0.0)
+      log(line)
   return record
+
+
+def _us(device_us):
+  return ('not measured (no device events)' if device_us is None
+          else f'{device_us:.3f} us')
 
 
 def _k1b_per_rank(x, shards, kw):
@@ -236,28 +273,9 @@ def _k1b_per_rank(x, shards, kw):
   return tuple(torch.cat(parts, dim=1) for parts in zip(*outs))
 
 
-def _profiled_device_us(fn, launches, kernel_name):
-  """Device time per launch of the kernel named `kernel_name` over
-  `launches` calls of `fn`, by torch.profiler; None when the profiler
-  shows no device time."""
-  activities = [torch.profiler.ProfilerActivity.CPU,
-                torch.profiler.ProfilerActivity.CUDA]
-  with torch.profiler.profile(activities=activities) as prof:
-    for _ in range(launches):
-      fn()
-    torch.cuda.synchronize()
-  found = [e for e in prof.key_averages() if kernel_name in e.key]
-  total = sum(getattr(e, 'self_device_time_total',
-                      getattr(e, 'self_cuda_time_total', 0.0))
-              for e in found)
-  count = sum(e.count for e in found)
-  return total / count if count and total else None
-
-
 def phase_vtrace_sharded():
-  """K1b per rank against K1 on the whole batch (bit-equal) and the
-  plain twin; its times at the per-rank shape [100, 16]."""
-  worst = 0.0
+  """K1b per rank against K1 on the whole batch and the plain twin (both
+  bit-equal); its times at the per-rank shape [100, 16]."""
   for seed, (shape, shards) in enumerate(K1B_CASES):
     for clips in CLIPS:
       x = _vtrace_inputs(shape, seed)
@@ -272,15 +290,14 @@ def phase_vtrace_sharded():
             f'{float((vs - whole_vs).abs().max())}, '
             f'{float((pg - whole_pg).abs().max())}')
       ref_vs, ref_pg = vtrace_cuda.plain_from_importance_weights(**x, **kw)
-      torch.testing.assert_close(vs, ref_vs, rtol=KERNEL_RTOL,
-                                 atol=KERNEL_ATOL)
-      torch.testing.assert_close(pg, ref_pg, rtol=KERNEL_RTOL,
-                                 atol=KERNEL_ATOL)
-      err = max(float((vs - ref_vs).abs().max()),
-                float((pg - ref_pg).abs().max()))
-      worst = max(worst, err)
+      if not (torch.equal(vs, ref_vs) and torch.equal(pg, ref_pg)):
+        raise AssertionError(
+            f'K1b over {shards} ranks at {list(shape)} clips={clips} is not '
+            f'bit-equal to the twin: max diff '
+            f'{float((vs - ref_vs).abs().max())}, '
+            f'{float((pg - ref_pg).abs().max())}')
       log(f'vtrace_sharded {list(shape)} over {shards} ranks clips={clips}: '
-          f'bit-equal to K1; max_abs_err vs plain {err:.3e}')
+          'bit-equal to K1 and to the twin')
   x = _vtrace_inputs((6, 70, 3), 0)
   try:
     _k1b_per_rank(x, 4, {})
@@ -296,18 +313,16 @@ def phase_vtrace_sharded():
   launch = lambda: vtrace_cuda.sharded_from_importance_weights(  # noqa: E731
       mesh, **x, batch_size=shape[1])
   ms = cuda_median_ms(launch, 200)
-  device_us = _profiled_device_us(launch, 200, 'vtrace_kernel')
+  device_us = profiled_device_us(launch, 200, 'vtrace_kernel')
   plain_ms = cuda_median_ms(
       lambda: vtrace_cuda.plain_from_importance_weights(**x), 30)
   bound_ms, bound_by, nbytes = _vtrace_bound_ms(local_shape)
-  device = ('not measured (no device events)' if device_us is None
-            else f'{device_us:.2f} us')
   log(f'vtrace_sharded per-rank shape {list(local_shape)}: {ms:.5f} ms per '
-      f'call (CUDA events), device time per launch {device}; plain '
+      f'call (CUDA events), device time per launch {_us(device_us)}; plain '
       f'{plain_ms:.5f} ms; bound {bound_ms:.3e} ms ({bound_by}, {nbytes} '
       'bytes)')
   return dict(ms=ms, device_us=device_us, plain_ms=plain_ms,
-              bound_ms=bound_ms, bound_by=bound_by, max_abs_err=worst)
+              bound_ms=bound_ms, bound_by=bound_by, max_abs_err=0.0)
 
 
 def _param_snapshot(params):
@@ -499,6 +514,12 @@ def phase_conv_pool():
         f'{times["bytes"]} bytes, {times["flops"]} FLOP)')
     if shape == CONV_POOL_SHAPES[0]:
       record = times
+      record['device_us'] = profiled_device_us(
+          lambda: conv_pool_cuda.fused_conv_pool(frames, weight, bias), 20,
+          'conv_pool_kernel')
+      record['n_differ'] = check['n_differ']
+      log(f'conv_pool {list(shape)}: {_us(record["device_us"])} device time '
+          'per launch (torch.profiler, 20 launches)')
   record['max_abs_err'] = worst
   return record
 
@@ -761,7 +782,8 @@ def main():
   # TF32.
   torch.backends.cudnn.allow_tf32 = False
   torch.backends.cuda.matmul.allow_tf32 = False
-  timed('build', phase_build)
+  ptxas = timed('build', phase_build)
+  floor_us = timed('launch_floor', phase_launch_floor)
   k1 = timed('kernels', phase_kernels)
   k2 = timed('conv_pool', phase_conv_pool)
   timed('conv_pool_torso', phase_conv_pool_torso)
@@ -790,7 +812,8 @@ def main():
       launches_by_path=launches['vtrace'],
       max_abs_err=k1['max_abs_err'], ms=k1['ms'],
       plain_ms=k1['plain_ms'], bound_ms=k1['bound_ms'],
-      bound_by=k1['bound_by'], library_ms=None,
+      bound_by=k1['bound_by'], library_ms=None, device_us=k1['device_us'],
+      launch_floor_us=floor_us, ptxas=ptxas['vtrace'],
       ok=True, max_err=k1['max_abs_err'], kernel_ms=k1['ms'])
   conv_pool = dict(
       name='conv_pool', route='cuda',
@@ -801,6 +824,8 @@ def main():
       max_abs_err=k2['max_abs_err'], ms=k2['ms'],
       plain_ms=k2['plain_ms'], bound_ms=k2['bound_ms'],
       bound_by=k2['bound_by'], library_ms=k2['library_ms'],
+      device_us=k2['device_us'], n_differ=k2['n_differ'],
+      ptxas=ptxas['conv_pool'],
       ok=True, max_err=k2['max_abs_err'], kernel_ms=k2['ms'])
   vtrace_sharded = dict(
       name='vtrace_sharded', route='cuda',
@@ -811,7 +836,7 @@ def main():
       max_abs_err=k1b['max_abs_err'], ms=k1b['ms'],
       plain_ms=k1b['plain_ms'], bound_ms=k1b['bound_ms'],
       bound_by=k1b['bound_by'], library_ms=None,
-      device_us=k1b['device_us'],
+      device_us=k1b['device_us'], launch_floor_us=floor_us,
       ok=True, max_err=k1b['max_abs_err'], kernel_ms=k1b['ms'])
   print(json.dumps({'kernels': [vtrace, conv_pool, vtrace_sharded]}))
   print(json.dumps({'ok': True, 'device': {

@@ -6,8 +6,8 @@ Summaries are JSONL events, one object per line (wall_time, step, tag,
 value), in `<logdir>/summaries.jsonl`: the same file and format as the JAX
 package writes.
 
-`cuda_median_ms` is the port's own: the kernel timer of chip_smoke.py and
-scripts/conv_pool.py.
+`cuda_median_ms` and `profiled_device_us` are the port's own: the kernel
+timers of chip_smoke.py and the port's scripts.
 """
 
 import collections
@@ -99,3 +99,27 @@ def cuda_median_ms(fn, repeats: int, warmup: int = 10) -> float:
     end.synchronize()
     times.append(start.elapsed_time(end))
   return statistics.median(times)
+
+
+def profiled_device_us(fn, launches: int, kernel_name=None):
+  """Device time per launch, in microseconds, of the kernel whose name
+  holds `kernel_name` (None: every kernel) over `launches` calls of `fn`,
+  by torch.profiler; None when the profiler shows no device time."""
+  activities = [torch.profiler.ProfilerActivity.CPU,
+                torch.profiler.ProfilerActivity.CUDA]
+  with torch.profiler.profile(activities=activities) as prof:
+    for _ in range(launches):
+      fn()
+    torch.cuda.synchronize()
+
+  def self_device_us(event):
+    return getattr(event, 'self_device_time_total',
+                   getattr(event, 'self_cuda_time_total', 0.0))
+
+  # Kernels are the events with device time of their own; host-side ops
+  # have none.
+  found = [e for e in prof.key_averages()
+           if (kernel_name in e.key if kernel_name else self_device_us(e) > 0)]
+  total = sum(self_device_us(e) for e in found)
+  count = sum(e.count for e in found)
+  return total / count if count and total else None

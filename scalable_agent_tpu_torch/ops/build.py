@@ -10,11 +10,14 @@ want the build out of the way first.
 The libraries go to `scalable_agent_tpu_torch/_build/` (listed in
 .gitignore), named by a digest of the source and the flags, so an edited
 source is rebuilt and concurrent builds never write the same file.
+ptxas's report of each kernel's registers, shared memory and spills
+(`-Xptxas -v`) is kept beside its library and read by `ptxas_report`.
 """
 
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import tempfile
@@ -25,7 +28,7 @@ _PACKAGE_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC_DIR = os.path.join(_PACKAGE_DIR, 'csrc')
 BUILD_DIR = os.path.join(_PACKAGE_DIR, '_build')
 NVCC_FLAGS = ('-gencode', 'arch=compute_90a,code=sm_90a', '-std=c++17',
-              '-O3', '-shared', '-Xcompiler', '-fPIC')
+              '-O3', '-shared', '-Xcompiler', '-fPIC', '-Xptxas', '-v')
 
 
 class KernelBuildError(RuntimeError):
@@ -82,6 +85,8 @@ def _finish_build(build) -> None:
     os.unlink(tmp)
     raise KernelBuildError(f'{" ".join(cmd)} failed '
                            f'({proc.returncode}):\n{output}')
+  with open(_report_path(target), 'w') as f:
+    f.write(output)
   os.replace(tmp, target)
 
 
@@ -99,6 +104,42 @@ def build_all(names: Optional[Iterable[str]] = None) -> List[str]:
   if errors:
     raise KernelBuildError('\n'.join(errors))
   return [library_path(n) for n in names]
+
+
+def _report_path(library: str) -> str:
+  return library[:-len('.so')] + '.ptxas.txt'
+
+
+_FUNCTION = re.compile(r"Function properties for (\S+)")
+_SPILLS = re.compile(r"(\d+) bytes spill stores, (\d+) bytes spill loads")
+_USED = re.compile(r"Used (\d+) registers(?:, used \d+ barriers)?"
+                   r"(?:, (\d+) bytes smem)?")
+
+
+def ptxas_report(name: str) -> Dict[str, Dict[str, int]]:
+  """Per kernel of the built `csrc/<name>.cu` (by mangled name):
+  registers, static shared memory bytes and spill store/load bytes, as
+  `-Xptxas -v` printed them when the library was built."""
+  with open(_report_path(library_path(name))) as f:
+    lines = f.read().splitlines()
+  report: Dict[str, Dict[str, int]] = {}
+  current = None
+  for line in lines:
+    match = _FUNCTION.search(line)
+    if match:
+      current = report.setdefault(match.group(1), {})
+      continue
+    if current is None:
+      continue
+    match = _SPILLS.search(line)
+    if match:
+      current['spill_stores'] = int(match.group(1))
+      current['spill_loads'] = int(match.group(2))
+    match = _USED.search(line)
+    if match:
+      current['registers'] = int(match.group(1))
+      current['smem_bytes'] = int(match.group(2) or 0)
+  return report
 
 
 _loaded: Dict[str, ctypes.CDLL] = {}

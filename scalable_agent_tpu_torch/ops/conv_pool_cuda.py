@@ -18,12 +18,15 @@ memory. Dispatch is by the frames' device:
 count). `library_conv_pool` (cuDNN's bf16 conv and PyTorch's pool) is the
 timing yardstick of chip_smoke.py and scripts/conv_pool.py; the port does
 not call it. The kernel's design and bound are described in
-csrc/conv_pool.cu. No autograd: the JAX package's trainer never calls the
+csrc/conv_pool.cu; `pack_weight` (the tensor cores' B operand) and
+`launch_geometry` (bands, tiles, threads, shared memory) are its layout
+helpers, in plain Python so the CPU tests reach them. No autograd: the JAX package's trainer never calls the
 TPU kernel either (its torso uses XLA's conv and pool).
 """
 
 import ctypes
 import math
+from typing import NamedTuple
 
 import torch
 from torch.nn import functional as F
@@ -34,7 +37,97 @@ from scalable_agent_tpu_torch.ops import build
 CIN, COUT = 3, 16
 WEIGHT_SHAPE = (COUT, CIN, 3, 3)
 
-_ARGTYPES = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
+_ARGTYPES = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
+
+K_PADDED = 32   # the 27 taps padded to two k-steps of the bf16 mma
+SEG = 16        # conv positions per mma tile
+ROWS_PER_BAND = 6
+MAX_COLS_PER_TILE = 64
+MAX_WARPS = 8
+
+
+class LaunchGeometry(NamedTuple):
+  rows: int        # pooled rows per band
+  cols: int        # pooled columns per tile (all of them up to 64)
+  threads: int
+  smem_bytes: int  # dynamic shared memory per block
+  row_bands: int
+  col_tiles: int
+  segs: int        # 16-position segments of a band's conv row
+  blocks: int      # n * row_bands * col_tiles
+
+
+def window_layout(segs: int, in_rows: int):
+  """(elements per window row, bytes from copy 0 to copy 1): a row holds
+  3 * 16 segs + 9 elements at least (+1 of shift), a multiple of 6; the
+  stride and copy 1's offset mod 128 bytes put the 32 lanes of each A
+  load of the kernel on 32 banks."""
+  win_stride = 3 * SEG * segs + (24 if segs % 2 else 72)
+  copy1 = -(-(in_rows * win_stride * 2) // 128) * 128 + 56
+  return win_stride, copy1
+
+
+def launch_geometry(n: int, h: int, w: int) -> LaunchGeometry:
+  """The kernel's launch for [n, h, w] frames: one block per (frame, band
+  of `rows` pooled rows, tile of `cols` pooled columns). The shared memory
+  holds the band's input rows as staged (16-byte rows), the bf16 window
+  twice (the second shifted by one element), and the bf16 row maxima of
+  the band's pooled rows; the kernel computes the same sum and refuses a
+  launch whose `smem_bytes` differs."""
+  if min(n, h, w) < 1:
+    raise ValueError(f'conv+pool needs N, H, W >= 1, got [{n}, {h}, {w}]')
+  _, out_h, out_w, _ = output_shape(n, h, w)
+  rows = min(ROWS_PER_BAND, out_h)
+  cols = min(MAX_COLS_PER_TILE, out_w)
+  segs = -(-(2 * cols + 1) // SEG)
+  in_rows, in_pixels = 2 * rows + 3, 2 * cols + 3
+  raw_stride = -(-(in_pixels * CIN + 15) // 16) * 16
+  win_stride, copy1 = window_layout(segs, in_rows)
+  win_offset = 16 + in_rows * raw_stride
+  vmax_offset = win_offset + -(-(copy1 + in_rows * win_stride * 2) // 16) * 16
+  smem_bytes = vmax_offset + rows * segs * SEG * COUT * 2
+  row_bands, col_tiles = -(-out_h // rows), -(-out_w // cols)
+  return LaunchGeometry(rows, cols, 32 * min(MAX_WARPS, segs),
+                        smem_bytes, row_bands, col_tiles, segs,
+                        n * row_bands * col_tiles)
+
+
+def k_element(k: int):
+  """What row k of the mma's K dimension multiplies: (dy, e), element e of
+  a position's window row dy (e = 3 dx + ci for e < 9; e = 9 is channel 0
+  of the pixel after the 3x3 window), or None for the last pair. Pair
+  p = k // 2 = 4 dy + j (j < 4) holds elements 2j, 2j + 1 of row dy, and
+  pair 12 + dy elements 8, 9: every pair is two neighbouring elements (one
+  32-bit load in the kernel), and the four pairs of one load lie in one
+  row or are the rows' element 8."""
+  p, h = divmod(k, 2)
+  if p < 12:
+    return p // 4, 2 * (p % 4) + h
+  if p < 15:
+    return p - 12, 8 + h
+  return None
+
+
+# Column of OIHW's [16, 27] (ci, dy, dx) taps, plus a zero column 27, that
+# each row of the packed weight takes.
+_PACK_INDEX = [
+    27 if tap is None or tap[1] >= 9
+    else tap[1] % CIN * 9 + tap[0] * 3 + tap[1] // CIN
+    for tap in map(k_element, range(K_PADDED))]
+_pack_index = {}
+
+
+def pack_weight(weight):
+  """The tensor cores' B operand: OIHW [16, 3, 3, 3] -> bf16 [32, 16], row
+  k the tap `k_element(k)` names, column the output channel. Rows 25, 27,
+  29 (element 9 of a window row) and 30, 31 (the last pair) are zero."""
+  device = weight.device
+  index = _pack_index.get(device)
+  if index is None:
+    index = _pack_index[device] = torch.tensor(_PACK_INDEX, device=device)
+  taps = weight.to(torch.bfloat16).reshape(COUT, 9 * CIN)
+  taps = torch.cat([taps, taps.new_zeros((COUT, 1))], dim=1)
+  return taps.index_select(1, index).t().contiguous()
 
 
 def output_shape(n: int, h: int, w: int):
@@ -105,20 +198,17 @@ def fused_conv_pool(frames, weight, bias):
     raise ValueError(f'fused conv+pool runs on CUDA or CPU tensors, got '
                      f'{device}')
 
-  lib = build.load('conv_pool')
-  fn = lib.conv_pool_launch
-  fn.argtypes = _ARGTYPES
-  fn.restype = ctypes.c_int
-
+  fn = _launcher()
   n, h, w, _ = frames.shape
-  weight = weight.to(torch.bfloat16).contiguous()
+  geometry = launch_geometry(n, h, w)
+  packed = pack_weight(weight)
   bias = bias.to(torch.bfloat16).contiguous()
   out = torch.empty(output_shape(n, h, w), dtype=torch.bfloat16,
                     device=device)
   with torch.cuda.device(device):
     stream = torch.cuda.current_stream(device).cuda_stream
-    err = fn(frames.data_ptr(), weight.data_ptr(), bias.data_ptr(),
-             out.data_ptr(), n, h, w, stream)
+    err = fn(frames.data_ptr(), packed.data_ptr(), bias.data_ptr(),
+             out.data_ptr(), n, h, w, *geometry[:4], stream)
   if err != 0:
     raise RuntimeError(f'conv_pool kernel launch failed: CUDA error {err}')
   fused_conv_pool.launches += 1
@@ -126,3 +216,17 @@ def fused_conv_pool(frames, weight, bias):
 
 
 fused_conv_pool.launches = 0
+
+
+_LAUNCHER = None
+
+
+def _launcher():
+  """`conv_pool_launch` of the built library, bound once per process."""
+  global _LAUNCHER
+  if _LAUNCHER is None:
+    fn = build.load('conv_pool').conv_pool_launch
+    fn.argtypes = _ARGTYPES
+    fn.restype = ctypes.c_int
+    _LAUNCHER = fn
+  return _LAUNCHER

@@ -24,19 +24,60 @@ The kernel's design and bound are described in csrc/vtrace.cu.
 Rank-generic: inputs are [T, ...] and the trailing dims are flattened into
 the kernel's N columns, each an independent recursion. No autograd: the
 callers pass detached inputs and the outputs carry no graph.
+
+`launch_geometry` chooses the kernel's columns per block, time chunk,
+stages and shared memory in plain Python, so the CPU tests reach it; the
+kernel checks what it is given and refuses what it cannot run.
 """
 
 import ctypes
 import math
-from typing import Optional, Tuple
+from typing import NamedTuple, Optional, Tuple
 
 import torch
 
 from scalable_agent_tpu_torch.ops import build
 
 _ARGTYPES = ([ctypes.c_void_p] * 7 + [ctypes.c_int, ctypes.c_int,
-                                      ctypes.c_float, ctypes.c_float,
-                                      ctypes.c_void_p])
+                                      ctypes.c_float, ctypes.c_float]
+             + [ctypes.c_int] * 5 + [ctypes.c_void_p])
+
+# A block stages its columns' [T, cols] slabs of the four inputs in one
+# chunk up to this many steps (T=100 of the learner: one chunk), and in
+# double-buffered chunks of LONG_CHUNK steps beyond it.
+MAX_COLS = 32
+ONE_CHUNK_MAX_T = 128
+LONG_CHUNK = 64
+THREADS = 512
+_INPUTS, _OUTPUTS = 4, 2
+
+
+class LaunchGeometry(NamedTuple):
+  cols: int        # columns per block (a power of two, 4 to 32)
+  chunk: int       # time steps per staged chunk
+  stages: int      # input buffers in flight (1 or 2)
+  threads: int     # threads per block; the first `cols` walk
+  smem_bytes: int  # dynamic shared memory per block
+  blocks: int      # ceil(n_cols / cols)
+
+
+def launch_geometry(t_len: int, n_cols: int) -> LaunchGeometry:
+  """The kernel's launch for [t_len, n_cols]: one thread per column walks
+  time in chunks from the end, out of `stages` shared-memory buffers of
+  the four inputs ([chunk, cols] floats each) and one of the two
+  outputs. `cols` is a power of two, so that it divides `threads`: the
+  passes map thread i to column i % cols."""
+  if t_len < 1 or n_cols < 1:
+    raise ValueError(f'V-trace needs T >= 1 and N >= 1, got [{t_len}, '
+                     f'{n_cols}]')
+  cols = min(MAX_COLS, max(4, 1 << (n_cols - 1).bit_length()))
+  if t_len <= ONE_CHUNK_MAX_T:
+    chunk, stages = t_len, 1
+  else:
+    chunk, stages = LONG_CHUNK, 2
+  smem_bytes = 4 * (stages * _INPUTS + _OUTPUTS) * chunk * cols
+  return LaunchGeometry(cols, chunk, stages, THREADS, smem_bytes,
+                        -(-n_cols // cols))
 
 
 def _threshold(x: Optional[float]) -> float:
@@ -160,13 +201,10 @@ def _dispatch(wrapper, log_rhos, discounts, rewards, values,
     raise ValueError(f'fused V-trace runs on CUDA or CPU tensors, got '
                      f'{device}')
 
-  lib = build.load('vtrace')
-  fn = lib.vtrace_launch
-  fn.argtypes = _ARGTYPES
-  fn.restype = ctypes.c_int
-
+  fn = _launcher()
   t_len = shape[0]
   n_cols = math.prod(shape[1:])
+  geometry = launch_geometry(t_len, n_cols)
   inputs = (log_rhos, discounts, rewards, values)
   vs = torch.empty((t_len, n_cols), dtype=torch.float32, device=device)
   pg = torch.empty((t_len, n_cols), dtype=torch.float32, device=device)
@@ -175,8 +213,22 @@ def _dispatch(wrapper, log_rhos, discounts, rewards, values,
     err = fn(*(x.data_ptr() for x in inputs), bootstrap_value.data_ptr(),
              vs.data_ptr(), pg.data_ptr(), t_len, n_cols,
              _threshold(clip_rho_threshold),
-             _threshold(clip_pg_rho_threshold), stream)
+             _threshold(clip_pg_rho_threshold), *geometry[:5], stream)
   if err != 0:
     raise RuntimeError(f'vtrace kernel launch failed: CUDA error {err}')
   wrapper.launches += 1
   return vs.reshape(shape), pg.reshape(shape)
+
+
+_LAUNCHER = None
+
+
+def _launcher():
+  """`vtrace_launch` of the built library, bound once per process."""
+  global _LAUNCHER
+  if _LAUNCHER is None:
+    fn = build.load('vtrace').vtrace_launch
+    fn.argtypes = _ARGTYPES
+    fn.restype = ctypes.c_int
+    _LAUNCHER = fn
+  return _LAUNCHER

@@ -6,12 +6,12 @@ no JAX, so it also runs where JAX is not installed:
 
   python -m pytest --noconftest -m requires_cuda tests/test_torch_cuda.py
 
-Tolerances: the V-trace kernel against its twin on the card, rtol 1e-5 /
-atol 1e-6 (the same arithmetic; the compiler may contract a multiply-add
-into an FMA, which rounds once instead of twice). The fused conv+pool
-kernel against its twin, max|kernel - plain| <= 2**-7 * max|plain|: one
-bf16 ulp at the output's scale, since the two sum the float32 products in
-another order before rounding to bf16.
+Tolerances: the V-trace kernel against its twin on the card, bit-equal
+(torch.equal: the kernel rounds each product and sum where the twin's
+PyTorch ops round). The fused conv+pool kernel against its twin,
+max|kernel - plain| <= 2**-7 * max|plain|: one bf16 ulp at the output's
+scale, since the tensor cores sum the float32 products in another order
+before rounding to bf16.
 """
 
 import numpy as np
@@ -50,7 +50,8 @@ def _inputs(shape, device, seed=0):
 
 @pytest.mark.parametrize('clips', [(1.0, 1.0), (None, None), (3.7, 2.2)],
                          ids=str)
-@pytest.mark.parametrize('shape', [(100, 32), (7, 300), (6, 70, 3), (1, 1)],
+@pytest.mark.parametrize('shape', [(100, 32), (7, 300), (6, 70, 3), (1, 1),
+                                   (257, 45), (1000, 32), (100, 16)],
                          ids=str)
 def test_vtrace_kernel_matches_twin(cuda, shape, clips):
   x = _inputs(shape, cuda)
@@ -61,8 +62,8 @@ def test_vtrace_kernel_matches_twin(cuda, shape, clips):
   assert vtrace_cuda.from_importance_weights.launches == before + 1
   ref_vs, ref_pg = vtrace_cuda.plain_from_importance_weights(
       **x, clip_rho_threshold=clips[0], clip_pg_rho_threshold=clips[1])
-  torch.testing.assert_close(vs, ref_vs, rtol=1e-5, atol=1e-6)
-  torch.testing.assert_close(pg, ref_pg, rtol=1e-5, atol=1e-6)
+  assert torch.equal(vs, ref_vs)
+  assert torch.equal(pg, ref_pg)
 
 
 def test_vtrace_kernel_keeps_nan_like_the_twin(cuda):
@@ -131,7 +132,8 @@ def test_anakin_on_card_launches_the_kernel_once_per_step(cuda):
 
 
 @pytest.mark.parametrize('shape', [(3232, 72, 96), (32, 72, 96), (5, 21, 27),
-                                   (1, 1, 1)], ids=str)
+                                   (1, 1, 1), (7, 72, 96), (3, 1, 1),
+                                   (2, 20, 150)], ids=str)
 def test_conv_pool_kernel_matches_twin(cuda, shape):
   frames, weight, bias = conv_pool_script.make_inputs(*shape, cuda, seed=1)
   before = conv_pool_cuda.fused_conv_pool.launches
@@ -142,6 +144,23 @@ def test_conv_pool_kernel_matches_twin(cuda, shape):
   assert out.shape == conv_pool_cuda.output_shape(*shape)
   ref = conv_pool_cuda.plain_conv_pool(frames, weight, bias)
   conv_pool_script.parity(out, ref)  # raises past 2**-7 * max|plain|
+
+
+def test_refused_launches_raise(cuda, monkeypatch):
+  """A geometry the kernel cannot run comes back as a CUDA error, and the
+  wrapper raises; nothing falls back to the twin."""
+  x = _inputs((100, 32), cuda)
+  geometry = vtrace_cuda.launch_geometry(100, 32)
+  monkeypatch.setattr(vtrace_cuda, 'launch_geometry', lambda t, n: (
+      geometry._replace(smem_bytes=geometry.smem_bytes + 4)))
+  with pytest.raises(RuntimeError, match='vtrace kernel launch failed'):
+    vtrace_cuda.from_importance_weights(**x)
+  frames, weight, bias = conv_pool_script.make_inputs(2, 72, 96, cuda)
+  k2 = conv_pool_cuda.launch_geometry(2, 72, 96)
+  monkeypatch.setattr(conv_pool_cuda, 'launch_geometry', lambda n, h, w: (
+      k2._replace(smem_bytes=300000)))
+  with pytest.raises(RuntimeError, match='conv_pool kernel launch failed'):
+    conv_pool_cuda.fused_conv_pool(frames, weight, bias)
 
 
 def test_bf16_anakin_on_card_keeps_float32_state(cuda):
