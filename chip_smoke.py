@@ -68,11 +68,44 @@ Phases, each of which raises (exit code != 0) when it fails:
              --nproc_per_node=1 -m scalable_agent_tpu_torch.experiment
              --mode=anakin` for 2 full-width steps: an NCCL group of one;
              its summaries.jsonl must hold a finite total_loss.
+13. fleet  — the fleet runtime, `driver.train` on the card at the slice's
+             full width (deep torso, 72x96, T=100, B=32, 9 actions, 4
+             action repeats, float32, fused V-trace) with 32 actors, each
+             env (the host bandit, 100-step episodes) in its own process,
+             for 8 learner steps, publishing every 3: finite losses,
+             update_steps == 8, changed params, exactly one V-trace kernel
+             launch per learner step, the server's parameters on the card
+             and its merged batches above 1 request on average, the
+             published version advanced, and the server's snapshot
+             bit-equal to the learner's params at the last publish (step
+             6) and unequal to them after steps 7 and 8. It prints
+             env-frames/s and ms per learner step over steps 3-8, the
+             share of that time the learner blocked in prefetcher.get,
+             the inference mean batch and latency p50/p99 (per merged
+             call, over the server's last 512 calls), the buffer's high
+             water, peak device memory, and the device's busy time per
+             learner step and idle share by torch.profiler over steps 7-8
+             (the union of every stream's device events, the server's
+             inference kernels included).
+14. fleet_reference — the inference server on the card against the same
+             server on the CPU, same params, 32 concurrent callers at
+             [72, 96] frames with random carries: logits, baseline and new
+             carry within rtol 1e-4 / atol 1e-5 (the float32 card-vs-CPU
+             bar of slice_reference). Then publishes racing inference on
+             the card: 8 callers loop on fixed inputs while the learner's
+             tensors alternate between two versions, each published and
+             at once overwritten in place; every answer must be one
+             version's (same bar) and both must be seen.
+15. cli_fleet — `python -m scalable_agent_tpu_torch.experiment --mode=train
+             --runtime=fleet` for 2 full-width steps with 32 process-hosted
+             actors into a temporary logdir; its summaries.jsonl must hold
+             a finite total_loss and env_frames_per_sec.
 
-Every kernel's launch count is set to 0 just before each path (the three
-slices and the K2 entry point; slice_dp's ranks count their own and
-report them) and read just after; a kernel that its path did not launch
-fails the run. The second-to-last line of the output is the
+The forkserver that env processes fork from is started before the first
+CUDA call. Every kernel's launch count is set to 0 just before each path
+(the three slices, the fleet and the K2 entry point; slice_dp's ranks
+count their own and report them) and read just after; a kernel that its
+path did not launch fails the run. The second-to-last line of the output is the
 JSON `{"kernels": [...]}` record, the last `{"ok": true, "device": {...}}`.
 Without CUDA, or run outside the repo, it exits non-zero before printing
 either.
@@ -87,6 +120,7 @@ import socket
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 
 import numpy as np
@@ -111,6 +145,8 @@ from scalable_agent_tpu_torch.parallel import mesh as mesh_lib
 from scalable_agent_tpu_torch.parallel import sharding
 from scalable_agent_tpu_torch.parallel import train_parallel
 from scalable_agent_tpu_torch.profile_anakin import SLICE
+from scalable_agent_tpu_torch.runtime import py_process
+from scalable_agent_tpu_torch.runtime.inference import InferenceServer
 from scalable_agent_tpu_torch.scripts import conv_pool as conv_pool_script
 from scalable_agent_tpu_torch.structs import (ActorOutput, AgentOutput,
                                               StepOutput, StepOutputInfo,
@@ -134,6 +170,15 @@ CLIPS = [(1.0, 1.0), (None, None), (3.7, 2.2)]
 # K1b: (global shape, ranks); timed at the slice's per-rank shape.
 K1B_CASES = [((100, 32), 2), ((100, 32), 4), ((6, 70, 3), 2)]
 K1B_TIMED = ((100, 32), 2)
+
+# The fleet phase: the slice's widths through the fleet runtime.
+FLEET = dict(SLICE, num_actors=32, use_py_process=True, episode_length=100,
+             num_action_repeats=4, publish_params_every=3, summary_secs=0)
+FLEET_STEPS = 8
+FLEET_TIMED_FROM = 2     # steps 3..8 are timed
+FLEET_PROFILED_FROM = 6  # steps 7..8 are profiled
+PUBLISH_RACE_CALLERS = 8
+PUBLISH_RACE_ROUNDS = 40
 
 DP_RANKS = 2
 DP_TIMEOUT_SECS = 900
@@ -767,7 +812,302 @@ def phase_cli_dp():
       f'group of one, total_loss {losses}')
 
 
+def _device_busy_ms(prof):
+  """Time the device was busy in a profile, ms: the union over every
+  stream of the device-side events' intervals (kernels, copies, memsets).
+  The CPU ops that launched them carry the same time again, and kernels
+  of two streams that overlap count once."""
+  spans = sorted((e.time_range.start, e.time_range.end)
+                 for e in prof.events()
+                 if str(getattr(e, 'device_type', '')).endswith('CUDA'))
+  busy_us, covered_to = 0.0, float('-inf')
+  for start, end in spans:
+    if end > covered_to:
+      busy_us += end - max(start, covered_to)
+      covered_to = end
+  return busy_us / 1e3
+
+
+def phase_fleet():
+  """The fleet runtime at full width through driver.train (see the
+  module docstring); returns its kernel launch counts."""
+  with tempfile.TemporaryDirectory(prefix='chip_smoke_fleet_') as logdir:
+    return _fleet_run(Config(**FLEET, logdir=logdir))
+
+
+def _fleet_run(config):
+  agent = driver.build_agent(config, SLICE['num_actions'])
+  init_params(agent, torch.Generator().manual_seed(config.seed))
+  initial = _param_snapshot(dict(agent.named_parameters()))
+  published = {}
+  learner_after = {}
+  window = []  # wall-clock start and end of the profiled steps
+  profiler = torch.profiler.profile(activities=[
+      torch.profiler.ProfilerActivity.CPU,
+      torch.profiler.ProfilerActivity.CUDA])
+
+  def on_step(run, step, metrics):
+    if step % config.publish_params_every == 0:
+      published[step] = _param_snapshot(run.state.params)
+    elif step > FLEET_PROFILED_FROM:
+      learner_after[step] = _param_snapshot(run.state.params)
+    if step == FLEET_PROFILED_FROM:
+      torch.cuda.synchronize()
+      profiler.start()
+      window.append(time.perf_counter())
+    elif step == FLEET_STEPS:
+      torch.cuda.synchronize()
+      window.append(time.perf_counter())
+      profiler.stop()
+
+  torch.cuda.reset_peak_memory_stats()
+  t0 = time.perf_counter()
+  run, counts = _drive('fleet', lambda: driver.train(
+      config, max_steps=FLEET_STEPS, device='cuda', stall_timeout_secs=300,
+      on_step=on_step))
+  wall = time.perf_counter() - t0
+  peak_gib = torch.cuda.max_memory_allocated() / 2**30
+  with open(os.path.join(config.logdir, 'summaries.jsonl')) as f:
+    events = [json.loads(line) for line in f]
+  losses = [e['value'] for e in events if e['tag'] == 'total_loss']
+  if len(losses) != FLEET_STEPS or not all(map(math.isfinite, losses)):
+    raise AssertionError(f'fleet losses: {losses}')
+  if run.state.update_steps != FLEET_STEPS:
+    raise AssertionError(f'fleet update_steps {run.state.update_steps}')
+  if counts['vtrace'] != FLEET_STEPS or counts['conv_pool'] or (
+      counts['vtrace_sharded']):
+    raise AssertionError(f'fleet launches {counts} in {FLEET_STEPS} learner '
+                         'steps')
+  final = _param_snapshot(run.state.params)
+  moved = max(float((final[k] - initial[k]).abs().max()) for k in final)
+  if not moved > 0:
+    raise AssertionError('fleet params did not change')
+  server_params = run.server.live_params()
+  if not all(p.is_cuda for p in server_params.values()):
+    raise AssertionError('the server\'s params are not on the card')
+  served = _param_snapshot(server_params)
+  last = max(published)
+  if not all(torch.equal(served[k], published[last][k]) for k in served):
+    raise AssertionError(f'the server\'s snapshot differs from the params '
+                         f'published at step {last}')
+  for step, after in sorted(learner_after.items()):
+    if all(torch.equal(served[k], after[k]) for k in served):
+      raise AssertionError(f'the server\'s snapshot follows the learner\'s '
+                           f'params after step {step}')
+  server = run.stats['server']
+  if not server['mean_batch'] > 1:
+    raise AssertionError(f'inference merged no calls: {server}')
+  if (server['params_version'] < 1 + FLEET_STEPS // config.publish_params_every
+      or server['live_version'] != last):
+    raise AssertionError(f'published version did not advance to step '
+                         f'{last}: {server}')
+  log_ = run.step_log
+  timed_s = log_[-1]['time'] - log_[FLEET_TIMED_FROM - 1]['time']
+  waited_s = (log_[-1]['get_wait_secs'] -
+              log_[FLEET_TIMED_FROM - 1]['get_wait_secs'])
+  timed_steps = FLEET_STEPS - FLEET_TIMED_FROM
+  fps = timed_steps * config.frames_per_step / timed_s
+  profiled_steps = FLEET_STEPS - FLEET_PROFILED_FROM
+  busy_ms = _device_busy_ms(profiler)
+  busy = (f'{busy_ms / profiled_steps:.2f} ms per learner step, idle share '
+          f'{1 - busy_ms / (1e3 * (window[1] - window[0])):.4f}'
+          if busy_ms else 'not measured (no device events)')
+  log(f'fleet: {FLEET_STEPS} learner steps in {wall:.2f} s (set-up '
+      f'included); losses {losses}; max |param change| {moved:.3e}; vtrace '
+      f'launches {counts["vtrace"]}; server snapshot bit-equal to the '
+      f'params published at step {last}, unequal to the learner\'s after '
+      f'steps {sorted(learner_after)}')
+  log(f'fleet: {fps:.1f} env-frames/s, {1e3 * timed_s / timed_steps:.2f} ms '
+      f'per learner step over steps {FLEET_TIMED_FROM + 1}-{FLEET_STEPS}; '
+      f'learner blocked in prefetcher.get {waited_s / timed_s:.4f} of that '
+      f'time; inference mean batch {server["mean_batch"]:.3f} over '
+      f'{server["calls"]} calls; latency per merged call over the last 512 '
+      f'calls p50 {server["latency_p50_ms"]} ms p99 '
+      f'{server["latency_p99_ms"]} ms; {server["snapshots"]} snapshots; '
+      f'buffer high water {run.stats["buffer"]["high_water"]} of '
+      f'{run.stats["buffer"]["capacity"]}; peak allocated {peak_gib:.3f} '
+      f'GiB; device busy {busy} (torch.profiler, union of the device '
+      f'events of every stream over steps {FLEET_PROFILED_FROM + 1}-'
+      f'{FLEET_STEPS}, inference kernels included); fleet '
+      f'{run.stats["fleet"]}; prefetcher {run.stats["prefetcher"]}')
+  return counts
+
+
+def _reference_callers(num, config, seed=0):
+  rng = np.random.RandomState(seed)
+  calls = []
+  for _ in range(num):
+    frame = rng.randint(0, 256, (config.height, config.width, 3)).astype(
+        np.uint8)
+    env_output = StepOutput(
+        np.float32(rng.randn()), StepOutputInfo(np.float32(0), np.int32(0)),
+        np.bool_(rng.rand() < 0.2), (frame, np.zeros(16, np.int32)))
+    carry = tuple(rng.randn(1, 256).astype(np.float32) * 0.3
+                  for _ in range(2))
+    calls.append((np.int32(rng.randint(config.num_actions)), env_output,
+                  carry))
+  return calls
+
+
+def _serve(server, calls):
+  outs = [None] * len(calls)
+
+  def call(i):
+    outs[i] = server.policy(*calls[i])
+
+  threads = [threading.Thread(target=call, args=(i,))
+             for i in range(len(calls))]
+  for t in threads:
+    t.start()
+  for t in threads:
+    t.join()
+  return outs
+
+
+def phase_fleet_reference():
+  """The server on the card against the same server on the CPU: the same
+  seeded params and 32 concurrent callers' inputs; logits, baseline and
+  new carry within rtol 1e-4 / atol 1e-5."""
+  config = Config(**dict(FLEET, inference_timeout_ms=1000))
+  agent = driver.build_agent(config, SLICE['num_actions'])
+  params = init_params(agent, torch.Generator().manual_seed(config.seed))
+  calls = _reference_callers(config.num_actors, config)
+  results = {}
+  for device in ('cpu', 'cuda'):
+    server = InferenceServer(agent, {k: v.to(device) for k, v in
+                                     params.items()}, config, seed=1,
+                             fleet_size=config.num_actors)
+    try:
+      results[device] = _serve(server, calls)
+      stats = server.stats()
+    finally:
+      server.close()
+    log(f'fleet_reference {device}: {stats["calls"]} merged calls, mean '
+        f'batch {stats["mean_batch"]:.2f}')
+  err = 0.0
+  for (cpu_out, cpu_carry), (gpu_out, gpu_carry) in zip(results['cpu'],
+                                                        results['cuda']):
+    for got, ref in ((gpu_out.policy_logits, cpu_out.policy_logits),
+                     (gpu_out.baseline, cpu_out.baseline),
+                     (gpu_carry[0], cpu_carry[0]), (gpu_carry[1], cpu_carry[1])):
+      np.testing.assert_allclose(got, ref, rtol=1e-4, atol=1e-5)
+      err = max(err, float(np.max(np.abs(np.asarray(got) - ref))))
+  log(f'fleet_reference: {len(calls)} callers, card vs CPU max |diff| '
+      f'{err:.3e} over logits, baseline and carry')
+  _publish_race(agent, params, config, calls[:PUBLISH_RACE_CALLERS])
+
+
+def _matches(outs, refs):
+  return all(np.allclose(got, ref, rtol=1e-4, atol=1e-5)
+             for (out, carry), (ref, ref_carry) in zip(outs, refs)
+             for got, ref in ((out.policy_logits, ref.policy_logits),
+                              (out.baseline, ref.baseline),
+                              (carry[0], ref_carry[0]),
+                              (carry[1], ref_carry[1])))
+
+
+def _publish_race(agent, params, config, calls):
+  """Publishes racing inference on the card: callers loop on fixed inputs
+  while the main thread alternates the learner's tensors between two
+  versions, publishes, and at once overwrites them in place (the
+  learner's next update). Every answer must be one version's answer
+  (within the fleet_reference bar), never a half-written or overwritten
+  snapshot's; both versions must be seen."""
+  versions = [{k: v.detach().to('cuda', copy=True) for k, v in params.items()}]
+  versions.append({k: v * 0.5 + 0.01 for k, v in versions[0].items()})
+  refs = []
+  for version in versions:
+    server = InferenceServer(agent, version, config, seed=1,
+                             fleet_size=len(calls))
+    try:
+      refs.append(_serve(server, calls))
+    finally:
+      server.close()
+  learner_params = {k: v.clone() for k, v in versions[0].items()}
+  server = InferenceServer(agent, learner_params, config, seed=1,
+                           fleet_size=len(calls))
+  answers = []
+  done = threading.Event()
+
+  def caller(i):
+    for _ in range(PUBLISH_RACE_ROUNDS):
+      answers.append((i, server.policy(*calls[i])))
+    done.set()
+
+  threads = [threading.Thread(target=caller, args=(i,))
+             for i in range(len(calls))]
+  publishes = 0
+  try:
+    for t in threads:
+      t.start()
+    with torch.no_grad():
+      while not done.is_set() and any(t.is_alive() for t in threads):
+        for k, p in learner_params.items():
+          p.copy_(versions[publishes % 2][k])
+        server.update_params(learner_params, version=publishes)
+        for p in learner_params.values():
+          p.add_(1000.0)  # the learner's next in-place update
+        publishes += 1
+    for t in threads:
+      t.join()
+    stats = server.stats()
+  finally:
+    server.close()
+  if len(answers) != len(calls) * PUBLISH_RACE_ROUNDS:
+    raise AssertionError(f'publish race: {len(answers)} answers of '
+                         f'{len(calls) * PUBLISH_RACE_ROUNDS}')
+  seen = [0, 0]
+  for i, answer in answers:
+    which = [_matches([answer], [ref[i]]) for ref in refs]
+    if not any(which):
+      raise AssertionError(f'publish race: caller {i} got an answer of '
+                           'neither published version')
+    seen[which.index(True)] += 1
+  if not all(seen):
+    raise AssertionError(f'publish race: answers by version {seen}')
+  log(f'fleet_reference publish race: {publishes} publishes racing '
+      f'{len(answers)} answers from {len(calls)} callers; answers by '
+      f'version {seen}, each one version\'s; {stats["snapshots"]} '
+      'snapshots')
+
+
+def phase_cli_fleet():
+  """The CLI's fleet runtime, 2 full-width steps through env processes."""
+  config = Config(**FLEET)
+  with tempfile.TemporaryDirectory(prefix='chip_smoke_cli_fleet_') as logdir:
+    cmd = [sys.executable, '-m', 'scalable_agent_tpu_torch.experiment',
+           '--mode=train', '--runtime=fleet', f'--logdir={logdir}',
+           f'--total_environment_frames={2 * config.frames_per_step}']
+    for field, value in FLEET.items():
+      cmd.append(f'--{field}={value}')
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, capture_output=True, text=True, timeout=600,
+                          cwd=os.path.dirname(os.path.abspath(__file__)))
+    if proc.returncode != 0:
+      raise RuntimeError(f'fleet CLI failed ({proc.returncode}):\n'
+                         f'{proc.stderr[-8000:]}')
+    with open(os.path.join(logdir, 'summaries.jsonl')) as f:
+      events = [json.loads(line) for line in f]
+  losses = [e['value'] for e in events if e['tag'] == 'total_loss']
+  fps = [e['value'] for e in events if e['tag'] == 'env_frames_per_sec']
+  if not losses or not all(map(math.isfinite, losses)) or not fps:
+    raise AssertionError(f'fleet CLI total_loss {losses}, '
+                         f'env_frames_per_sec {fps}')
+  log(f'cli_fleet: 2 steps in {time.perf_counter() - t0:.1f} s, total_loss '
+      f'{losses}, env_frames_per_sec {fps}')
+
+
 def main():
+  # Before any CUDA call: the fleet's env processes fork from this
+  # server, which has this script's imports loaded.
+  py_process.warm_forkserver(preload=['chip_smoke'])
+  try:
+    run_phases()
+  finally:
+    py_process.stop_forkserver()
+
+
+def run_phases():
   phases = []
 
   def timed(name, fn, *args):
@@ -798,6 +1138,9 @@ def main():
   k1b = timed('vtrace_sharded', phase_vtrace_sharded)
   paths['slice_dp'] = timed('slice_dp', phase_slice_dp)
   timed('cli_dp', phase_cli_dp)
+  paths['fleet'] = timed('fleet', phase_fleet)
+  timed('fleet_reference', phase_fleet_reference)
+  timed('cli_fleet', phase_cli_fleet)
   log('phases: ' + ', '.join(f'{n} {s:.1f} s' for n, s in phases))
   launches = {name: {path: counts[name] for path, counts in paths.items()}
               for name in COUNTERS}

@@ -82,6 +82,41 @@ class Config:
   replay_k: int = 1
   replay_ratio: float = 0.0
   runtime: str = 'fleet'                  # fleet | anakin
+
+  # The fleet runtime (driver.train, runtime/). Host actors, one env
+  # each, hosted in their own processes.
+  num_actors: int = 4
+  use_py_process: bool = True
+  publish_params_every: int = 1           # learner steps per publish
+  # Trajectory buffer capacity in batches, and staged batches in flight.
+  queue_capacity_batches: int = 1
+  staging_depth: int = 2
+  staging_mode: str = 'batch'             # batch (unroll: ROADMAP A5b)
+  # Inference batching. min_batch 0 = AUTO: the merge floor is the fleet
+  # size, so every call carries the whole fleet; timeout_ms bounds the
+  # wait when an actor is busy elsewhere.
+  inference_min_batch: int = 0
+  inference_max_batch: int = 1024
+  inference_timeout_ms: int = 100
+  # Merged batches dispatched but not completed at once.
+  inference_pipeline_depth: int = 2
+  inference_state_cache: bool = False     # True: ROADMAP A7
+  inference_admission: str = 'block'      # block (shed | grow: A7)
+  # Fleet health: consecutive respawns without a completed unroll before
+  # a slot is quarantined (0 = never); the probation cool-down of a
+  # quarantined slot, read by the elastic fleet's actuators (ROADMAP A7).
+  fleet_quarantine_after: int = 5
+  fleet_probation_secs: float = 30.0
+  # Fields of paths the port does not have yet: validate_fleet raises
+  # when one leaves its default.
+  fleet_tasks: str = ''                   # mixed fleets: ROADMAP A7
+  publish_codec: str = 'bf16'             # int8: ROADMAP A7
+  serving_resident_versions: int = 1      # serving_*: ROADMAP A7
+  serving_hbm_budget_mb: float = 0.0
+  serving_ab_fraction: float = 0.0
+  serving_shadow_fraction: float = 0.0
+  serving_aot: bool = False
+  serving_replicas: str = ''
   # Skip a non-finite update: the step keeps the old params and
   # optimizer state, and still advances update_steps.
   health_watchdog: bool = True
@@ -101,8 +136,8 @@ class Config:
       later.append(f'surrogate={self.surrogate!r} (IMPACT: ROADMAP Queue '
                    'A, extensions slice)')
     if self.replay_k != 1 or self.replay_ratio != 0.0:
-      later.append('replay_k>1 / replay_ratio>0 (sample reuse: ROADMAP '
-                   'Queue A, extensions slice)')
+      later.append('replay_k>1 / replay_ratio>0 (sample reuse and the '
+                   'replay tier: ROADMAP A2)')
     if self.curriculum != 'uniform':
       later.append(f'curriculum={self.curriculum!r} (population: ROADMAP '
                    'Queue A, population slice)')
@@ -136,6 +171,62 @@ class Config:
     if self.level_name == 'dmlab30':
       return True
     return self.level_name.startswith(('language_', 'psychlab_'))
+
+
+_INFERENCE_ADMISSIONS = ('block', 'shed', 'grow')
+_STAGING_MODES = ('batch', 'unroll')
+_SERVING_DEFAULTS = dict(serving_resident_versions=1,
+                         serving_hbm_budget_mb=0.0, serving_ab_fraction=0.0,
+                         serving_shadow_fraction=0.0, serving_aot=False,
+                         serving_replicas='')
+
+
+def validate_fleet(config: Config) -> None:
+  """The fleet runtime's knob group: the JAX package's hard checks on
+  these fields (ValueError), and NotImplementedError, naming the ROADMAP
+  item, for a setting that picks a path the port does not have yet."""
+  if config.num_actors < 0:
+    raise ValueError(f'num_actors must be >= 0, got {config.num_actors}')
+  for name in ('publish_params_every', 'queue_capacity_batches',
+               'staging_depth', 'inference_max_batch'):
+    if getattr(config, name) < 1:
+      raise ValueError(f'{name} must be >= 1, got {getattr(config, name)}')
+  if config.inference_min_batch < 0 or config.inference_timeout_ms < 0:
+    raise ValueError('inference_min_batch and inference_timeout_ms must '
+                     f'be >= 0, got {config.inference_min_batch} and '
+                     f'{config.inference_timeout_ms}')
+  if config.fleet_probation_secs < 0:
+    raise ValueError(f'fleet_probation_secs must be >= 0, got '
+                     f'{config.fleet_probation_secs}')
+  if config.staging_mode not in _STAGING_MODES:
+    raise ValueError(f'unknown staging_mode {config.staging_mode!r} '
+                     '(batch | unroll)')
+  if config.inference_admission not in _INFERENCE_ADMISSIONS:
+    raise ValueError(f'unknown inference_admission '
+                     f'{config.inference_admission!r} (policies: '
+                     f'{_INFERENCE_ADMISSIONS})')
+  if config.publish_codec not in ('bf16', 'f32', 'int8'):
+    raise ValueError(f"publish_codec must be 'bf16', 'f32' or 'int8', "
+                     f'got {config.publish_codec!r}')
+  later = []
+  if config.staging_mode == 'unroll':
+    later.append('staging_mode=unroll (ROADMAP A5b)')
+  if config.inference_state_cache:
+    later.append('inference_state_cache=True (ROADMAP A7)')
+  if config.inference_admission != 'block':
+    later.append(f'inference_admission={config.inference_admission!r} '
+                 '(ROADMAP A7)')
+  if config.publish_codec == 'int8':
+    later.append("publish_codec='int8' (ROADMAP A7)")
+  changed = sorted(k for k, v in _SERVING_DEFAULTS.items()
+                   if getattr(config, k) != v)
+  if changed:
+    later.append(f'{", ".join(changed)} (the serving plane: ROADMAP A7)')
+  if config.fleet_tasks:
+    later.append('fleet_tasks (mixed fleets: ROADMAP A7)')
+  if later:
+    raise NotImplementedError(
+        'not in the PyTorch port\'s fleet runtime yet: ' + '; '.join(later))
 
 
 def resolve_process_id(config: Config) -> int:

@@ -1,4 +1,13 @@
-"""Command line of the port:
+"""Command line of the port. The fleet runtime (host actors, the batched
+inference server on the card, the learner), the JAX CLI's default:
+
+  python -m scalable_agent_tpu_torch.experiment --mode=train \\
+      --runtime=fleet --env_backend=bandit --torso=deep --batch_size=32 \\
+      --num_actors=32 --num_actions=9 --use_pallas_vtrace=true \\
+      --use_instruction=false --logdir=/path/to/run
+
+The fused on-device Anakin trainer (`--mode=anakin`, or `--mode=train
+--runtime=anakin`):
 
   python -m scalable_agent_tpu_torch.experiment --mode=anakin \\
       --env_backend=bandit --torso=deep --batch_size=32 --num_actions=9 \\
@@ -19,8 +28,11 @@ declares one (with `--num_processes` and `--process_id`); each rank then
 trains its block of the batch, as the JAX CLI's Anakin does over the
 devices of one host. Its backend follows the device: NCCL for CUDA ranks,
 one card each, gloo for CPU ranks. Anakin stays on one host: a group
-across nodes raises, as in the JAX CLI. Only `--mode=anakin` is ported;
-the other modes raise and name the slice that brings them.
+across nodes raises, as in the JAX CLI; the fleet runtime over a group is
+ROADMAP A5b and raises. `--mode=test` (evaluation, ROADMAP A7) raises.
+
+The env processes are forked from a forkserver, which `main` starts
+before its first CUDA call (runtime/py_process.py).
 """
 
 import argparse
@@ -34,6 +46,7 @@ import torch
 
 from scalable_agent_tpu_torch.config import Config
 from scalable_agent_tpu_torch.parallel import distributed
+from scalable_agent_tpu_torch.runtime import py_process
 
 
 def _bool(text: str) -> bool:
@@ -79,17 +92,18 @@ def main(argv: Optional[List[str]] = None):
   logging.basicConfig(
       level=logging.INFO,
       format='%(asctime)s %(name)s %(levelname)s %(message)s')
+  # Before any CUDA call: env processes fork from this server, which has
+  # this module's imports loaded.
+  py_process.warm_forkserver(preload=[__spec__.name])
   args = vars(_parser().parse_args(argv))
   device = args.pop('device')
   config = Config(**args)
-  if config.mode == 'train':
-    raise NotImplementedError(
-        '--mode=train (the fleet runtime and driver.train) is not in the '
-        'PyTorch port yet (ROADMAP Queue A); use --mode=anakin')
-  if config.mode != 'anakin':
+  if config.mode == 'train' and config.runtime == 'fleet':
+    return _train_fleet(config, device)
+  if config.mode not in ('train', 'anakin'):
     raise NotImplementedError(
         f'--mode={config.mode} (evaluation) is not in the PyTorch port '
-        'yet (ROADMAP Queue A); use --mode=anakin')
+        'yet (ROADMAP A7); use --mode=train or --mode=anakin')
   topology = distributed.declared_topology(config)
   if topology is not None and topology.num_nodes > 1:
     # A rank here is a JAX device, and the JAX CLI's Anakin spans the
@@ -116,6 +130,18 @@ def main(argv: Optional[List[str]] = None):
   logging.info('anakin training done at %d frames',
                carry.train_state.update_steps * config.frames_per_step)
   return carry
+
+
+def _train_fleet(config: Config, device: str):
+  if distributed.declared_topology(config) is not None:
+    raise NotImplementedError(
+        'the fleet runtime over a process group (data-parallel fleets) is '
+        'not in the PyTorch port yet (ROADMAP A5b); run one process, or '
+        '--mode=anakin')
+  from scalable_agent_tpu_torch import driver
+  run = driver.train(config, device=device)
+  logging.info('fleet training done at %d frames', run.frames)
+  return run
 
 
 if __name__ == '__main__':

@@ -19,6 +19,10 @@ JAX sharded step's gradient is the sum of the ranks' gradients: one SUM
 all-reduce of a flat buffer of the gradients and the four losses, after
 which every rank takes the same norm, clip, watchdog decision and update.
 
+The fleet runtime hands the learner host numpy batches: `place_batch`
+moves one to the learner's device with the dtypes the Anakin path
+builds, reading from pinned host memory (`pinned_empty`) on CUDA.
+
 RMSProp is written by hand because optax's differs from
 `torch.optim.RMSprop`: optax puts eps *inside* the square root,
     nu <- decay * nu + (1 - decay) * g^2
@@ -30,12 +34,13 @@ optional clip_by_global_norm comes first.
 
 from typing import Any, Dict, NamedTuple, Optional
 
+import numpy as np
 import torch
 
 from scalable_agent_tpu_torch import losses as losses_lib
 from scalable_agent_tpu_torch import vtrace
 from scalable_agent_tpu_torch.config import Config
-from scalable_agent_tpu_torch.structs import ActorOutput
+from scalable_agent_tpu_torch.structs import ActorOutput, map_structure
 
 
 class RMSPropState(NamedTuple):
@@ -245,3 +250,51 @@ def make_train_step_fn(agent, config: Config, mesh=None):
     return TrainState(params, opt_state, state.update_steps + 1), metrics
 
   return train_step
+
+
+def pinned_empty(shape, dtype) -> np.ndarray:
+  """An uninitialised numpy array in pinned (page-locked) host memory:
+  the allocator `actor.batch_unrolls` stacks a CUDA learner's batches
+  into, so their copy to the card is asynchronous. The array keeps its
+  pinned tensor alive."""
+  torch_dtype = torch.from_numpy(np.empty(0, dtype)).dtype
+  return torch.empty(shape, dtype=torch_dtype, pin_memory=True).numpy()
+
+
+def place_batch(batch: ActorOutput, device, copy_stream=None,
+                consumer_stream=None) -> ActorOutput:
+  """A host numpy [T+1, B] ActorOutput (actor.batch_unrolls) as tensors
+  on `device`, with the dtypes the Anakin path builds: actions int64,
+  the rest as the actors wrote them (float32 rewards, logits, baselines,
+  returns and carry; int32 episode steps, level ids and instruction ids;
+  bool done; uint8 frames).
+
+  On CUDA the copies run on `copy_stream` (a side stream, so they
+  overlap the learner's step) from pinned memory (`pinned_empty`), and
+  this call returns once they are complete; each tensor is marked as
+  used on `consumer_stream` (default: the current stream), so the
+  allocator does not hand its memory back to the side stream while the
+  learner still reads it."""
+  device = torch.device(device)
+  host = map_structure(lambda x: torch.from_numpy(np.ascontiguousarray(x)),
+                       batch)
+
+  def to_device(non_blocking):
+    placed = map_structure(
+        lambda t: t.to(device, non_blocking=non_blocking), host)
+    actions = placed.agent_outputs.action.long()
+    return placed._replace(
+        agent_outputs=placed.agent_outputs._replace(action=actions))
+
+  if device.type != 'cuda':
+    return to_device(False)
+  consumer = consumer_stream or torch.cuda.current_stream(device)
+  stream = copy_stream or consumer
+  with torch.cuda.stream(stream):
+    placed = to_device(True)
+    done = torch.cuda.Event()
+    done.record(stream)
+  done.synchronize()  # the pinned source may be freed after return
+  consumer.wait_event(done)
+  map_structure(lambda t: t.record_stream(consumer), placed)
+  return placed

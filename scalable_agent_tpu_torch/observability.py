@@ -1,10 +1,14 @@
-"""Summaries and the frames/sec meter, copied from
-scalable_agent_tpu/observability.py (`SummaryWriter`, `FpsMeter`) with the
-JSONL appender they share inlined.
+"""Summaries, incidents, episode stats and the frames/sec meter, copied
+from scalable_agent_tpu/observability.py (`SummaryWriter` with its
+histogram, `EventLog`, `FpsMeter`, `extract_episodes`, `EpisodeStats` for
+single-task runs) over one JSONL appender.
 
 Summaries are JSONL events, one object per line (wall_time, step, tag,
-value), in `<logdir>/summaries.jsonl`: the same file and format as the JAX
-package writes.
+value), in `<logdir>/summaries.jsonl`, and incidents in
+`<logdir>/incidents.jsonl`: the same files and formats as the JAX package
+writes. Episode statistics travel through the trajectory as
+`StepOutputInfo`; `EpisodeStats` reads finished episodes out of each
+batch the learner consumes.
 
 `cuda_median_ms` and `profiled_device_us` are the port's own: the kernel
 timers of chip_smoke.py and the port's scripts.
@@ -16,16 +20,17 @@ import os
 import statistics
 import threading
 import time
-from typing import Dict
+from typing import Dict, List, Optional, Tuple
 
+import numpy as np
 import torch
 
 
-class SummaryWriter:
-  """Append-only JSONL scalar writer (thread-safe). A write after close()
-  is dropped and counted on `dropped_writes`, never raised."""
+class _JsonlAppender:
+  """Append-only, line-buffered JSONL file (thread-safe). A write after
+  close() is dropped and counted on `dropped_writes`, never raised."""
 
-  def __init__(self, logdir: str, filename: str = 'summaries.jsonl'):
+  def __init__(self, logdir: str, filename: str):
     os.makedirs(logdir, exist_ok=True)
     self.path = os.path.join(logdir, filename)
     self._file = open(self.path, 'a', buffering=1)
@@ -33,24 +38,60 @@ class SummaryWriter:
     self._closed = False
     self.dropped_writes = 0
 
-  def scalar(self, tag: str, value, step: int):
-    record = {'wall_time': round(time.time(), 3), 'step': int(step),
-              'tag': tag, 'value': float(value)}
+  def write(self, record, durable: bool = False, default=None):
+    line = json.dumps(record, default=default) + '\n'
     with self._lock:
       if self._closed:
         self.dropped_writes += 1
         return
-      self._file.write(json.dumps(record) + '\n')
-
-  def scalars(self, values: Dict[str, float], step: int):
-    for tag, value in values.items():
-      self.scalar(tag, value, step)
+      self._file.write(line)
+      if durable:
+        self._file.flush()
+        os.fsync(self._file.fileno())
 
   def close(self):
     with self._lock:
       if not self._closed:
         self._closed = True
         self._file.close()
+
+
+class SummaryWriter(_JsonlAppender):
+  """JSONL scalar and histogram summaries."""
+
+  def __init__(self, logdir: str, filename: str = 'summaries.jsonl'):
+    super().__init__(logdir, filename)
+
+  def scalar(self, tag: str, value, step: int):
+    self.write({'wall_time': round(time.time(), 3), 'step': int(step),
+                'tag': tag, 'value': float(value)})
+
+  def scalars(self, values: Dict[str, float], step: int):
+    for tag, value in values.items():
+      self.scalar(tag, value, step)
+
+  def histogram(self, tag: str, counts, step: int):
+    """Fixed-bin histogram event (the reference's per-update action
+    histogram): `counts[i]` is the count of bin i."""
+    self.write({'wall_time': round(time.time(), 3), 'step': int(step),
+                'tag': tag, 'kind': 'histogram',
+                'counts': [int(c) for c in np.asarray(counts).ravel()]})
+
+
+class EventLog(_JsonlAppender):
+  """JSONL of structured incident events ({wall_time, kind, step, ...}),
+  written when something happens, not on a cadence. Each event is
+  fsync'd, so the record survives the crash it may precede."""
+
+  def __init__(self, logdir: str, filename: str = 'incidents.jsonl'):
+    super().__init__(logdir, filename)
+
+  def event(self, kind: str, step: Optional[int] = None, **fields):
+    record = {'wall_time': round(time.time(), 3), 'kind': str(kind)}
+    if step is not None:
+      record['step'] = int(step)
+    record.update(fields)
+    self.write(record, durable=True, default=str)
 
 
 class FpsMeter:
@@ -81,6 +122,44 @@ class FpsMeter:
     if span <= 0:
       return 0.0
     return sum(delta for _, delta in self._events) / span
+
+
+def extract_episodes(batch) -> List[Tuple[int, float, int]]:
+  """Finished episodes in a [T+1, B] batch (numpy or CPU tensors):
+  [(level_id, episode_return, episode_frames)]. A done at timestep t > 0
+  ends an episode whose final stats ride in that step's info; timestep 0
+  is the overlap frame, counted with the previous batch."""
+  done = np.asarray(batch.env_outputs.done)[1:]          # [T, B]
+  returns = np.asarray(batch.env_outputs.info.episode_return)[1:]
+  steps = np.asarray(batch.env_outputs.info.episode_step)[1:]
+  levels = np.asarray(batch.level_name)                  # [B]
+  t_idx, b_idx = np.nonzero(done)
+  return [(int(levels[b]), float(returns[t, b]), int(steps[t, b]))
+          for t, b in zip(t_idx, b_idx)]
+
+
+class EpisodeStats:
+  """Per-level episode summaries of the learner loop: every finished
+  episode writes `<level>/episode_return` and `<level>/episode_frames`.
+  Single-task: the suites' human-normalised scores (DMLab-30, Atari-57)
+  are ROADMAP A7, and the factory refuses the suites' level names."""
+
+  def __init__(self, level_names: List[str],
+               writer: Optional[SummaryWriter] = None):
+    self._level_names = list(level_names)
+    self._writer = writer
+
+  def record_batch(self, batch, step: int) -> List[Tuple[str, float, int]]:
+    """Write the batch's finished episodes; returns [(level_name,
+    episode_return, episode_frames)]."""
+    episodes = []
+    for level_id, ep_return, ep_frames in extract_episodes(batch):
+      name = self._level_names[level_id]
+      episodes.append((name, ep_return, ep_frames))
+      if self._writer is not None:
+        self._writer.scalar(f'{name}/episode_return', ep_return, step)
+        self._writer.scalar(f'{name}/episode_frames', ep_frames, step)
+    return episodes
 
 
 def cuda_median_ms(fn, repeats: int, warmup: int = 10) -> float:

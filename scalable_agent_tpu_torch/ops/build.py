@@ -12,6 +12,10 @@ The libraries go to `scalable_agent_tpu_torch/_build/` (listed in
 source is rebuilt and concurrent builds never write the same file.
 ptxas's report of each kernel's registers, shared memory and spills
 (`-Xptxas -v`) is kept beside its library and read by `ptxas_report`.
+
+Host C++ libraries (`ops/batcher/batcher.cc`, the dynamic batcher) are
+built the same way by g++ (`load_host`): no CUDA, so they build on any
+machine with a C++ compiler, and a failed build raises.
 """
 
 import ctypes
@@ -31,8 +35,13 @@ NVCC_FLAGS = ('-gencode', 'arch=compute_90a,code=sm_90a', '-std=c++17',
               '-O3', '-shared', '-Xcompiler', '-fPIC', '-Xptxas', '-v')
 
 
+HOST_SOURCES = {'batcher': os.path.join(_PACKAGE_DIR, 'ops', 'batcher',
+                                         'batcher.cc')}
+GXX_FLAGS = ('-std=c++17', '-O2', '-fPIC', '-shared', '-pthread')
+
+
 class KernelBuildError(RuntimeError):
-  """nvcc is missing or refused a source."""
+  """nvcc (or g++) is missing or refused a source."""
 
 
 def nvcc_path() -> str:
@@ -54,26 +63,45 @@ def sources() -> List[str]:
   return sorted(f[:-3] for f in os.listdir(CSRC_DIR) if f.endswith('.cu'))
 
 
-def library_path(name: str) -> str:
-  with open(os.path.join(CSRC_DIR, name + '.cu'), 'rb') as f:
-    digest = hashlib.sha256(f.read() + ' '.join(NVCC_FLAGS).encode())
+def _digest_path(name: str, source: str, flags) -> str:
+  with open(source, 'rb') as f:
+    digest = hashlib.sha256(f.read() + ' '.join(flags).encode())
   return os.path.join(BUILD_DIR, f'lib{name}-{digest.hexdigest()[:16]}.so')
 
 
-def _start_build(name: str):
-  """Start nvcc for `name` into a temp file; None if already built."""
-  target = library_path(name)
+def library_path(name: str) -> str:
+  return _digest_path(name, os.path.join(CSRC_DIR, name + '.cu'),
+                      NVCC_FLAGS)
+
+
+def host_library_path(name: str) -> str:
+  return _digest_path(name, HOST_SOURCES[name], GXX_FLAGS)
+
+
+def _start(name: str, target: str, compiler_cmd):
+  """Start `compiler_cmd + ['-o', tmp]` building `target`; None if it is
+  already built."""
   if os.path.exists(target):
     return None
   os.makedirs(BUILD_DIR, exist_ok=True)
   fd, tmp = tempfile.mkstemp(prefix=f'lib{name}-', suffix='.so.tmp',
                              dir=BUILD_DIR)
   os.close(fd)
-  cmd = [nvcc_path(), *NVCC_FLAGS, '-o', tmp,
-         os.path.join(CSRC_DIR, name + '.cu')]
-  proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
-                          stderr=subprocess.STDOUT, text=True)
+  cmd = [*compiler_cmd, '-o', tmp]
+  try:
+    proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                            stderr=subprocess.STDOUT, text=True)
+  except OSError as e:
+    os.unlink(tmp)
+    raise KernelBuildError(f'{" ".join(cmd)} could not start: {e}') from e
   return proc, tmp, target, cmd
+
+
+def _start_build(name: str):
+  """Start nvcc for `name` into a temp file; None if already built."""
+  return _start(name, library_path(name),
+                [nvcc_path(), *NVCC_FLAGS,
+                 os.path.join(CSRC_DIR, name + '.cu')])
 
 
 def _finish_build(build) -> None:
@@ -144,6 +172,23 @@ def ptxas_report(name: str) -> Dict[str, Dict[str, int]]:
 
 _loaded: Dict[str, ctypes.CDLL] = {}
 _load_lock = threading.Lock()
+
+
+def load_host(name: str) -> ctypes.CDLL:
+  """The loaded host library `name` (HOST_SOURCES), built by g++ into
+  `_build/` first if needed; a failed build raises KernelBuildError."""
+  with _load_lock:
+    lib = _loaded.get('host:' + name)
+    if lib is None:
+      gxx = shutil.which('g++') or shutil.which('c++')
+      if gxx is None:
+        raise KernelBuildError('g++ not found on PATH: the host library '
+                               f'{name!r} needs a C++ compiler')
+      _finish_build(_start(name, host_library_path(name),
+                           [gxx, *GXX_FLAGS, HOST_SOURCES[name]]))
+      lib = ctypes.CDLL(host_library_path(name))
+      _loaded['host:' + name] = lib
+    return lib
 
 
 def load(name: str) -> ctypes.CDLL:

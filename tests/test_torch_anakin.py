@@ -19,6 +19,7 @@ from scalable_agent_tpu import driver as jax_driver
 from scalable_agent_tpu.config import Config as JaxConfig
 from scalable_agent_tpu.parallel import anakin as jax_anakin
 from scalable_agent_tpu_torch import convert
+from scalable_agent_tpu_torch import driver
 from scalable_agent_tpu_torch import experiment
 from scalable_agent_tpu_torch import learner
 from scalable_agent_tpu_torch.config import Config
@@ -207,11 +208,40 @@ def test_cli_trains_and_writes_summaries(tmp_path):
   assert saved['num_actions'] == 9 and saved['use_pallas_vtrace'] is True
 
 
-@pytest.mark.parametrize('mode', ['train', 'test'])
+@pytest.mark.parametrize('mode', ['test'])
 def test_cli_other_modes_name_their_slice(mode, tmp_path):
   with pytest.raises(NotImplementedError, match='ROADMAP'):
     experiment.main([f'--mode={mode}', '--device=cpu',
                      f'--logdir={tmp_path}'])
+
+
+_SMALL_FLEET_FLAGS = [
+    '--device=cpu', '--env_backend=bandit', '--torso=shallow',
+    '--batch_size=2', '--num_actors=2', '--unroll_length=4',
+    '--num_action_repeats=1', '--height=24', '--width=32',
+    '--use_instruction=false', '--use_py_process=false',
+    '--inference_timeout_ms=5', '--total_environment_frames=16',
+    '--summary_secs=0']
+
+
+def test_cli_train_runs_the_fleet_runtime(tmp_path):
+  run = experiment.main(['--mode=train', '--runtime=fleet',
+                         f'--logdir={tmp_path}'] + _SMALL_FLEET_FLAGS)
+  assert run.state.update_steps == 2 and run.frames == 16
+  events = [json.loads(line) for line in open(tmp_path / 'summaries.jsonl')]
+  losses = [e['value'] for e in events if e['tag'] == 'total_loss']
+  assert len(losses) == 2 and all(np.isfinite(losses))
+  assert {'env_frames_per_sec', 'inference_mean_batch'} <= {
+      e['tag'] for e in events}
+
+
+def test_cli_train_with_runtime_anakin_runs_anakin(tmp_path):
+  carry = experiment.main(['--mode=train', '--runtime=anakin',
+                           f'--logdir={tmp_path}'] + _SMALL_FLEET_FLAGS)
+  assert carry.train_state.update_steps == 2
+  tags = {json.loads(line)['tag']
+          for line in open(tmp_path / 'summaries.jsonl')}
+  assert 'mean_reward' in tags
 
 
 def test_entry_points_raise_without_cuda(tmp_path):
@@ -227,6 +257,11 @@ def test_entry_points_raise_without_cuda(tmp_path):
   with pytest.raises(RuntimeError, match='cuda'):
     experiment.main(['--mode=anakin', '--env_backend=bandit',
                      f'--logdir={tmp_path}'])
+  with pytest.raises(RuntimeError, match='cuda'):
+    driver.train(cfg, max_steps=1)
+  with pytest.raises(RuntimeError, match='cuda'):
+    experiment.main(['--mode=train', '--env_backend=bandit',
+                     '--use_instruction=false', f'--logdir={tmp_path}'])
 
 
 def test_unported_env_cores_raise():

@@ -11,20 +11,33 @@ Tolerances: the V-trace kernel against its twin on the card, bit-equal
 PyTorch ops round). The fused conv+pool kernel against its twin,
 max|kernel - plain| <= 2**-7 * max|plain|: one bf16 ulp at the output's
 scale, since the tensor cores sum the float32 products in another order
-before rounding to bf16.
+before rounding to bf16. The inference server on the card against the
+same server on the CPU: rtol 1e-4 / atol 1e-5 (float32 convolutions summed
+in another order); a batch staged through pinned memory arrives
+bit-equal.
 """
+
+import threading
 
 import numpy as np
 import pytest
 import torch
 
+from scalable_agent_tpu_torch import driver
+from scalable_agent_tpu_torch import learner
 from scalable_agent_tpu_torch.config import Config
+from scalable_agent_tpu_torch.models import ImpalaAgent, init_params
 from scalable_agent_tpu_torch.ops import conv_pool_cuda
 from scalable_agent_tpu_torch.ops import vtrace_cuda
 from scalable_agent_tpu_torch.parallel import anakin
 from scalable_agent_tpu_torch.parallel import distributed
 from scalable_agent_tpu_torch.parallel import mesh as mesh_lib
+from scalable_agent_tpu_torch.runtime.actor import batch_unrolls
+from scalable_agent_tpu_torch.runtime.inference import InferenceServer
 from scalable_agent_tpu_torch.scripts import conv_pool as conv_pool_script
+from scalable_agent_tpu_torch.structs import (ActorOutput, AgentOutput,
+                                              StepOutput, StepOutputInfo,
+                                              map_structure)
 
 pytestmark = pytest.mark.requires_cuda
 
@@ -176,3 +189,124 @@ def test_bf16_anakin_on_card_keeps_float32_state(cuda):
   assert all(p.dtype == torch.float32 and p.is_cuda
              for p in carry.train_state.params.values())
   assert all(s.dtype == torch.float32 for s in carry.core_state)
+
+
+def _server_calls(num, hidden, seed=0):
+  rng = np.random.RandomState(seed)
+  return [(np.int32(rng.randint(4)),
+           StepOutput(np.float32(rng.randn()),
+                      StepOutputInfo(np.float32(0), np.int32(0)),
+                      np.bool_(rng.rand() < 0.3),
+                      (rng.randint(0, 256, (24, 32, 3)).astype(np.uint8),
+                       np.zeros(16, np.int32))),
+           tuple(rng.randn(1, hidden).astype(np.float32) * 0.3
+                 for _ in range(2)))
+          for _ in range(num)]
+
+
+def _serve_concurrently(server, calls):
+  outs = [None] * len(calls)
+
+  def call(i):
+    outs[i] = server.policy(*calls[i])
+
+  threads = [threading.Thread(target=call, args=(i,))
+             for i in range(len(calls))]
+  for t in threads:
+    t.start()
+  for t in threads:
+    t.join(timeout=120)
+    assert not t.is_alive()
+  return outs
+
+
+@pytest.fixture
+def no_tf32():
+  """float32 convolutions and matmuls without TF32 (held to the CPU's
+  float32, as chip_smoke.py runs them)."""
+  saved = (torch.backends.cudnn.allow_tf32,
+           torch.backends.cuda.matmul.allow_tf32)
+  torch.backends.cudnn.allow_tf32 = False
+  torch.backends.cuda.matmul.allow_tf32 = False
+  yield
+  (torch.backends.cudnn.allow_tf32,
+   torch.backends.cuda.matmul.allow_tf32) = saved
+
+
+def test_inference_server_on_card_matches_cpu(cuda, no_tf32):
+  agent = ImpalaAgent(4, (24, 32, 3), torso='deep')
+  params = init_params(agent, torch.Generator().manual_seed(0))
+  config = Config(inference_timeout_ms=2000, use_instruction=False)
+  calls = _server_calls(5, agent.hidden_size)
+  results = {}
+  for device in ('cpu', cuda):
+    server = InferenceServer(agent, {k: v.to(device)
+                                     for k, v in params.items()},
+                             config, seed=1, fleet_size=5)
+    try:
+      results[str(device)] = _serve_concurrently(server, calls)
+      assert all(p.is_cuda == (device != 'cpu')
+                 for p in server.live_params().values())
+    finally:
+      server.close()
+  for (out, carry), (ref, ref_carry) in zip(results['cuda'],
+                                            results['cpu']):
+    for got, want in ((out.policy_logits, ref.policy_logits),
+                      (out.baseline, ref.baseline), (carry[0], ref_carry[0]),
+                      (carry[1], ref_carry[1])):
+      np.testing.assert_allclose(got, want, rtol=1e-4, atol=1e-5)
+    assert 0 <= int(out.action) < 4
+
+
+def test_a_batch_staged_through_pinned_memory_arrives_equal(cuda):
+  rng = np.random.RandomState(0)
+  t1, hidden = 4, 8
+
+  def unroll(i):
+    return ActorOutput(
+        level_name=np.int32(i),
+        agent_state=tuple(rng.randn(1, hidden).astype(np.float32)
+                          for _ in range(2)),
+        env_outputs=StepOutput(
+            rng.randn(t1).astype(np.float32),
+            StepOutputInfo(rng.randn(t1).astype(np.float32),
+                           rng.randint(0, 9, t1).astype(np.int32)),
+            rng.rand(t1) > 0.5,
+            (rng.randint(0, 256, (t1, 6, 5, 3)).astype(np.uint8),
+             rng.randint(0, 9, (t1, 16)).astype(np.int32))),
+        agent_outputs=AgentOutput(
+            rng.randint(0, 4, t1).astype(np.int32),
+            rng.randn(t1, 4).astype(np.float32),
+            rng.randn(t1).astype(np.float32)))
+
+  host = batch_unrolls([unroll(i) for i in range(3)],
+                       empty=learner.pinned_empty)
+  assert torch.from_numpy(host.env_outputs.reward).is_pinned()
+  side = torch.cuda.Stream(cuda)
+  placed = learner.place_batch(host, cuda, copy_stream=side)
+  assert placed.agent_outputs.action.dtype == torch.int64
+  back = map_structure(lambda t: t.cpu(), placed)
+  for got, want in zip(back.env_outputs.observation,
+                       host.env_outputs.observation):
+    assert torch.equal(got, torch.from_numpy(want))
+  assert torch.equal(back.env_outputs.done,
+                     torch.from_numpy(host.env_outputs.done))
+  assert torch.equal(back.agent_outputs.action,
+                     torch.from_numpy(host.agent_outputs.action).long())
+  assert torch.equal(back.agent_state[1],
+                     torch.from_numpy(host.agent_state[1]))
+
+
+def test_fleet_on_card_launches_the_kernel_once_per_step(cuda, tmp_path):
+  cfg = Config(logdir=str(tmp_path), env_backend='bandit', num_actors=4,
+               batch_size=4, unroll_length=5, num_action_repeats=1,
+               episode_length=4, height=24, width=32, torso='shallow',
+               use_py_process=False, use_instruction=False,
+               use_pallas_vtrace=True, inference_timeout_ms=5,
+               summary_secs=0, seed=0)
+  vtrace_cuda.from_importance_weights.launches = 0
+  run = driver.train(cfg, max_steps=3, stall_timeout_secs=120)
+  assert vtrace_cuda.from_importance_weights.launches == 3
+  assert run.state.update_steps == 3
+  assert all(p.is_cuda for p in run.server.live_params().values())
+  assert all(p.is_cuda for p in run.state.params.values())

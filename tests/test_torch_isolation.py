@@ -1,8 +1,11 @@
-"""The port stands alone: importing any of its modules loads no JAX, and no
-module of the port (nor chip_smoke.py) imports the JAX package."""
+"""The port stands alone: importing any of its modules loads no JAX, no
+module of the port (nor chip_smoke.py) imports the JAX package, no code of
+the port names a path inside it (so nothing of it, such as its batcher
+library, is loaded), and the port holds its own batcher source."""
 
 import ast
 import os
+import re
 import subprocess
 import sys
 
@@ -55,3 +58,46 @@ def test_no_port_source_imports_the_jax_package():
   for path in sources:
     found = forbidden & set(_imported_roots(path))
     assert not found, f'{os.path.relpath(path, REPO)} imports {found}'
+
+
+def _code_strings(path):
+  """The string constants of a module that are not docstrings (f-string
+  parts included)."""
+  with open(path) as f:
+    tree = ast.parse(f.read(), filename=path)
+  docstrings = set()
+  for node in ast.walk(tree):
+    if isinstance(node, (ast.Module, ast.ClassDef, ast.FunctionDef,
+                         ast.AsyncFunctionDef)) and node.body:
+      first = node.body[0]
+      if isinstance(first, ast.Expr) and isinstance(first.value,
+                                                    ast.Constant):
+        docstrings.add(id(first.value))
+  for node in ast.walk(tree):
+    if (isinstance(node, ast.Constant) and isinstance(node.value, str)
+        and id(node) not in docstrings):
+      yield node.lineno, node.value
+
+
+def test_no_port_code_names_a_path_inside_the_jax_package():
+  jax_package = re.compile(r'scalable_agent_tpu(?!_torch)')
+  found = [(os.path.relpath(path, REPO), line, text)
+           for path in _port_sources()
+           for line, text in _code_strings(path)
+           if jax_package.search(text)]
+  assert not found, found
+
+
+def test_the_port_holds_its_own_batcher_source():
+  source = os.path.join(PACKAGE, 'ops', 'batcher', 'batcher.cc')
+  assert os.path.isfile(source)
+  with open(source) as f:
+    text = f.read()
+  for symbol in ('batcher_create', 'batcher_compute_begin',
+                 'batcher_get_batch', 'batcher_set_outputs',
+                 'batcher_set_error', 'batcher_close'):
+    assert f'{symbol}(' in text, symbol
+  from scalable_agent_tpu_torch.ops import build
+  assert build.HOST_SOURCES['batcher'] == source
+  assert build.host_library_path('batcher').startswith(
+      os.path.join(PACKAGE, '_build') + os.sep)
