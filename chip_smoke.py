@@ -100,11 +100,36 @@ Phases, each of which raises (exit code != 0) when it fails:
              --runtime=fleet` for 2 full-width steps with 32 process-hosted
              actors into a temporary logdir; its summaries.jsonl must hold
              a finite total_loss and env_frames_per_sec.
+16. resume_anakin — `anakin.train` for 2 full-width fused steps into a
+             logdir, then again: the second call restores step 2 onto the
+             card (params and RMSProp's nu bit-equal to the payload on
+             disk), ends at update_steps 4 with summary steps 3 and 4 and 2
+             V-trace launches, and leaves LAST_GOOD at step 4 with verified
+             digests. It prints the step directory's bytes and the median of
+             5 full-width saves (payload copy, write, fsync, digests) and
+             restores.
+17. rollback_fleet — `driver.train` at the fleet phase's width with NaN
+             rewards on learner steps 4-6 (the nan_burst fault) and
+             health_rollback_after=2 for 7 steps: exactly one rollback, the
+             params right after it bit-equal to the LAST_GOOD payload, the
+             server's live version the rollback step, a monotone step
+             counter, finite params, one V-trace launch per learner step.
+18. drain_fleet — the fleet CLI with a budget of 6 learner steps: SIGTERM
+             once step 2 is summarised; the process exits 0 within
+             preempt_drain_timeout_secs + 60 s with a resume manifest whose
+             checkpoint is verified at its step; the same command again
+             restores that step, consumes the manifest and ends at step 6;
+             the two runs' summary steps are 1..6. It prints the drain
+             latency.
+
+Every CLI phase checks that its process logged `float32 precision: tf32 off
+(cudnn, matmul)`: the port's entry points run float32 layers without TF32.
 
 The forkserver that env processes fork from is started before the first
 CUDA call. Every kernel's launch count is set to 0 just before each path
-(the three slices, the fleet and the K2 entry point; slice_dp's ranks
-count their own and report them) and read just after; a kernel that its
+(the three slices, the fleet, the K2 entry point, resume_anakin's second
+call and rollback_fleet; slice_dp's ranks count their own and report them)
+and read just after; a kernel that its
 path did not launch fails the run. The second-to-last line of the output is the
 JSON `{"kernels": [...]}` record, the last `{"ok": true, "device": {...}}`.
 Without CUDA, or run outside the repo, it exits non-zero before printing
@@ -116,7 +141,9 @@ import hashlib
 import json
 import math
 import os
+import signal
 import socket
+import statistics
 import subprocess
 import sys
 import tempfile
@@ -129,7 +156,9 @@ import torch.distributed as dist
 import torch.multiprocessing as mp
 
 # The port first: outside the repo this import fails before any output.
+from scalable_agent_tpu_torch import checkpoint as checkpoint_lib
 from scalable_agent_tpu_torch import driver
+from scalable_agent_tpu_torch import integrity
 from scalable_agent_tpu_torch import learner
 from scalable_agent_tpu_torch.config import Config
 from scalable_agent_tpu_torch.models import init_params
@@ -145,6 +174,7 @@ from scalable_agent_tpu_torch.parallel import mesh as mesh_lib
 from scalable_agent_tpu_torch.parallel import sharding
 from scalable_agent_tpu_torch.parallel import train_parallel
 from scalable_agent_tpu_torch.profile_anakin import SLICE
+from scalable_agent_tpu_torch.runtime import faults
 from scalable_agent_tpu_torch.runtime import py_process
 from scalable_agent_tpu_torch.runtime.inference import InferenceServer
 from scalable_agent_tpu_torch.scripts import conv_pool as conv_pool_script
@@ -610,6 +640,13 @@ def phase_conv_pool_entry():
   return counts
 
 
+def _check_precision_line(stderr, phase):
+  """The CLI ran its float32 layers with TF32 off, and said so."""
+  if driver.PRECISION_LINE not in stderr:
+    raise AssertionError(f'{phase}: no {driver.PRECISION_LINE!r} line in the '
+                         f'CLI\'s log:\n{stderr[-4000:]}')
+
+
 def phase_cli(compute_dtype='float32'):
   config = Config(**SLICE)
   with tempfile.TemporaryDirectory(prefix='chip_smoke_cli_') as logdir:
@@ -624,6 +661,7 @@ def phase_cli(compute_dtype='float32'):
                           cwd=os.path.dirname(os.path.abspath(__file__)))
     if proc.returncode != 0:
       raise RuntimeError(f'CLI failed ({proc.returncode}):\n{proc.stderr}')
+    _check_precision_line(proc.stderr, f'cli {compute_dtype}')
     with open(os.path.join(logdir, 'summaries.jsonl')) as f:
       events = [json.loads(line) for line in f]
   losses = [e['value'] for e in events if e['tag'] == 'total_loss']
@@ -803,6 +841,7 @@ def phase_cli_dp():
                          f'({proc.returncode}):\n{proc.stderr}')
     if 'process group (nccl): rank 0 of 1' not in proc.stderr:
       raise AssertionError(f'no NCCL group joined:\n{proc.stderr}')
+    _check_precision_line(proc.stderr, 'cli_dp')
     with open(os.path.join(logdir, 'summaries.jsonl')) as f:
       events = [json.loads(line) for line in f]
   losses = [e['value'] for e in events if e['tag'] == 'total_loss']
@@ -1086,6 +1125,7 @@ def phase_cli_fleet():
     if proc.returncode != 0:
       raise RuntimeError(f'fleet CLI failed ({proc.returncode}):\n'
                          f'{proc.stderr[-8000:]}')
+    _check_precision_line(proc.stderr, 'cli_fleet')
     with open(os.path.join(logdir, 'summaries.jsonl')) as f:
       events = [json.loads(line) for line in f]
   losses = [e['value'] for e in events if e['tag'] == 'total_loss']
@@ -1095,6 +1135,236 @@ def phase_cli_fleet():
                          f'env_frames_per_sec {fps}')
   log(f'cli_fleet: 2 steps in {time.perf_counter() - t0:.1f} s, total_loss '
       f'{losses}, env_frames_per_sec {fps}')
+
+
+def _dir_bytes(path):
+  return sum(os.path.getsize(os.path.join(root, name))
+             for root, _, files in os.walk(path) for name in files)
+
+
+def phase_resume_anakin():
+  """anakin.train for 2 fused steps into a logdir, then again: the second
+  call restores step 2 onto the card (params and nu bit-equal to the
+  payload on disk), trains steps 3 and 4 with 2 K1 launches, and leaves
+  LAST_GOOD at step 4 with verified digests. Then the save (payload copy,
+  write, fsync, digests) and the restore of the full-width state, timed
+  (median of 5). Returns the second call's launch counts."""
+  with tempfile.TemporaryDirectory(prefix='chip_smoke_resume_') as logdir:
+    config = Config(**SLICE, logdir=logdir, checkpoint_secs=0, summary_secs=0)
+    first = anakin.train(config, max_steps=2, device='cuda')
+    if first.train_state.update_steps != 2:
+      raise AssertionError(f'first call: {first.train_state.update_steps}')
+    del first
+    restores = []
+    restore_latest = checkpoint_lib.Checkpointer.restore_latest
+
+    def recording(self, target):
+      restored = restore_latest(self, target)
+      restores.append((restored, self.last_restore_secs,
+                       None if restored is None else _param_snapshot(
+                           restored.params),
+                       None if restored is None else _param_snapshot(
+                           restored.opt_state.nu)))
+      return restored
+
+    checkpoint_lib.Checkpointer.restore_latest = recording
+    try:
+      carry, counts = _drive('resume_anakin', lambda: anakin.train(
+          config, max_steps=2, device='cuda'))
+    finally:
+      checkpoint_lib.Checkpointer.restore_latest = restore_latest
+    ckpt_dir = os.path.join(logdir, 'checkpoints')
+    payload = torch.load(os.path.join(ckpt_dir, '2', 'default', 'state.pt'),
+                         weights_only=True)
+    restored, restore_secs, params, nu = restores[0]
+    if restored is None or restored.update_steps != 2:
+      raise AssertionError(f'the second call restored {restored}')
+    if not all(p.is_cuda for p in restored.params.values()):
+      raise AssertionError('the restored params are not on the card')
+    if not (all(torch.equal(params[k], payload['params'][k]) for k in params)
+            and all(torch.equal(nu[k], payload['opt_state']['nu'][k])
+                    for k in nu)):
+      raise AssertionError('the restored params or nu differ from step 2 on '
+                           'disk')
+    if carry.train_state.update_steps != 4 or counts['vtrace'] != 2:
+      raise AssertionError(f'second call: update_steps '
+                           f'{carry.train_state.update_steps}, launches '
+                           f'{counts}')
+    with open(os.path.join(logdir, 'summaries.jsonl')) as f:
+      steps = [e['step'] for e in map(json.loads, f)
+               if e['tag'] == 'total_loss']
+    if steps != [1, 2, 3, 4]:
+      raise AssertionError(f'summary steps {steps}')
+    ckpt = checkpoint_lib.Checkpointer(ckpt_dir)
+    if ckpt.last_good_step() != 4 or ckpt.verify_step_digests(4) is not True:
+      raise AssertionError(f'LAST_GOOD {ckpt.last_good_step()}')
+    step_bytes = _dir_bytes(os.path.join(ckpt_dir, '4'))
+
+    state = carry.train_state
+    timing = checkpoint_lib.Checkpointer(os.path.join(logdir, 'timing'),
+                                         max_to_keep=2)
+    save_ms, load_ms = [], []
+    for i in range(5):
+      timing.save(state._replace(update_steps=10 + i))
+      save_ms.append(1e3 * timing.last_save_secs)
+      timing.restore_latest(state)
+      load_ms.append(1e3 * timing.last_restore_secs)
+    torch.cuda.synchronize()
+  log(f'resume_anakin: restored step 2 onto the card in '
+      f'{1e3 * restore_secs:.1f} ms (params and nu bit-equal to the payload); '
+      f'steps 3-4 with {counts["vtrace"]} V-trace launches; LAST_GOOD 4 '
+      f'verified; step directory {step_bytes} bytes; digests '
+      f'{integrity.CRC_ALGO}; full-width save '
+      f'{statistics.median(save_ms):.1f} ms, restore '
+      f'{statistics.median(load_ms):.1f} ms (median of 5; save '
+      f'{[round(v, 1) for v in save_ms]}, restore '
+      f'{[round(v, 1) for v in load_ms]})')
+  return counts
+
+
+ROLLBACK_STEPS = 7
+
+
+def phase_rollback_fleet():
+  """The fleet at full width with a NaN burst on learner steps 4-6 and
+  health_rollback_after=2: one rollback, at step 6, to LAST_GOOD (step 4)
+  — the params right after it bit-equal to that payload, the server's
+  live version the rollback step — a monotone update counter, finite
+  params at the end, K1 once per learner step."""
+  with tempfile.TemporaryDirectory(prefix='chip_smoke_rollback_') as logdir:
+    config = Config(**FLEET, logdir=logdir, checkpoint_secs=0,
+                    health_rollback_after=2)
+    seen = {'steps': []}
+
+    def on_step(run, step, metrics):
+      seen['steps'].append(run.state.update_steps)
+      if run.health.rollbacks and 'step' not in seen:
+        seen['step'] = step
+        seen['params'] = _param_snapshot(run.state.params)
+        seen['version'] = run.server.stats()['live_version']
+        seen['last_good'] = run.checkpointer.last_good_step()
+
+    faults.install(faults.FaultPlan.storm(seed=0, nan_burst_at=3,
+                                          nan_burst_len=3))
+    try:
+      run, counts = _drive('rollback_fleet', lambda: driver.train(
+          config, max_steps=ROLLBACK_STEPS, device='cuda',
+          stall_timeout_secs=300, on_step=on_step))
+    finally:
+      faults.clear()
+    payload = torch.load(os.path.join(logdir, 'checkpoints',
+                                      str(seen['last_good']), 'default',
+                                      'state.pt'), weights_only=True)
+    with open(os.path.join(logdir, 'incidents.jsonl')) as f:
+      kinds = [e['kind'] for e in map(json.loads, f)]
+  stats = run.health.stats()
+  if stats['rollbacks'] != 1 or kinds.count('rollback') != 1:
+    raise AssertionError(f'rollbacks {stats}, incidents {kinds}')
+  if not all(torch.equal(v, payload['params'][k])
+             for k, v in seen['params'].items()):
+    raise AssertionError(f'the params after the rollback differ from '
+                         f'LAST_GOOD (step {seen["last_good"]})')
+  if seen['steps'] != list(range(1, ROLLBACK_STEPS + 1)):
+    raise AssertionError(f'update_steps not monotone: {seen["steps"]}')
+  if seen['version'] != seen['step']:
+    raise AssertionError(f'live version {seen["version"]} after the rollback '
+                         f'at step {seen["step"]}')
+  if not all(torch.isfinite(p).all() for p in run.state.params.values()):
+    raise AssertionError('non-finite params at the end')
+  if counts['vtrace'] != ROLLBACK_STEPS:
+    raise AssertionError(f'rollback_fleet launches {counts}')
+  log(f'rollback_fleet: rolled back at step {seen["step"]} to checkpoint step '
+      f'{seen["last_good"]} (params bit-equal to its payload, live version '
+      f'{seen["version"]}); health {stats}; update_steps {seen["steps"]}; '
+      f'vtrace launches {counts["vtrace"]}; incidents {kinds}')
+  return counts
+
+
+DRAIN_STEPS = 6
+
+
+def _cli_fleet_run(cmd, logdir, name, sigterm_at_step=None):
+  """The fleet CLI in a subprocess, its log in a file; with
+  `sigterm_at_step`, one SIGTERM once its summaries show that step.
+  Returns (stderr text, seconds from the SIGTERM to its exit)."""
+  errpath = os.path.join(logdir, f'{name}.stderr')
+  with open(errpath, 'w') as err:
+    proc = subprocess.Popen(cmd, stdout=err, stderr=err, text=True,
+                            cwd=os.path.dirname(os.path.abspath(__file__)))
+    sent = None
+    try:
+      deadline = time.monotonic() + 600
+      while sigterm_at_step is not None and sent is None:
+        if proc.poll() is not None or time.monotonic() > deadline:
+          raise RuntimeError(f'{name}: the CLI ended before step '
+                             f'{sigterm_at_step}')
+        if any(s >= sigterm_at_step for s in _fps_steps(logdir)):
+          proc.send_signal(signal.SIGTERM)
+          sent = time.monotonic()
+        time.sleep(0.1)
+      proc.wait(timeout=600 if sent is None
+                else Config().preempt_drain_timeout_secs + 60)
+    finally:
+      if proc.poll() is None:
+        proc.kill()
+        proc.wait()
+  with open(errpath) as f:
+    stderr = f.read()
+  if proc.returncode != 0:
+    raise RuntimeError(f'{name} failed ({proc.returncode}):\n{stderr[-8000:]}')
+  _check_precision_line(stderr, name)
+  return stderr, None if sent is None else time.monotonic() - sent
+
+
+def _fps_steps(logdir):
+  path = os.path.join(logdir, 'summaries.jsonl')
+  if not os.path.exists(path):
+    return []
+  with open(path) as f:
+    return [e['step'] for e in map(json.loads, f)
+            if e.get('tag') == 'env_frames_per_sec']
+
+
+def phase_drain_fleet():
+  """The fleet CLI (--mode=train --runtime=fleet) with a budget of 6
+  learner steps: SIGTERM once step 2 is summarised; the process exits 0,
+  with a verified checkpoint at the manifest's step; the same command
+  again resumes there, consumes the manifest and ends at step 6; the two
+  runs' summary steps are 1..6."""
+  config = Config(**FLEET)
+  with tempfile.TemporaryDirectory(prefix='chip_smoke_drain_') as logdir:
+    cmd = [sys.executable, '-m', 'scalable_agent_tpu_torch.experiment',
+           '--mode=train', '--runtime=fleet', f'--logdir={logdir}',
+           f'--total_environment_frames={DRAIN_STEPS * config.frames_per_step}']
+    cmd += [f'--{field}={value}' for field, value in FLEET.items()]
+    t0 = time.perf_counter()
+    _, exit_secs = _cli_fleet_run(cmd, logdir, 'drained', sigterm_at_step=2)
+    manifest = driver.read_resume_manifest(logdir)
+    if not (manifest and manifest['checkpoint_verified'] and
+            manifest['checkpoint_step'] == manifest['update_steps'] and
+            manifest['drain_source'] == 'signal'):
+      raise AssertionError(f'drain manifest {manifest}')
+    drained_at = manifest['update_steps']
+    t1 = time.perf_counter()
+    stderr, _ = _cli_fleet_run(cmd, logdir, 'resumed')
+    if f'restored checkpoint at step {drained_at}' not in stderr:
+      raise AssertionError(f'the rerun did not restore step {drained_at}:\n'
+                           f'{stderr[-4000:]}')
+    if not os.path.exists(os.path.join(logdir,
+                                       'resume_manifest.json.consumed')):
+      raise AssertionError('the manifest was not consumed')
+    steps = _fps_steps(logdir)
+    if steps != list(range(1, DRAIN_STEPS + 1)):
+      raise AssertionError(f'summary steps {steps}')
+    last_good = checkpoint_lib.Checkpointer(
+        os.path.join(logdir, 'checkpoints')).last_good_step()
+    if last_good != DRAIN_STEPS:
+      raise AssertionError(f'LAST_GOOD {last_good}')
+  log(f'drain_fleet: SIGTERM at step >= 2, drained at step {drained_at} in '
+      f'{manifest["drain_latency_secs"]} s (drain latency, the manifest), '
+      f'exit {exit_secs:.1f} s after the signal; {manifest["buffer"]} left; '
+      f'run 1 {t1 - t0:.1f} s, the resumed run {time.perf_counter() - t1:.1f}'
+      f' s; summary steps {steps}')
 
 
 def main():
@@ -1141,6 +1411,9 @@ def run_phases():
   paths['fleet'] = timed('fleet', phase_fleet)
   timed('fleet_reference', phase_fleet_reference)
   timed('cli_fleet', phase_cli_fleet)
+  paths['resume_anakin'] = timed('resume_anakin', phase_resume_anakin)
+  paths['rollback_fleet'] = timed('rollback_fleet', phase_rollback_fleet)
+  timed('drain_fleet', phase_drain_fleet)
   log('phases: ' + ', '.join(f'{n} {s:.1f} s' for n, s in phases))
   launches = {name: {path: counts[name] for path, counts in paths.items()}
               for name in COUNTERS}

@@ -117,9 +117,28 @@ class Config:
   serving_shadow_fraction: float = 0.0
   serving_aot: bool = False
   serving_replicas: str = ''
+  # Checkpoint and resume (checkpoint.py): the save interval (the
+  # reference's save_checkpoint_secs), how often a process group asks
+  # rank 0 whether to save, the content-digest ledger, and the budget of
+  # the preemption drain (driver.train).
+  checkpoint_secs: int = 600
+  checkpoint_check_every_steps: int = 20
+  ckpt_digests: bool = True
+  preempt_drain_timeout_secs: float = 30.0
   # Skip a non-finite update: the step keeps the old params and
   # optimizer state, and still advances update_steps.
   health_watchdog: bool = True
+  # The health ladder (health.py): skip and count -> roll back to the
+  # last good checkpoint after `health_rollback_after` consecutive bad
+  # steps -> halt with a bundle after `health_max_rollbacks`.
+  health_check_every_steps: int = 1
+  health_window: int = 64                 # retained recent checks
+  health_min_window: int = 16             # samples before relative
+                                          # detectors arm
+  health_rollback_after: int = 5          # K consecutive bad steps
+  health_max_rollbacks: int = 3           # then halt
+  health_loss_explosion_factor: float = 100.0
+  health_sigma_divergence_factor: float = 10.0
   curriculum: str = 'uniform'
 
   def __post_init__(self):

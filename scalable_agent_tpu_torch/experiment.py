@@ -31,6 +31,16 @@ one card each, gloo for CPU ranks. Anakin stays on one host: a group
 across nodes raises, as in the JAX CLI; the fleet runtime over a group is
 ROADMAP A5b and raises. `--mode=test` (evaluation, ROADMAP A7) raises.
 
+Both runtimes resume from `<logdir>/checkpoints` (the newest restorable
+step; the format is the port's own, `torch.save` files, not the JAX
+package's Orbax steps). Under `--mode=train` the first SIGTERM drains:
+the run stops taking new data, trains what it holds, saves a verified
+checkpoint, writes `<logdir>/resume_manifest.json` and exits 0; rerunning
+the same command resumes. A second SIGTERM raises through the run's
+final save; under `--mode=anakin` the first one does. Float32 layers run
+with TF32 off (logged once as `float32 precision: tf32 off (cudnn,
+matmul)`).
+
 The env processes are forked from a forkserver, which `main` starts
 before its first CUDA call (runtime/py_process.py).
 """
@@ -38,7 +48,9 @@ before its first CUDA call (runtime/py_process.py).
 import argparse
 import dataclasses
 import logging
+import signal
 import sys
+import threading
 import typing
 from typing import List, Optional
 
@@ -88,6 +100,25 @@ def _parser() -> argparse.ArgumentParser:
   return parser
 
 
+def _install_sigterm_handler(drain_event: threading.Event, drains: bool):
+  """SIGTERM drains instead of killing the process mid-step: in a mode
+  that `drains`, the first sets `drain_event`, and the run drains and
+  returns; a second (or a first in a mode that does not drain) raises
+  KeyboardInterrupt through the run's `finally`; later ones are ignored,
+  so they cannot abort the final save. Returns the handler it replaced.
+  Call it in the main thread, where Python delivers signals."""
+  def terminate(signum, frame):
+    del frame
+    if drains and not drain_event.is_set():
+      drain_event.set()
+      return
+    signal.signal(signal.SIGTERM, signal.SIG_IGN)
+    raise KeyboardInterrupt(f'signal {signum}')
+
+  previous = signal.signal(signal.SIGTERM, terminate)
+  return signal.SIG_DFL if previous is None else previous
+
+
 def main(argv: Optional[List[str]] = None):
   logging.basicConfig(
       level=logging.INFO,
@@ -95,11 +126,30 @@ def main(argv: Optional[List[str]] = None):
   # Before any CUDA call: env processes fork from this server, which has
   # this module's imports loaded.
   py_process.warm_forkserver(preload=[__spec__.name])
+  from scalable_agent_tpu_torch import driver
+  driver.set_float32_precision()
   args = vars(_parser().parse_args(argv))
   device = args.pop('device')
   config = Config(**args)
+  drain_event = threading.Event()
+  previous = None
+  if threading.current_thread() is threading.main_thread():
+    # Both runtimes of --mode=train drain on the first SIGTERM;
+    # --mode=anakin keeps the first-SIGTERM-raises behaviour, as in the
+    # JAX CLI.
+    previous = _install_sigterm_handler(drain_event,
+                                        drains=config.mode == 'train')
+  try:
+    return _run(config, device, drain_event)
+  finally:
+    if previous is not None:
+      signal.signal(signal.SIGTERM, previous)
+
+
+def _run(config: Config, device: str, drain_event: threading.Event):
+  from scalable_agent_tpu_torch import driver
   if config.mode == 'train' and config.runtime == 'fleet':
-    return _train_fleet(config, device)
+    return _train_fleet(config, device, drain_event)
   if config.mode not in ('train', 'anakin'):
     raise NotImplementedError(
         f'--mode={config.mode} (evaluation) is not in the PyTorch port '
@@ -112,17 +162,22 @@ def main(argv: Optional[List[str]] = None):
         f'--mode=anakin is single-host: the group spans '
         f'{topology.num_nodes} nodes; use --mode=train (the fleet runtime, '
         'ROADMAP Queue A) for more than one host')
-  from scalable_agent_tpu_torch import driver
   from scalable_agent_tpu_torch.parallel import anakin
+
+  def train_on(rank_device, mesh):
+    if config.mode == 'train':
+      return driver.train_anakin(config, device=rank_device, mesh=mesh,
+                                 drain_event=drain_event).carry
+    return anakin.train(config, device=rank_device, mesh=mesh)
+
   backend = 'gloo' if torch.device(device).type == 'cpu' else 'nccl'
   rank_device = distributed.maybe_initialize(config, backend=backend,
                                              device=device)
   if rank_device is None:
-    carry = anakin.train(config, device=device)
+    carry = train_on(device, None)
   else:
     try:
-      carry = anakin.train(config, device=rank_device,
-                           mesh=driver.choose_mesh(config, rank_device))
+      carry = train_on(rank_device, driver.choose_mesh(config, rank_device))
     except BaseException:
       distributed.shutdown(wait=False)
       raise
@@ -132,14 +187,14 @@ def main(argv: Optional[List[str]] = None):
   return carry
 
 
-def _train_fleet(config: Config, device: str):
+def _train_fleet(config: Config, device: str, drain_event: threading.Event):
   if distributed.declared_topology(config) is not None:
     raise NotImplementedError(
         'the fleet runtime over a process group (data-parallel fleets) is '
         'not in the PyTorch port yet (ROADMAP A5b); run one process, or '
         '--mode=anakin')
   from scalable_agent_tpu_torch import driver
-  run = driver.train(config, device=device)
+  run = driver.train(config, device=device, drain_event=drain_event)
   logging.info('fleet training done at %d frames', run.frames)
   return run
 

@@ -1,0 +1,92 @@
+"""Content checksums of the checkpoint plane, copied from the JAX
+package's integrity.py: the CRC of bytes and files, its on-disk record,
+the record's verification, and the one-bit flip the fault sites share.
+
+CRC32C (Castagnoli) through the `google_crc32c` C extension when it
+imports, else zlib.crc32 (the IEEE polynomial, also C speed), so the
+module always imports. `CRC_ALGO` names the one in use and is written
+into every record: a checksum is compared only with one made by the same
+algorithm, and a record of another algorithm skips the verification
+instead of reporting corruption that is not there.
+
+The JAX module's tree and sharding-table digests serve the remote plane
+and the sharding manifest (ROADMAP A7.3, A5b.3), and its telemetry
+counters the metrics registry (A7.4): not here yet.
+"""
+
+from typing import Dict, Optional, Tuple
+
+try:
+  import google_crc32c as _crc32c_lib
+
+  def _crc_update(crc: int, data) -> int:
+    # The extension takes only `bytes`.
+    if not isinstance(data, bytes):
+      data = bytes(data)
+    return _crc32c_lib.extend(crc, data)
+
+  CRC_ALGO = 'crc32c'
+except ImportError:
+  import zlib as _zlib
+
+  def _crc_update(crc: int, data) -> int:
+    return _zlib.crc32(data, crc) & 0xFFFFFFFF
+
+  CRC_ALGO = 'zlib-crc32'
+
+
+def crc_bytes(data, crc: int = 0) -> int:
+  """CRC of one bytes-like object (optionally extending `crc`)."""
+  return _crc_update(crc, data)
+
+
+class Crc:
+  """Incremental CRC accumulator."""
+
+  __slots__ = ('value',)
+
+  def __init__(self, value: int = 0):
+    self.value = int(value)
+
+  def update(self, data) -> 'Crc':
+    self.value = _crc_update(self.value, data)
+    return self
+
+
+def file_digest(path: str, chunk_bytes: int = 1 << 20) -> int:
+  """Content CRC of one file (the checkpoint's bit-rot ledger)."""
+  crc = Crc()
+  with open(path, 'rb') as f:
+    while True:
+      chunk = f.read(chunk_bytes)
+      if not chunk:
+        return crc.value
+      crc.update(chunk)
+
+
+def digest_record(value: int) -> Dict:
+  """The on-disk spelling of a digest: value and algorithm, so a reader
+  built with another algorithm refuses to compare."""
+  return {'crc': int(value), 'algo': CRC_ALGO}
+
+
+def verify_record(record, value: int) -> Optional[bool]:
+  """Compare `value` with a `digest_record`. None: not comparable
+  (missing or malformed record, or another algorithm; the caller skips
+  the verification, loudly); True or False: verified or corrupt."""
+  if not isinstance(record, dict):
+    return None
+  if record.get('algo') != CRC_ALGO:
+    return None
+  try:
+    return int(record['crc']) == int(value)
+  except (KeyError, TypeError, ValueError):
+    return None
+
+
+def flip_bit(buf: bytearray, bit_index: int) -> Tuple[int, int]:
+  """Flip one bit of `buf` in place; returns (byte offset, bit)."""
+  byte = (bit_index // 8) % max(len(buf), 1)
+  bit = bit_index % 8
+  buf[byte] ^= 1 << bit
+  return byte, bit

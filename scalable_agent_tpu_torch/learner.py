@@ -193,6 +193,42 @@ def make_train_state(agent, config: Config) -> TrainState:
                     update_steps=0)
 
 
+def state_to_payload(state: TrainState) -> Dict[str, Any]:
+  """The TrainState as plain dicts of CPU tensors, the form a checkpoint
+  holds (`torch.load(weights_only=True)` refuses NamedTuples):
+  {'params', 'opt_state': {'count', 'nu', 'trace'}, 'update_steps'}."""
+  host = lambda tree: {k: v.detach().to('cpu', copy=True)  # noqa: E731
+                       for k, v in tree.items()}
+  opt = state.opt_state
+  return {'params': host(state.params),
+          'opt_state': {'count': opt.count.detach().to('cpu', copy=True),
+                        'nu': host(opt.nu),
+                        'trace': None if opt.trace is None
+                        else host(opt.trace)},
+          'update_steps': int(state.update_steps)}
+
+
+@torch.no_grad()
+def load_state_(state: TrainState, payload: Dict[str, Any]) -> TrainState:
+  """Copy a `state_to_payload` payload into `state`'s own tensors, on
+  their device, and return a TrainState holding those same tensors.
+
+  In place because the agent trains its own parameter tensors
+  (`make_train_state`): a restore that rebound the dict would leave the
+  agent training its old weights. The caller has checked the payload's
+  structure against `state`."""
+  for k, p in state.params.items():
+    p.copy_(payload['params'][k])
+  opt, saved = state.opt_state, payload['opt_state']
+  opt.count.copy_(saved['count'])
+  for k, v in opt.nu.items():
+    v.copy_(saved['nu'][k])
+  if opt.trace is not None:
+    for k, v in opt.trace.items():
+      v.copy_(saved['trace'][k])
+  return TrainState(state.params, opt, int(payload['update_steps']))
+
+
 def _all_reduce_sum(mesh, grads, metrics):
   """The gradients and the losses summed over the mesh's ranks, in one
   all-reduce of one flat float32 buffer."""

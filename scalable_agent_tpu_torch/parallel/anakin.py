@@ -36,6 +36,7 @@ slices, as are its other env cores (ROADMAP.md).
 import dataclasses
 import json
 import os
+import sys
 import time
 from typing import Any, NamedTuple, Optional, Tuple
 
@@ -52,6 +53,7 @@ from scalable_agent_tpu_torch.parallel import distributed
 from scalable_agent_tpu_torch.parallel import train_parallel
 from scalable_agent_tpu_torch.parallel.sharding import (DATA_AXIS,
                                                        shard_range)
+from scalable_agent_tpu_torch.runtime import faults
 from scalable_agent_tpu_torch.structs import (ActorOutput, AgentOutput,
                                               StepOutput, StepOutputInfo,
                                               map_structure)
@@ -271,7 +273,10 @@ def make_anakin_step(agent, env_core, config: Config,
         agent_state=carry.core_state,
         env_outputs=map_structure(stack, *env_outputs),
         agent_outputs=map_structure(stack, *agent_outputs))
-    train_state, metrics = train_step_fn(carry.train_state, batch)
+    # Fault site 'nan_burst' (runtime/faults.py): NaN rewards for the
+    # learner, as the fleet's staged batch gets them.
+    learn_batch, _ = faults.maybe_poison_batch(batch)
+    train_state, metrics = train_step_fn(carry.train_state, learn_batch)
     rewards = batch.env_outputs.reward[1:]
     if mesh is None:
       metrics['mean_reward'] = torch.mean(rewards)
@@ -295,6 +300,7 @@ def build_run(config: Config, device='cuda', mesh=None):
   divide raises ValueError before any work."""
   _check_divisible(config, mesh)
   device = driver.resolve_device(device)
+  driver.set_float32_precision()
   if mesh is not None:
     if mesh.device.type != device.type:
       raise ValueError(f'the mesh is on {mesh.device}, the run on {device}')
@@ -338,14 +344,29 @@ def train(config: Config, max_steps: Optional[int] = None, device='cuda',
           mesh=None):
   """Operator-facing Anakin training (`python -m
   scalable_agent_tpu_torch.experiment --mode=anakin`): fused steps until
-  total_environment_frames (or `max_steps`), with config.json and JSONL
+  total_environment_frames (or `max_steps` more), with config.json, JSONL
   summaries (total_loss, mean_reward, learning_rate,
-  env_frames_per_sec). Returns the final AnakinCarry. In a process
-  group every rank trains and only rank 0 writes the logdir.
+  env_frames_per_sec) and checkpoint and resume in the TrainState layout
+  of driver.train: the newest restorable step under `<logdir>/checkpoints`
+  is restored at start (steps, frames and summary steps count on from
+  it), `maybe_save` runs after every fused step, and the tail save after
+  a good restore. Returns the final AnakinCarry.
 
-  Checkpoint and resume are the checkpoint slice's (ROADMAP.md): this
-  loop starts from fresh params and saves nothing."""
+  The carry's env and agent state is not checkpointed, as in the JAX
+  module: actor-local state is not saved (the reference's rule). In a
+  process group every rank trains; rank 0 writes the logdir and the
+  checkpoints, its save decision is read every
+  checkpoint_check_every_steps steps, and the tail save (a collective)
+  runs on a clean exit only. The health ladder and the drain are
+  driver.train_anakin's (`--mode=train --runtime=anakin`)."""
   _, _, step, carry = build_run(config, device=device, mesh=mesh)
+  grouped = mesh is not None and mesh.size > 1
+  checkpointer = driver.make_checkpointer(config, mesh)
+  # A restore that raises (a config mismatch) ends the call before the
+  # tail save could write a fresh state next to the old steps.
+  carry = carry._replace(train_state=driver.restore_at_start(
+      checkpointer, carry.train_state))
+  base_steps = carry.train_state.update_steps
   writer = None
   if distributed.rank() == 0:
     os.makedirs(config.logdir, exist_ok=True)
@@ -365,10 +386,11 @@ def train(config: Config, max_steps: Optional[int] = None, device='cuda',
          'env_frames_per_sec': fps_meter.fps()}, step=step_num)
 
   steps_done = 0
+  flushed = base_steps
   try:
     last_summary = time.monotonic()
     while True:
-      if steps_done * config.frames_per_step >= (
+      if (base_steps + steps_done) * config.frames_per_step >= (
           config.total_environment_frames):
         break
       if max_steps is not None and steps_done >= max_steps:
@@ -378,12 +400,22 @@ def train(config: Config, max_steps: Optional[int] = None, device='cuda',
       fps_meter.update(config.frames_per_step)
       now = time.monotonic()
       if now - last_summary >= config.summary_secs:
-        flush(steps_done)
+        flushed = base_steps + steps_done
+        flush(flushed)
         last_summary = now
-    if steps_done:
+      if not grouped:
+        checkpointer.maybe_save(carry.train_state)
+      elif steps_done % config.checkpoint_check_every_steps == 0:
+        checkpointer.maybe_save(carry.train_state,
+                                decision=checkpointer.group_should_save())
+    if base_steps + steps_done > flushed:
       # A short run can finish inside one summary window.
-      flush(steps_done)
+      flush(base_steps + steps_done)
   finally:
-    if writer is not None:
-      writer.close()
+    try:
+      if sys.exc_info()[0] is None or not grouped:
+        checkpointer.save(carry.train_state)
+    finally:
+      if writer is not None:
+        writer.close()
   return carry

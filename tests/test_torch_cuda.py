@@ -310,3 +310,46 @@ def test_fleet_on_card_launches_the_kernel_once_per_step(cuda, tmp_path):
   assert run.state.update_steps == 3
   assert all(p.is_cuda for p in run.server.live_params().values())
   assert all(p.is_cuda for p in run.state.params.values())
+
+
+def test_a_checkpoint_restored_on_the_card_is_the_live_state(cuda, tmp_path):
+  """Saved on the card, restored on the card: params and RMSProp's nu
+  bit-equal to the saved ones, copied into the agent's own tensors; the
+  health sentinels reach the host through pinned memory behind an
+  event."""
+  from scalable_agent_tpu_torch import health
+  from scalable_agent_tpu_torch.checkpoint import Checkpointer
+  cfg = Config(torso='shallow', batch_size=2, unroll_length=3,
+               num_action_repeats=1, use_instruction=False)
+
+  def state_on_card(seed):
+    agent = ImpalaAgent(4, (24, 32, 3), torso='shallow')
+    init_params(agent, torch.Generator().manual_seed(seed))
+    agent.to(cuda)
+    return agent, learner.make_train_state(agent, cfg)
+
+  _, state = state_on_card(0)
+  with torch.no_grad():
+    for v in state.opt_state.nu.values():
+      v.uniform_()
+  state = state._replace(update_steps=5)
+  ckpt = Checkpointer(str(tmp_path), save_interval_secs=0)
+  assert ckpt.save(state)
+  agent2, target = state_on_card(1)
+  restored = ckpt.restore_latest(target)
+  assert restored.update_steps == 5
+  for k, p in agent2.named_parameters():
+    assert restored.params[k] is p and p.is_cuda
+    assert torch.equal(p, state.params[k]), k
+  for k, v in restored.opt_state.nu.items():
+    assert v is target.opt_state.nu[k] and v.is_cuda
+    assert torch.equal(v, state.opt_state.nu[k]), k
+
+  metrics = {'step_ok': torch.tensor(0.0, device=cuda),
+             'total_loss': torch.tensor(float('nan'), device=cuda),
+             'grad_norm': torch.tensor(2.5, device=cuda)}
+  handle = health.stack_sentinels(metrics)
+  assert handle.values.is_pinned() and handle.ready is not None
+  values = health.read_handle(handle)
+  assert values['step_ok'] == 0.0 and values['grad_norm'] == 2.5
+  assert values['total_loss'] != values['total_loss']  # NaN

@@ -149,8 +149,10 @@ def test_train_with_process_hosted_envs(tmp_path):
 
 def test_runtime_anakin_dispatches_to_the_anakin_trainer(tmp_path):
   cfg = _config(tmp_path, runtime='anakin', batch_size=4)
-  carry = driver.train(cfg, max_steps=2, device='cpu')
-  assert carry.train_state.update_steps == 2
+  run = driver.train(cfg, max_steps=2, device='cpu')
+  assert run.state.update_steps == 2
+  assert run.carry.train_state is run.state
+  assert run.server is None and run.fleet is None
   assert {e['tag'] for e in _events(tmp_path)} >= {'mean_reward'}
 
 
