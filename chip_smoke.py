@@ -122,13 +122,43 @@ Phases, each of which raises (exit code != 0) when it fails:
              the two runs' summary steps are 1..6. It prints the drain
              latency.
 
+19. dp_fleet — the data-parallel fleet: 2 gloo ranks sharing the card,
+             each with 16 process-hosted actors feeding its 16 rows of the
+             global batch of 32, at the slice's widths, for 8 learner steps:
+             K1b once per learner step per rank (K1 never), the ranks'
+             params bit-equal after every step, the SDC sentinel armed with
+             0 mismatches; then the `replica_divergence` drill (health_
+             rollback_after=1): one `sdc_replica_mismatch` incident and one
+             rollback per rank, the ranks still bit-equal. The first run's
+             tail save (at D=2) restored on one rank: bit-equal. It prints
+             global env-frames/s, ms per learner step and the blocked-get
+             share per rank over steps 3-8, and the gloo gradient
+             all-reduce's ms per step.
+20. cli_fleet_dp — `python -m torch.distributed.run --standalone
+             --nproc_per_node=1 -m scalable_agent_tpu_torch.experiment
+             --mode=train --runtime=fleet` for 2 full-width steps: an NCCL
+             group of one (NCCL refuses two ranks on one card).
+21. unroll_fleet — unroll staging: 32 full-width unrolls staged one by one
+             into the arena on a side stream, bit-equal to `batch_unrolls`
+             staged as batch staging stages it; then the fleet phase's run
+             with staging_mode='unroll' for 8 learner steps (K1 once per
+             step), its ms per learner step beside the fleet phase's.
+22. tp — 2 gloo ranks as a {data 1, model 2} mesh: the TP train step in
+             `gathered` at T=100, B=32 and in `sharded` at T=20, B=8 (the
+             cut and its reason in phase_tp), each held to the one-rank
+             step on the card; a 3-step TP fleet whose server serves the
+             gathered params; its save at {data 1, model 2} restored at
+             {data 1, model 1} bit-equal. It prints each mode's ms per step
+             and the save's and the restore's ms.
+
 Every CLI phase checks that its process logged `float32 precision: tf32 off
 (cudnn, matmul)`: the port's entry points run float32 layers without TF32.
 
 The forkserver that env processes fork from is started before the first
 CUDA call. Every kernel's launch count is set to 0 just before each path
 (the three slices, the fleet, the K2 entry point, resume_anakin's second
-call and rollback_fleet; slice_dp's ranks count their own and report them)
+call, rollback_fleet and unroll_fleet; the ranks of slice_dp, dp_fleet
+and tp count their own and report them)
 and read just after; a kernel that its
 path did not launch fails the run. The second-to-last line of the output is the
 JSON `{"kernels": [...]}` record, the last `{"ok": true, "device": {...}}`.
@@ -176,6 +206,8 @@ from scalable_agent_tpu_torch.parallel import train_parallel
 from scalable_agent_tpu_torch.profile_anakin import SLICE
 from scalable_agent_tpu_torch.runtime import faults
 from scalable_agent_tpu_torch.runtime import py_process
+from scalable_agent_tpu_torch.runtime import ring_buffer
+from scalable_agent_tpu_torch.runtime.actor import batch_unrolls
 from scalable_agent_tpu_torch.runtime.inference import InferenceServer
 from scalable_agent_tpu_torch.scripts import conv_pool as conv_pool_script
 from scalable_agent_tpu_torch.structs import (ActorOutput, AgentOutput,
@@ -678,10 +710,10 @@ class _TimedMesh(mesh_lib.Mesh):
   stream anyway) to one after; the wait for the other rank is in it."""
   seconds: list = dataclasses.field(default_factory=list)
 
-  def all_reduce_sum_(self, tensor):
+  def all_reduce_sum_(self, tensor, axis=sharding.DATA_AXIS):
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    out = super().all_reduce_sum_(tensor)
+    out = super().all_reduce_sum_(tensor, axis)
     torch.cuda.synchronize()
     self.seconds.append(time.perf_counter() - t0)
     return out
@@ -956,6 +988,7 @@ def _fleet_run(config):
       f'launches {counts["vtrace"]}; server snapshot bit-equal to the '
       f'params published at step {last}, unequal to the learner\'s after '
       f'steps {sorted(learner_after)}')
+  MEASURED['fleet_step_ms'] = 1e3 * timed_s / timed_steps
   log(f'fleet: {fps:.1f} env-frames/s, {1e3 * timed_s / timed_steps:.2f} ms '
       f'per learner step over steps {FLEET_TIMED_FROM + 1}-{FLEET_STEPS}; '
       f'learner blocked in prefetcher.get {waited_s / timed_s:.4f} of that '
@@ -1366,6 +1399,594 @@ def phase_drain_fleet():
       f'run 1 {t1 - t0:.1f} s, the resumed run {time.perf_counter() - t1:.1f}'
       f' s; summary steps {steps}')
 
+# --- multi-process training: the data-parallel fleet, unroll staging and
+# tensor parallelism ------------------------------------------------------
+
+# The data-parallel fleet: 2 gloo ranks sharing the card, each with 16
+# process-hosted actors, global B=32 (16 rows per rank).
+DP_FLEET = dict(FLEET, num_actors=16)
+DP_FLEET_STEPS = 8
+SDC_DRILL_STEPS = 5
+# The tensor-parallel phase: the sharded step at a cut T*B (see phase_tp),
+# and a short TP fleet with 16 actors per rank.
+TP_STEPS = 3
+TP_SHARDED_CUT = dict(unroll_length=20, batch_size=8)
+TP_FLEET = dict(FLEET, num_actors=16, publish_params_every=1,
+                model_parallelism=2, tp_compute='gathered')
+TP_FLEET_STEPS = 3
+# Wall clock per measured run: set-up and the first steps are excluded.
+MEASURED = {}
+
+
+def _run_ranks(name, worker, outdir, *args):
+  """`worker(rank, world, port, outdir, *args)` in DP_RANKS spawned
+  processes sharing the card; returns each rank's result (its
+  `outdir`/rank<r>.pt). A rank that raises stops the others and fails
+  the phase."""
+  context = mp.start_processes(
+      worker, args=(DP_RANKS, _free_port(), outdir) + args,
+      nprocs=DP_RANKS, join=False, start_method='spawn')
+  deadline = time.monotonic() + DP_TIMEOUT_SECS
+  while not context.join(timeout=max(deadline - time.monotonic(), 1.0)):
+    if time.monotonic() >= deadline:
+      for process in context.processes:
+        process.kill()
+      raise RuntimeError(f'{name} ranks still running after '
+                         f'{DP_TIMEOUT_SECS} s')
+  return [torch.load(os.path.join(outdir, f'rank{r}.pt'),
+                     weights_only=False) for r in range(DP_RANKS)]
+
+
+def _in_rank(rank, world, port, outdir, body):
+  """A spawned rank's frame: its own forkserver (before any CUDA call),
+  TF32 off, the gloo group on cuda:0, `body(config_fields, device)`'s
+  result saved for the parent; the group left and the forkserver stopped
+  on the way out."""
+  py_process.warm_forkserver(preload=['chip_smoke'])
+  try:
+    driver.set_float32_precision()
+    group = dict(coordinator_address=f'localhost:{port}',
+                 num_processes=world, process_id=rank)
+    device = distributed.maybe_initialize(Config(**SLICE, **group),
+                                          backend='gloo', device='cuda:0',
+                                          timeout_secs=GROUP_TIMEOUT_SECS)
+    try:
+      result = body(group, device)
+    except BaseException:
+      distributed.shutdown(wait=False)
+      raise
+    torch.save(result, os.path.join(outdir, f'rank{rank}.pt'))
+    distributed.shutdown()
+  finally:
+    py_process.stop_forkserver()
+
+
+def _counts():
+  return {name: counter.launches for name, counter in COUNTERS.items()}
+
+
+def _zero_counts():
+  for counter in COUNTERS.values():
+    counter.launches = 0
+
+
+def _incident_kinds(logdir, rank):
+  name = 'incidents.jsonl' if rank == 0 else f'incidents_p{rank}.jsonl'
+  with open(os.path.join(logdir, name)) as f:
+    return [e['kind'] for e in map(json.loads, f)]
+
+
+def _step_times(run, first):
+  """(seconds, blocked-get seconds) of the learner steps after `first`."""
+  log_ = run.step_log
+  return (log_[-1]['time'] - log_[first - 1]['time'],
+          log_[-1]['get_wait_secs'] - log_[first - 1]['get_wait_secs'])
+
+
+def _dp_fleet_rank(rank, world, port, outdir):
+  def body(group, device):
+    reduce_s = []
+    plain = learner._all_reduce_sum
+
+    def timed_all_reduce(*args, **kwargs):
+      torch.cuda.synchronize()
+      t0 = time.perf_counter()
+      out = plain(*args, **kwargs)
+      torch.cuda.synchronize()
+      reduce_s.append(time.perf_counter() - t0)
+      return out
+
+    learner._all_reduce_sum = timed_all_reduce
+    digests = []
+
+    def on_step(run, step, metrics):
+      digests.append(_params_digest(run.state.params))
+
+    logdir = os.path.join(outdir, 'plain')
+    config = Config(**DP_FLEET, **group, logdir=logdir)
+    torch.cuda.reset_peak_memory_stats()
+    _zero_counts()
+    run = driver.train(config, max_steps=DP_FLEET_STEPS, device=device,
+                       stall_timeout_secs=300, on_step=on_step)
+    counts = _counts()
+    all_digests = [None] * world
+    dist.all_gather_object(all_digests, digests)
+    timed_s, waited_s = _step_times(run, FLEET_TIMED_FROM)
+    timed_steps = DP_FLEET_STEPS - FLEET_TIMED_FROM
+    result = dict(
+        counts=counts, update_steps=run.state.update_steps,
+        digests=all_digests, sdc_armed=run.mesh is not None and
+        train_parallel.supports_sdc_check(config, run.mesh),
+        sdc_mismatches=run.health.sdc_mismatches,
+        fps=timed_steps * config.frames_per_step / timed_s,
+        step_ms=1e3 * timed_s / timed_steps, blocked=waited_s / timed_s,
+        all_reduce_ms=[1e3 * v for v in reduce_s[FLEET_TIMED_FROM:]],
+        peak_gib=torch.cuda.max_memory_allocated() / 2**30,
+        fleet=run.stats['fleet'], server=run.stats['server'],
+        params=_param_snapshot(run.state.params),
+        checkpoints=os.path.join(logdir, 'checkpoints'))
+    learner._all_reduce_sum = plain
+    # The SDC drill: one replica's probe lane perturbed at the third
+    # check; one bad check rolls back.
+    logdir = os.path.join(outdir, 'sdc')
+    faults.install(faults.FaultPlan.storm(seed=0, replica_divergence_at=2,
+                                          replica_divergence_len=1))
+    try:
+      run = driver.train(
+          Config(**DP_FLEET, **group, logdir=logdir, checkpoint_secs=0,
+                 checkpoint_check_every_steps=1, health_rollback_after=1),
+          max_steps=SDC_DRILL_STEPS, device=device, stall_timeout_secs=300)
+    finally:
+      faults.clear()
+    result['drill'] = dict(kinds=_incident_kinds(logdir, rank),
+                           health=run.health.stats(),
+                           digest=_params_digest(run.state.params))
+    return result
+
+  _in_rank(rank, world, port, outdir, body)
+
+
+def phase_dp_fleet():
+  """The data-parallel fleet: 2 gloo ranks sharing the card, each with 16
+  process-hosted actors feeding its 16 rows of the global batch of 32, at
+  the slice's widths, for 8 learner steps, then the SDC drill; the tail
+  save of the first run restored on one rank. Returns the launch counts
+  of the first run, summed over the ranks."""
+  with tempfile.TemporaryDirectory(prefix='chip_smoke_dp_fleet_') as outdir:
+    ranks = _run_ranks('dp_fleet', _dp_fleet_rank, outdir)
+    # The save at D=2 (the tail save, rank 0's write) on one rank.
+    config = Config(**DP_FLEET)
+    target = learner.make_train_state(_seeded_agent(config, 'cuda'), config)
+    checkpointer = checkpoint_lib.Checkpointer(ranks[0]['checkpoints'])
+    restored = checkpointer.restore_latest(target)
+    restore_ms = 1e3 * checkpointer.last_restore_secs
+  if restored.update_steps != DP_FLEET_STEPS or not all(
+      torch.equal(v.cpu(), ranks[0]['params'][k])
+      for k, v in restored.params.items()):
+    raise AssertionError('dp_fleet: the save at D=2 restored on one rank '
+                         'differs from the ranks\' params')
+  counts = {name: sum(r['counts'][name] for r in ranks) for name in COUNTERS}
+  for rank, r in enumerate(ranks):
+    if (r['counts']['vtrace_sharded'] != DP_FLEET_STEPS or
+        r['counts']['vtrace'] or r['counts']['conv_pool']):
+      raise AssertionError(f'dp_fleet rank {rank}: launches {r["counts"]} '
+                           f'in {DP_FLEET_STEPS} learner steps')
+    if r['update_steps'] != DP_FLEET_STEPS:
+      raise AssertionError(f'dp_fleet rank {rank}: {r["update_steps"]} steps')
+    if r['digests'][0] != r['digests'][1] or len(r['digests'][0]) != (
+        DP_FLEET_STEPS):
+      raise AssertionError('dp_fleet: the ranks\' params differ after a '
+                           f'step: {r["digests"]}')
+    if not r['sdc_armed'] or r['sdc_mismatches']:
+      raise AssertionError(f'dp_fleet rank {rank}: SDC armed '
+                           f'{r["sdc_armed"]}, mismatches '
+                           f'{r["sdc_mismatches"]}')
+    kinds = r['drill']['kinds']
+    if (kinds.count('sdc_replica_mismatch') != 1 or
+        kinds.count('rollback') != 1 or
+        r['drill']['health']['rollbacks'] != 1):
+      raise AssertionError(f'dp_fleet rank {rank} SDC drill: incidents '
+                           f'{kinds}, health {r["drill"]["health"]}')
+  if ranks[0]['drill']['digest'] != ranks[1]['drill']['digest']:
+    raise AssertionError('dp_fleet: the ranks\' params differ after the '
+                         'SDC drill\'s rollback')
+  log(f'dp_fleet: kernel launches {counts} (by rank: '
+      f'{[r["counts"] for r in ranks]}); params bit-equal across the ranks '
+      f'after each of the {DP_FLEET_STEPS} steps; SDC armed, 0 mismatches; '
+      f'drill incidents {ranks[0]["drill"]["kinds"]}; the tail save at D=2 '
+      f'restored on one rank bit-equal in {restore_ms:.1f} ms')
+  for rank, r in enumerate(ranks):
+    reduce = r['all_reduce_ms']
+    log(f'dp_fleet rank {rank}: {r["fps"]:.1f} global env-frames/s, '
+        f'{r["step_ms"]:.2f} ms per learner step over steps '
+        f'{FLEET_TIMED_FROM + 1}-{DP_FLEET_STEPS}; blocked in prefetcher.get '
+        f'{r["blocked"]:.4f} of that time; gradient all-reduce (gloo, card '
+        f'to host and back) {statistics.median(reduce):.2f} ms median per '
+        f'step ({[round(v, 2) for v in reduce]}); inference mean batch '
+        f'{r["server"]["mean_batch"]:.3f}; peak allocated '
+        f'{r["peak_gib"]:.3f} GiB; fleet {r["fleet"]}')
+  return counts
+
+
+def phase_cli_fleet_dp():
+  """The fleet's CLI under torch.distributed.run: an NCCL group of one
+  (NCCL refuses two ranks on one card)."""
+  config = Config(**DP_FLEET)
+  with tempfile.TemporaryDirectory(prefix='chip_smoke_cli_fleet_dp_') as logdir:
+    cmd = [sys.executable, '-m', 'torch.distributed.run', '--standalone',
+           '--nproc_per_node=1', '-m', 'scalable_agent_tpu_torch.experiment',
+           '--mode=train', '--runtime=fleet', f'--logdir={logdir}',
+           f'--total_environment_frames={2 * config.frames_per_step}']
+    cmd += [f'--{field}={value}' for field, value in DP_FLEET.items()]
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, capture_output=True, text=True, timeout=600,
+                          cwd=os.path.dirname(os.path.abspath(__file__)))
+    if proc.returncode != 0:
+      raise RuntimeError(f'fleet CLI under torch.distributed.run failed '
+                         f'({proc.returncode}):\n{proc.stderr[-8000:]}')
+    if 'process group (nccl): rank 0 of 1' not in proc.stderr:
+      raise AssertionError(f'no NCCL group joined:\n{proc.stderr[-8000:]}')
+    _check_precision_line(proc.stderr, 'cli_fleet_dp')
+    with open(os.path.join(logdir, 'summaries.jsonl')) as f:
+      losses = [e['value'] for e in map(json.loads, f)
+                if e['tag'] == 'total_loss']
+  if len(losses) != 2 or not all(map(math.isfinite, losses)):
+    raise AssertionError(f'fleet CLI total_loss {losses}')
+  log(f'cli_fleet_dp: 2 steps in {time.perf_counter() - t0:.1f} s in an NCCL '
+      f'group of one, total_loss {losses}')
+
+
+def _full_width_unrolls(config, num, seed=0):
+  """`num` unrolls as the actors emit them at the config's widths."""
+  rng = np.random.RandomState(seed)
+  t1, a = config.unroll_length + 1, config.num_actions
+  frames = rng.randint(0, 256, (num, t1, config.height, config.width, 3),
+                       dtype=np.uint8)
+  return [ActorOutput(
+      level_name=np.int32(0),
+      agent_state=tuple(rng.randn(1, 256).astype(np.float32)
+                        for _ in range(2)),
+      env_outputs=StepOutput(
+          rng.randn(t1).astype(np.float32),
+          StepOutputInfo(rng.randn(t1).astype(np.float32),
+                         rng.randint(0, 100, t1).astype(np.int32)),
+          rng.rand(t1) > 0.9, (frames[i], np.zeros((t1, 16), np.int32))),
+      agent_outputs=AgentOutput(
+          rng.randint(0, a, t1).astype(np.int32),
+          rng.randn(t1, a).astype(np.float32),
+          rng.randn(t1).astype(np.float32)))
+          for i in range(num)]
+
+
+def phase_unroll_fleet():
+  """Unroll staging at the slice's widths: the arena of 32 full-width
+  unrolls, copied one by one on a side stream, bit-equal to
+  `batch_unrolls` staged as batch staging stages it; then the one-rank
+  fleet (the fleet phase's config) with staging_mode='unroll' for 8
+  learner steps, K1 once per step; its ms per learner step beside the
+  fleet phase's (batch staging) of this run. Returns the fleet's launch
+  counts."""
+  config = Config(**FLEET, staging_mode='unroll')
+  unrolls = _full_width_unrolls(config, config.batch_size)
+  copy_stream = torch.cuda.Stream()
+  stager = ring_buffer.UnrollBatchStager(
+      config.batch_size, device='cuda', copy_stream=copy_stream)
+  torch.cuda.synchronize()
+  t0 = time.perf_counter()
+  for u in unrolls:
+    stager.add(u)
+  arena = stager.finish()
+  torch.cuda.synchronize()
+  unroll_ms = 1e3 * (time.perf_counter() - t0)
+  t0 = time.perf_counter()
+  placed = learner.place_batch(
+      batch_unrolls(unrolls, empty=learner.pinned_empty), 'cuda', copy_stream)
+  torch.cuda.synchronize()
+  batch_ms = 1e3 * (time.perf_counter() - t0)
+  leaves = []
+  map_structure(lambda a, b: leaves.append(torch.equal(a, b)), arena, placed)
+  if len(leaves) != 12 or not all(leaves):
+    raise AssertionError(f'the unroll arena differs from batch_unrolls: '
+                         f'{leaves}')
+  with tempfile.TemporaryDirectory(prefix='chip_smoke_unroll_') as logdir:
+    run, counts = _drive('unroll_fleet', lambda: driver.train(
+        Config(**FLEET, staging_mode='unroll', logdir=logdir),
+        max_steps=FLEET_STEPS, device='cuda', stall_timeout_secs=300))
+  if counts['vtrace'] != FLEET_STEPS or counts['vtrace_sharded']:
+    raise AssertionError(f'unroll_fleet launches {counts}')
+  prefetch = run.stats['prefetcher']
+  if prefetch['mode'] != 'unroll' or prefetch['unrolls_staged'] < (
+      FLEET_STEPS * config.batch_size):
+    raise AssertionError(f'unroll_fleet prefetcher {prefetch}')
+  timed_s, waited_s = _step_times(run, FLEET_TIMED_FROM)
+  timed_steps = FLEET_STEPS - FLEET_TIMED_FROM
+  step_ms = 1e3 * timed_s / timed_steps
+  log(f'unroll_fleet: the arena of {config.batch_size} full-width unrolls '
+      f'bit-equal to batch_unrolls (all 12 leaves); one batch staged per '
+      f'unroll in {unroll_ms:.2f} ms, stacked and copied at once in '
+      f'{batch_ms:.2f} ms (host clock, outside the fleet)')
+  log(f'unroll_fleet: {step_ms:.2f} ms per learner step over steps '
+      f'{FLEET_TIMED_FROM + 1}-{FLEET_STEPS} with unroll staging, '
+      f'{MEASURED.get("fleet_step_ms", float("nan")):.2f} ms with batch '
+      f'staging (the fleet phase, this run); blocked in prefetcher.get '
+      f'{waited_s / timed_s:.4f}; vtrace launches {counts["vtrace"]}; '
+      f'prefetcher {prefetch}')
+  return counts
+
+
+def _tp_steps(config, device, mesh, batch, steps):
+  """`steps` TP steps from the seeded params: (median ms per step after
+  the first, losses, grad norms, the full state gathered before the
+  first step and after each (learner.state_to_payload), the step's
+  mode, counts). The gathers are collectives, outside the timing."""
+  agent = _seeded_agent(config, device)
+  state = train_parallel.make_sharded_train_state(agent, config, mesh)
+  step, place = train_parallel.make_sharded_train_step(agent, config,
+                                                       mesh, batch)
+  local = place(batch)
+
+  def gathered():
+    return learner.state_to_payload(
+        train_parallel.gather_state(state, step.layout))
+
+  times, losses, norms, states = [], [], [], [gathered()]
+  _zero_counts()
+  for _ in range(steps):
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    state, metrics = step(state, local)
+    losses.append(float(metrics['total_loss']))
+    norms.append(float(metrics['grad_norm']))
+    torch.cuda.synchronize()
+    times.append(time.perf_counter() - t0)
+    states.append(gathered())
+  counts = _counts()
+  return (1e3 * statistics.median(times[1:]), losses, norms, states,
+          step.tp_compute, counts)
+
+
+def _one_rank_steps(config, device, batch, states):
+  """The one-rank reference on the same batch: the losses of
+  len(states) - 1 steps from the seeded params, and for each TP step
+  the one-rank step from the TP run's gathered state before it,
+  (loss, grad norm, state after): each TP step held on its own, so the
+  rounding of earlier steps does not compound into the comparison."""
+  agent = _seeded_agent(config, device)
+  state = learner.make_train_state(agent, config)
+  step = learner.make_train_step_fn(agent, config)
+  batch = map_structure(lambda x: x.to(device), batch)
+  free = []
+  for _ in states[1:]:
+    state, metrics = step(state, batch)
+    free.append(float(metrics['total_loss']))
+  forced = []
+  for before in states[:-1]:
+    state = learner.load_state_(state, before)
+    state, metrics = step(state, batch)
+    forced.append((float(metrics['total_loss']),
+                   float(metrics['grad_norm']),
+                   learner.state_to_payload(state)))
+  return free, forced
+
+
+def _tp_rank(rank, world, port, outdir):
+  def body(group, device):
+    mesh = mesh_lib.make_mesh(device, model_parallelism=2)
+    result = {}
+    for mode, cut in (('gathered', {}), ('sharded', TP_SHARDED_CUT)):
+      config = Config(**dict(SLICE, **cut), **group, model_parallelism=2,
+                      tp_compute=mode)
+      batch = _small_batch(config.unroll_length, config.batch_size,
+                           config.num_actions, config.height, config.width)
+      ms, losses, norms, states, ran, counts = _tp_steps(
+          config, device, mesh, batch, TP_STEPS)
+      result[mode] = dict(ms=ms, losses=losses, norms=norms, states=states,
+                          ran=ran, counts=counts)
+      if rank == 0:
+        one = Config(**dict(SLICE, **cut))
+        result[mode]['one'] = _one_rank_steps(one, device, batch, states)
+    # A short TP fleet: publishes gather a full copy for the server.
+    logdir = os.path.join(outdir, 'fleet')
+    config = Config(**TP_FLEET, **group, logdir=logdir)
+    seen = {}
+
+    def on_step(run, step, metrics):
+      if step == TP_FLEET_STEPS:  # a collective, on every rank
+        layout = train_parallel.param_layout(run.agent, config, run.mesh)
+        seen['full'] = train_parallel.gather_state(run.state, layout)
+        seen['layout'] = layout
+
+    _zero_counts()
+    run = driver.train(config, max_steps=TP_FLEET_STEPS, device=device,
+                       stall_timeout_secs=300, on_step=on_step)
+    counts = _counts()
+    served = run.server.live_params()
+    full = seen['full']
+    # A timed save at {data 1, model 2}: the gather and rank 0's write.
+    checkpointer = checkpoint_lib.Checkpointer(
+        os.path.join(outdir, 'timed_save'), mesh=run.mesh,
+        registry=sharding.from_config(config), layout=seen['layout'])
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    checkpointer.save(run.state, force=True)
+    save_ms = 1e3 * (time.perf_counter() - t0)
+    result['fleet'] = dict(
+        counts=counts, update_steps=run.state.update_steps,
+        served_equal=all(torch.equal(served[k], full.params[k])
+                         for k in full.params),
+        params=_param_snapshot(full.params), save_ms=save_ms,
+        write_ms=(1e3 * checkpointer.last_save_secs
+                  if checkpointer.last_save_secs else None),
+        checkpoints=os.path.join(logdir, 'checkpoints'),
+        blocks={k: tuple(v.shape) for k, v in run.state.params.items()})
+    return result
+
+  _in_rank(rank, world, port, outdir, body)
+
+
+def _tp_violations(what, got, want, rtol, atol):
+  """(max |got - want|, [what] if any element exceeds atol + rtol *
+  |want| else [])."""
+  got = np.asarray(got, np.float64)
+  want = np.asarray(want, np.float64)
+  diff = np.abs(got - want)
+  bad = bool(np.any(diff > atol + rtol * np.abs(want)))
+  return float(diff.max(initial=0.0)), [what] if bad else []
+
+
+def _bit_equal(a, b):
+  return a.keys() == b.keys() and all(torch.equal(a[k], b[k]) for k in b)
+
+
+def _tp_check(mode, ranks, decay):
+  """One TP mode against the one-rank step (rank 0 ran it); returns
+  ({quantity: largest difference}, [failures]). Gated: every rank's
+  gathered states bit-equal to rank 0's; the losses of the 3 steps from
+  the seeded params at rtol 2e-4; each TP step against the one-rank
+  step from the same state (the TP run's before it), its loss and grad
+  norm at rtol 2e-4 and its params at rtol 5e-4 / atol 5e-6 (slice_dp's
+  gates); and after step 1 the squared gradient the step adds to
+  RMSProp's nu, (1 - decay) g^2 = nu - decay nu_before, within 1e-3 of
+  the one-rank step's in relative L2 norm, tensor by tensor.
+
+  The nu gate is normwise because the TP and one-rank steps reduce in
+  other orders and through other cuDNN algorithms (16 rows against 32,
+  half the output channels against all of them), and the elements
+  whose terms cancel differ elementwise by up to ~1e-3 of the tensor's
+  largest; a wrong scale, half a batch or a misplaced block moves the
+  norm by O(1). It holds after step 1, from the seeded params; after
+  the large steps 2 and 3 a few tensors' norms differ by ~1e-3 too
+  (PERF.md), so from step 2 on nu is reported, with the largest
+  elementwise difference, and the params, loss and grad norm stay
+  gated."""
+  free, forced = ranks[0][mode]['one']
+  failures, worst, rows = [], {}, []
+  for rank, r in enumerate(ranks):
+    got = r[mode]
+    if got['ran'] != mode or got['counts']['vtrace_sharded'] != TP_STEPS:
+      raise AssertionError(f'tp {mode} rank {rank}: ran {got["ran"]}, '
+                           f'launches {got["counts"]}')
+    for i, (st, ref) in enumerate(zip(got['states'],
+                                      ranks[0][mode]['states'])):
+      if not (_bit_equal(st['params'], ref['params']) and
+              _bit_equal(st['opt_state']['nu'], ref['opt_state']['nu'])):
+        failures.append(f'{mode} rank {rank} gathered state {i} differs '
+                        'from rank 0\'s')
+    _, bad = _tp_violations(f'{mode} rank {rank} losses from the seeded '
+                            'params', got['losses'], free, 2e-4, 0.0)
+    failures += bad
+    for i, (loss, norm, after) in enumerate(forced):
+      what = f'{mode} rank {rank} step {i + 1}'
+      tp_after = got['states'][i + 1]
+      step = {}
+      step['loss'], bad = _tp_violations(f'{what} loss', got['losses'][i],
+                                         loss, 2e-4, 0.0)
+      failures += bad
+      step['grad_norm'], bad = _tp_violations(
+          f'{what} grad_norm', got['norms'][i], norm, 2e-4, 0.0)
+      failures += bad
+      step['params'] = 0.0
+      for k, v in after['params'].items():
+        diff, bad = _tp_violations(f'{what} params {k}',
+                                   tp_after['params'][k].numpy(), v.numpy(),
+                                   5e-4, 5e-6)
+        step['params'] = max(step['params'], diff)
+        failures += bad
+      step['nu'] = step['nu_rel'] = 0.0
+      before = got['states'][i]['opt_state']['nu']
+      for k, v in after['opt_state']['nu'].items():
+        want = v.numpy().astype(np.float64)
+        have = tp_after['opt_state']['nu'][k].numpy().astype(np.float64)
+        added = want - decay * before[k].numpy().astype(np.float64)
+        diff = np.linalg.norm(have - want)
+        rel = diff / np.linalg.norm(added) if diff else 0.0
+        step['nu'] = max(step['nu'], float(np.abs(have - want).max()))
+        step['nu_rel'] = max(step['nu_rel'], float(rel))
+        if i == 0 and not rel <= 1e-3:
+          failures.append(f'{what} nu {k}: relative L2 {rel:.3e}')
+      rows.append((rank, i + 1, step))
+      for q, v in step.items():
+        worst[q] = max(worst.get(q, 0.0), v)
+  for rank, i, step in rows:
+    log(f'tp {mode} rank {rank} step {i} against the one-rank step from '
+        f'the same state: max |diff| ' +
+        ', '.join(f'{q} {v:.3e}' for q, v in step.items()))
+  return worst, failures
+
+
+def phase_tp():
+  """Tensor parallelism, 2 gloo ranks sharing the card as a {data 1,
+  model 2} mesh. The TP train step in `gathered` at the slice's widths
+  (T=100, global B=32, 16 rows per rank) and in `sharded` at T=20, B=8,
+  each for 3 steps from the seeded params, against the one-rank step on
+  the same batch on the card (`_tp_check`: the losses of the 3 steps,
+  and each step from the same state, params, nu, loss and grad norm).
+  The sharded mode's cut: through
+  gloo every blocked layer's output crosses the host twice (the
+  all-gather forward, the input gradient's all-reduce backward), and at
+  T=100, B=32 the first conv's output alone is 1.43 GB ([3232, 16, 72,
+  96] float32). Then a TP fleet (16 process-hosted actors per rank,
+  gathered, publishing every step) for 3 learner steps: K1b once per
+  step per rank, the server's snapshot bit-equal to the gathered params;
+  its tail save at {data 1, model 2} restored at {data 1, model 1}
+  bit-equal. Returns the TP fleet's launch counts, summed over the
+  ranks."""
+  with tempfile.TemporaryDirectory(prefix='chip_smoke_tp_') as outdir:
+    ranks = _run_ranks('tp', _tp_rank, outdir)
+    config = Config(**SLICE)
+    registry = sharding.from_config(config)
+    target = learner.make_train_state(_seeded_agent(config, 'cuda'), config)
+    checkpointer = checkpoint_lib.Checkpointer(
+        ranks[0]['fleet']['checkpoints'], registry=registry)
+    saved_mesh = checkpointer.saved_mesh_shape()
+    restored = checkpointer.restore_resharded(
+        target, registry, mesh_lib.Mesh(0, 1, torch.device('cuda')))
+    restore_ms = 1e3 * checkpointer.last_restore_secs
+  if saved_mesh != {'data': 1, 'model': 2}:
+    raise AssertionError(f'tp: the manifest\'s mesh {saved_mesh}')
+  fleet0 = ranks[0]['fleet']
+  if restored.update_steps != TP_FLEET_STEPS or not all(
+      torch.equal(v.cpu(), fleet0['params'][k])
+      for k, v in restored.params.items()):
+    raise AssertionError('tp: the TP checkpoint restored at {data 1, model '
+                         '1} differs from the gathered params')
+  worst, failures = {}, []
+  for mode in ('gathered', 'sharded'):
+    worst[mode], bad = _tp_check(mode, ranks, config.decay)
+    failures += bad
+  if failures:
+    raise AssertionError(f'tp: {len(failures)} comparison(s) out of '
+                         f'tolerance: {failures[:8]}')
+  counts = {name: sum(r['fleet']['counts'][name] for r in ranks)
+            for name in COUNTERS}
+  for rank, r in enumerate(ranks):
+    fleet = r['fleet']
+    if (fleet['update_steps'] != TP_FLEET_STEPS or
+        fleet['counts']['vtrace_sharded'] != TP_FLEET_STEPS or
+        fleet['counts']['vtrace']):
+      raise AssertionError(f'tp fleet rank {rank}: {fleet["update_steps"]} '
+                           f'steps, launches {fleet["counts"]}')
+    if not fleet['served_equal']:
+      raise AssertionError(f'tp fleet rank {rank}: the server\'s snapshot '
+                           'is not the gathered params')
+  cut = ranks[0]['fleet']['blocks']
+  log(f'tp: gathered step (T=100, B=32, 16 rows per rank) '
+      f'{ranks[0]["gathered"]["ms"]:.2f} / {ranks[1]["gathered"]["ms"]:.2f} '
+      f'ms per step (rank 0 / 1, median of steps 2-{TP_STEPS}); sharded '
+      f'step (T=20, B=8) {ranks[0]["sharded"]["ms"]:.2f} / '
+      f'{ranks[1]["sharded"]["ms"]:.2f} ms; losses '
+      f'{ranks[0]["gathered"]["losses"]} / {ranks[0]["sharded"]["losses"]}; '
+      f'largest |diff| against the one-rank step from the same state, '
+      f'over the steps and ranks: {worst}')
+  log(f'tp fleet: {TP_FLEET_STEPS} learner steps, kernel launches {counts}; '
+      f'the server serves the gathered params; blocks at rest, e.g. '
+      f'core.weight_ih {cut["core.weight_ih"]}, torso.linear.weight '
+      f'{cut["torso.linear.weight"]}; save at {{data 1, model 2}} '
+      f'{fleet0["save_ms"]:.1f} ms (gather + write; the write '
+      f'{fleet0["write_ms"]:.1f} ms), restore at {{data 1, model 1}} '
+      f'{restore_ms:.1f} ms, bit-equal')
+  return counts
+
 
 def main():
   # Before any CUDA call: the fleet's env processes fork from this
@@ -1414,6 +2035,10 @@ def run_phases():
   paths['resume_anakin'] = timed('resume_anakin', phase_resume_anakin)
   paths['rollback_fleet'] = timed('rollback_fleet', phase_rollback_fleet)
   timed('drain_fleet', phase_drain_fleet)
+  paths['dp_fleet'] = timed('dp_fleet', phase_dp_fleet)
+  timed('cli_fleet_dp', phase_cli_fleet_dp)
+  paths['unroll_fleet'] = timed('unroll_fleet', phase_unroll_fleet)
+  paths['tp'] = timed('tp', phase_tp)
   log('phases: ' + ', '.join(f'{n} {s:.1f} s' for n, s in phases))
   launches = {name: {path: counts[name] for path, counts in paths.items()}
               for name in COUNTERS}

@@ -36,9 +36,20 @@ the same step: the others wait for rank 0's commit, take its save
 decision (`group_should_save`), and restore the step rank 0 chose. This
 needs a checkpoint directory that every rank can read.
 
-Not here yet: the sharding manifest and the resharding restore (ROADMAP
-A5b.3), `restore_latest_params` for evaluation (A7.1) and the telemetry
-gauges (A7.4).
+Files hold full tensors, as Orbax holds global arrays. Under tensor
+parallelism (a `layout`, parallel/sharding.ParamLayout, that cuts
+parameters over the mesh's model axis) the save first gathers every
+rank's blocks over the model group, and a restore slices this rank's
+blocks out of the full tensors, so a checkpoint restores onto any mesh.
+With a `registry` each save also records the sharding manifest
+(`SHARDING_<step>.json`: step, rule set, mesh, {JAX param path: spec}
+and the table's digest), which the driver's elastic restore gate reads
+(`saved_mesh_shape`) and a restore compares with what this run resolves
+(a drift warning). `restore_resharded` is the strict cross-topology
+restore.
+
+Not here yet: `restore_latest_params` for evaluation (A7.1) and the
+telemetry gauges (A7.4).
 """
 
 import json
@@ -54,6 +65,8 @@ from scalable_agent_tpu_torch import integrity
 from scalable_agent_tpu_torch import learner as learner_lib
 from scalable_agent_tpu_torch.learner import TrainState
 from scalable_agent_tpu_torch.parallel import distributed
+from scalable_agent_tpu_torch.parallel import sharding
+from scalable_agent_tpu_torch.parallel import train_parallel
 from scalable_agent_tpu_torch.runtime import faults as faults_lib
 
 log = logging.getLogger('scalable_agent_tpu_torch')
@@ -194,16 +207,24 @@ class Checkpointer:
       (config.ckpt_digests).
     mesh: the run's mesh under a process group (parallel/mesh.py); rank
       0 writes, every rank restores the step rank 0 chose.
+    registry: the run's sharding registry: each save records the
+      sharding manifest.
+    layout: the parameters' layout over the mesh's model axis
+      (sharding.ParamLayout); the state's tensors are this rank's blocks.
   """
 
   def __init__(self, directory: str, max_to_keep: int = 3,
                save_interval_secs: float = 600.0,
-               verify_digests: bool = True, mesh=None):
+               verify_digests: bool = True, mesh=None, registry=None,
+               layout: Optional[sharding.ParamLayout] = None):
     self._directory = os.path.abspath(directory)
-    self._group = mesh if mesh is not None and mesh.size > 1 else None
+    self._group = mesh if mesh is not None and mesh.world_size > 1 else None
+    self._mesh = mesh
+    self._registry = registry
+    self._layout = layout if layout is not None and layout.cut_any else None
     # Rank 0 writes; so under a group without a mesh (ranks training
     # replicas of one state), the others only read.
-    self._primary = (mesh.rank if mesh is not None
+    self._primary = (mesh.world_rank if mesh is not None
                      else distributed.rank()) == 0
     if self._primary:
       os.makedirs(self._directory, exist_ok=True)
@@ -275,6 +296,8 @@ class Checkpointer:
     its result."""
     if step is None:
       step = int(state.update_steps)
+    if self._layout is not None:
+      state = train_parallel.gather_state(state, self._layout)
     saved = self._save_local(state, step, force) if self._primary else False
     return bool(self._broadcast(int(saved)))
 
@@ -308,6 +331,7 @@ class Checkpointer:
                   len(damaged))
       return True
     digests = self._record_digests(step)
+    self._record_sharding_manifest(step, state)
     self._mark_last_good(step, digests)
     self.last_save_secs = time.perf_counter() - t0
     log.info('checkpoint step %d saved: %d bytes in %.1f ms', step, nbytes,
@@ -382,15 +406,92 @@ class Checkpointer:
       return None
 
   def _prune_digests(self) -> None:
-    """Drop the ledgers of steps no longer retained."""
+    """Drop the digest and sharding ledgers of steps no longer
+    retained."""
     retained = {str(s) for s in self.all_steps()}
     for name in os.listdir(self._directory):
-      if (name.startswith('DIGEST_') and name.endswith('.json')
-          and name[len('DIGEST_'):-len('.json')] not in retained):
-        try:
-          os.remove(os.path.join(self._directory, name))
-        except OSError:
-          pass
+      for prefix in ('DIGEST_', 'SHARDING_'):
+        if (name.startswith(prefix) and name.endswith('.json')
+            and name[len(prefix):-len('.json')] not in retained):
+          try:
+            os.remove(os.path.join(self._directory, name))
+          except OSError:
+            pass
+
+  # --- the sharding manifest ---
+
+  def _sharding_path(self, step: int) -> str:
+    return os.path.join(self._directory, f'SHARDING_{int(step)}.json')
+
+  def _record_sharding_manifest(self, step: int, state: TrainState) -> None:
+    """Record the registry's {JAX param path: spec} view of this save
+    (atomic). Best-effort like the digest ledger: a failure costs this
+    step's drift detection only."""
+    if self._registry is None:
+      return
+    try:
+      specs = self._registry.describe(state.params, self._mesh)
+      payload = {
+          'step': int(step),
+          'rule_set': self._registry.rule_set,
+          'mesh': (dict(self._mesh.shape) if self._mesh is not None
+                   else None),
+          'specs': specs,
+          'digest': integrity.digest_record(
+              integrity.spec_table_digest(specs)),
+      }
+      tmp = self._sharding_path(step) + '.tmp'
+      with open(tmp, 'w') as f:
+        json.dump(payload, f, indent=1)
+      os.replace(tmp, self._sharding_path(step))
+    except (OSError, TypeError, ValueError):
+      log.exception('could not record sharding manifest for step %d '
+                    '(resharding drift detection lost for this step)', step)
+
+  def read_sharding_manifest(self, step: int) -> Optional[Dict]:
+    """The recorded sharding manifest of a retained step, or None."""
+    try:
+      with open(self._sharding_path(step)) as f:
+        return json.load(f)
+    except (OSError, ValueError):
+      return None
+
+  def saved_mesh_shape(self) -> Optional[Dict[str, int]]:
+    """The mesh the newest retained step's manifest recorded, or None
+    (no steps, no manifest, or a save without a mesh)."""
+    steps = self.all_steps()
+    manifest = self.read_sharding_manifest(max(steps)) if steps else None
+    if not manifest or not isinstance(manifest.get('mesh'), dict):
+      return None
+    return {str(k): int(v) for k, v in manifest['mesh'].items()}
+
+  def _warn_sharding_drift(self, step: int, params) -> None:
+    """Warn when the restored step's manifest differs from what this
+    run's registry resolves for the saved tensors (`params`, full): the
+    step was laid out under other rules or another mesh. The restore is
+    still right (the files hold full tensors)."""
+    if self._registry is None:
+      return
+    manifest = self.read_sharding_manifest(step)
+    if manifest is None:
+      return
+    try:
+      current = self._registry.describe(params, self._mesh)
+    except Exception:
+      log.exception('sharding drift check failed for step %d', step)
+      return
+    recorded = manifest.get('specs', {})
+    if recorded == current:
+      return
+    changed = sorted(set(recorded.items()) ^ set(current.items()))
+    log.warning(
+        'checkpoint step %d was saved under sharding rule set %r (mesh %s) '
+        'but this run resolves %r — %d spec(s) differ (first: %s); the '
+        'full tensors were resliced onto the live layout, training '
+        'continues on it', step, manifest.get('rule_set'),
+        manifest.get('mesh'), self._registry.rule_set,
+        len(changed) // 2 + len(changed) % 2,
+        changed[0] if changed else '?')
 
   def verify_step_digests(self, step: int) -> Optional[bool]:
     """Re-digest a retained step against its ledger. True: verified;
@@ -493,12 +594,33 @@ class Checkpointer:
           f'checkpoint step {step}: its payload could not be loaded '
           f'({type(e).__name__}); the file is damaged or partially '
           'written') from e
+    full_params = payload['params']
+    if self._layout is not None:
+      payload = self._localize(payload)
+      saved = _specs(payload)
     diff = _structure_diff(_state_specs(target), saved)
     if diff:
       raise ValueError(
           f'the restore target and the saved tree structures do not '
           f'match ({len(diff)} difference(s); first: {"; ".join(diff[:3])})')
+    self._warn_sharding_drift(step, full_params)
     return payload
+
+  def _localize(self, payload: Dict) -> Dict:
+    """The payload with this rank's blocks of the params and moments in
+    place of the full tensors (a tensor the layout does not know is
+    kept whole, and the structure check then names it)."""
+    layout = self._layout
+
+    def local(tree):
+      return {k: layout.local(k, v) if k in layout.cuts else v
+              for k, v in tree.items()}
+
+    opt = payload['opt_state']
+    return dict(payload, params=local(payload['params']),
+                opt_state=dict(opt, nu=local(opt['nu']),
+                               trace=None if opt['trace'] is None
+                               else local(opt['trace'])))
 
   def _restore_one(self, step: int, target: TrainState) -> TrainState:
     self.verify_step_digests(step)
@@ -613,5 +735,34 @@ class Checkpointer:
     except Exception as e:
       _wrap_structure_error(e, self._directory, step)
 
+  def restore_resharded(self, target: TrainState, registry, mesh,
+                        strict: bool = True) -> Optional[TrainState]:
+    """Restore the newest restorable step onto the layout `registry`
+    resolves for `mesh` (the cross-topology restore): that layout slices
+    every restore from now on. `strict` refuses with ShardingLayoutError
+    when the registry resolves a cut `mesh` cannot honor for a leaf the
+    save had not recorded as replicated (the manifest's table); without
+    it the divisibility guard's replicated fallback is accepted."""
+    full_shapes = (self._layout.full_shapes if self._layout is not None
+                   else {k: tuple(v.shape) for k, v in target.params.items()})
+    if strict:
+      steps = self.all_steps()
+      manifest = self.read_sharding_manifest(max(steps)) if steps else None
+      registry.check_layout(full_shapes, mesh, what='param',
+                            saved_specs=manifest.get('specs')
+                            if manifest else None)
+    layout = registry_restore_targets(full_shapes, registry, mesh)
+    self._layout = layout if layout.cut_any else None
+    return self.restore_latest(target)
+
   def close(self):
     """Nothing runs in the background: saves complete inside `save`."""
+
+
+def registry_restore_targets(full_shapes, registry, mesh
+                             ) -> sharding.ParamLayout:
+  """The restore targets the registry resolves for `mesh`: the
+  parameters' layout (sharding.ParamLayout of the full shapes,
+  {name: shape}), by which a restore slices this rank's blocks out of
+  the full tensors on disk. Fed a new mesh, it is the resharding."""
+  return sharding.ParamLayout(registry, full_shapes, mesh)

@@ -59,7 +59,14 @@ class Config:
   num_actions: Optional[int] = None       # backend default when None
   episode_length: int = 100               # bandit episode length
   torso: str = 'deep'                     # deep | shallow
-  model_parallelism: int = 1              # TP width: 1 (TP: ROADMAP A5b)
+  # Tensor parallelism (parallel/sharding.py, train_parallel.py): the
+  # mesh's model-axis width; how the TP step computes (auto: gathered on
+  # every device, where JAX takes sharded off the CPU; see
+  # train_parallel.resolve_tp_compute); the partition-rule set (auto: megatron
+  # when model_parallelism > 1, replicated otherwise).
+  model_parallelism: int = 1
+  tp_compute: str = 'auto'                # auto | sharded | gathered
+  sharding_rules: str = 'auto'            # auto | megatron | replicated
   # The JAX package's LSTM time-scan unroll factor (an XLA loop knob).
   # The port's core is an eager loop: it accepts the field so configs
   # carry across, and ignores it.
@@ -91,7 +98,9 @@ class Config:
   # Trajectory buffer capacity in batches, and staged batches in flight.
   queue_capacity_batches: int = 1
   staging_depth: int = 2
-  staging_mode: str = 'batch'             # batch (unroll: ROADMAP A5b)
+  # batch: stack each batch on the host, copy it at once; unroll: copy
+  # each unroll as it arrives into a device arena (ring_buffer.py).
+  staging_mode: str = 'batch'             # batch | unroll
   # Inference batching. min_batch 0 = AUTO: the merge floor is the fleet
   # size, so every call carries the whole fleet; timeout_ms bounds the
   # wait when an actor is busy elsewhere.
@@ -139,6 +148,13 @@ class Config:
   health_max_rollbacks: int = 3           # then halt
   health_loss_explosion_factor: float = 100.0
   health_sigma_divergence_factor: float = 10.0
+  # The SDC sentinel (train_parallel.make_sdc_fingerprint_fn): per-replica
+  # param fingerprints, all-gathered over the data axis and read one step
+  # late by the health ladder. Pure data parallelism with >= 2 replicas
+  # only. sdc_allgather=False turns it off under a process group, as in
+  # the JAX package, where the gather is what lets a process read it.
+  sdc_check: bool = True
+  sdc_allgather: bool = True
   curriculum: str = 'uniform'
 
   def __post_init__(self):
@@ -160,9 +176,6 @@ class Config:
     if self.curriculum != 'uniform':
       later.append(f'curriculum={self.curriculum!r} (population: ROADMAP '
                    'Queue A, population slice)')
-    if self.model_parallelism != 1:
-      later.append(f'model_parallelism={self.model_parallelism} (tensor '
-                   'parallelism: ROADMAP A5b)')
     if self.torso not in ('deep', 'shallow'):
       later.append(f'torso={self.torso!r} (the port has deep and '
                    'shallow; ROADMAP Queue A)')
@@ -228,8 +241,6 @@ def validate_fleet(config: Config) -> None:
     raise ValueError(f"publish_codec must be 'bf16', 'f32' or 'int8', "
                      f'got {config.publish_codec!r}')
   later = []
-  if config.staging_mode == 'unroll':
-    later.append('staging_mode=unroll (ROADMAP A5b)')
   if config.inference_state_cache:
     later.append('inference_state_cache=True (ROADMAP A7)')
   if config.inference_admission != 'block':
@@ -254,16 +265,37 @@ def resolve_process_id(config: Config) -> int:
   return max(config.process_id, 0)
 
 
-def validate_distributed(config: Config) -> List[str]:
-  """The hard checks of the JAX package's `validate_distributed` on the
-  process-group fields: raises ValueError on an error, returns the
-  warnings. Its multi-process cross-links concern settings the port does
-  not have (SDC, TP, the hybrid filler); its refusal of multi-host
-  Anakin is the CLI's (experiment.py), where a rank is a device."""
+def validate_distributed(config: Config,
+                         live_process_count: int = 1) -> List[str]:
+  """The JAX package's `validate_distributed`: raises ValueError on an
+  error, returns the warnings. The checks of the process-group fields
+  read the declared topology; the multi-process cross-links read the
+  larger of it and `live_process_count` (the joined group's size). Its
+  refusal of multi-process Anakin is not here: a rank of the port is a
+  device, and the Anakin runtime spans the devices of one host (the CLI
+  refuses a group across nodes, experiment.py)."""
   warnings = []
   if config.num_processes < 1:
     raise ValueError(f'num_processes must be >= 1, got '
                      f'{config.num_processes}')
+  if config.tp_compute not in ('auto', 'sharded', 'gathered'):
+    raise ValueError(f'tp_compute must be auto|sharded|gathered, got '
+                     f'{config.tp_compute!r}')
+  from scalable_agent_tpu_torch.parallel import sharding
+  if (config.sharding_rules != 'auto'
+      and config.sharding_rules not in sharding.RULE_SETS):
+    raise ValueError(
+        f'sharding_rules must be auto|'
+        f'{"|".join(sorted(sharding.RULE_SETS))}, got '
+        f'{config.sharding_rules!r}')
+  if (config.sharding_rules == 'replicated'
+      and config.model_parallelism > 1):
+    warnings.append(
+        'sharding_rules=replicated with model_parallelism=%d: the '
+        'model axis exists but no rule cuts over it — every param '
+        'replicates across it (TP memory win forfeited); use '
+        'sharding_rules=auto or =megatron to shard'
+        % config.model_parallelism)
   if config.coordinator_address:
     host, sep, port = config.coordinator_address.rpartition(':')
     if not sep or not host or not port.isdigit():
@@ -288,4 +320,33 @@ def validate_distributed(config: Config) -> List[str]:
     warnings.append(
         'process_id=%d without coordinator_address: nothing will join a '
         'process group' % config.process_id)
+  if max(config.num_processes, live_process_count) <= 1:
+    return warnings
+  if config.sdc_check and not config.sdc_allgather:
+    warnings.append(
+        'sdc_check=True with sdc_allgather=False on a multi-process '
+        'topology: the per-replica fingerprint readback needs the '
+        'all-gather, so the SDC sentinel will be silently OFF — enable '
+        'sdc_allgather or drop sdc_check')
+  if config.model_parallelism > 1:
+    warnings.append(
+        'model_parallelism=%d on a multi-process topology: the model '
+        'axis crosses processes, so the batch shards over BOTH mesh axes '
+        '(sharding.shard_batch_over_model) — batch_size must divide the '
+        'full rank count, param publishes gather a full copy over the '
+        'model group, and staging_mode=unroll falls back to batch'
+        % config.model_parallelism)
+  return warnings
+
+
+def validate_integrity(config: Config) -> List[str]:
+  """The JAX package's `validate_integrity` for the fields the port has:
+  no hard errors, the warning of a half-enabled SDC sentinel."""
+  warnings = []
+  if config.sdc_check and not config.health_watchdog:
+    warnings.append(
+        'sdc_check=True with health_watchdog=False: replica '
+        'fingerprint mismatches would be computed but never escalated '
+        '(no monitor, no rollback ladder) — enable the watchdog or '
+        'disable the SDC sentinel')
   return warnings

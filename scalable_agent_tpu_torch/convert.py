@@ -1,4 +1,4 @@
-"""Flax parameters -> the port's `state_dict`.
+"""Flax parameters <-> the port's `state_dict`.
 
 `params_from_jax` takes the JAX agent's parameter tree as nested dicts of
 numpy arrays (`jax.device_get(params)` does that) and returns a state_dict
@@ -11,10 +11,15 @@ that `ImpalaAgent.load_state_dict` accepts:
   `weight_hh = stack(hi, hf, hg, ho).T`, `bias_hh` the hidden kernels'
   biases in the same gate order, `bias_ih = 0` (Flax has one bias).
 
+`jax_leaves` is the inverse, name by name: the JAX leaves (paths,
+shapes, dim order) a port parameter holds. The sharding registry matches
+JAX's rules against those paths. Both directions walk one table of the
+torso's modules (`_torso_modules`).
+
 This module imports numpy and torch only; the tests hand it the tree.
 """
 
-from typing import Dict, Mapping, Tuple
+from typing import Dict, Iterator, List, Mapping, NamedTuple, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -43,25 +48,40 @@ def _dense(prefix: str, p: Mapping, out: Dict):
   out[prefix + '.bias'] = _tensor(p['bias'])
 
 
+def _torso_modules(deep: bool, num_sections: int, per_section: int
+                   ) -> Iterator[Tuple[str, str]]:
+  """(port module, JAX module path inside the torso) of every torso
+  layer: the deep torso's section convs and the two convs of each
+  residual block (JAX numbers the blocks across sections), or the
+  shallow torso's two convs; then the Dense."""
+  if deep:
+    for s in range(num_sections):
+      yield f'torso.sections.{s}.conv', f'Conv_{s}'
+      for j in range(per_section):
+        block = f'ResidualBlock_{s * per_section + j}'
+        prefix = f'torso.sections.{s}.blocks.{j}'
+        yield prefix + '.conv0', block + '/Conv_0'
+        yield prefix + '.conv1', block + '/Conv_1'
+  else:
+    yield 'torso.conv0', 'Conv_0'
+    yield 'torso.conv1', 'Conv_1'
+  yield 'torso.linear', 'Dense_0'
+
+
 def _torso(name: str, p: Mapping, out: Dict):
   if name.startswith('DeepResNetTorso'):
     num_sections = sum(1 for k in p if k.startswith('Conv_'))
-    blocks = sorted((k for k in p if k.startswith('ResidualBlock_')),
-                    key=lambda k: int(k.split('_')[-1]))
-    per_section = len(blocks) // num_sections
-    for s in range(num_sections):
-      _conv(f'torso.sections.{s}.conv', p[f'Conv_{s}'], out)
-      for j in range(per_section):
-        block = p[f'ResidualBlock_{s * per_section + j}']
-        prefix = f'torso.sections.{s}.blocks.{j}'
-        _conv(prefix + '.conv0', block['Conv_0'], out)
-        _conv(prefix + '.conv1', block['Conv_1'], out)
+    blocks = sum(1 for k in p if k.startswith('ResidualBlock_'))
+    modules = _torso_modules(True, num_sections, blocks // num_sections)
   elif name.startswith('ShallowTorso'):
-    _conv('torso.conv0', p['Conv_0'], out)
-    _conv('torso.conv1', p['Conv_1'], out)
+    modules = _torso_modules(False, 0, 0)
   else:
     raise ValueError(f'unknown torso in the Flax tree: {name!r}')
-  _dense('torso.linear', p['Dense_0'], out)
+  for prefix, path in modules:
+    leaf = p
+    for part in path.split('/'):
+      leaf = leaf[part]
+    (_dense if prefix == 'torso.linear' else _conv)(prefix, leaf, out)
 
 
 def params_from_jax(flax_params: Mapping) -> Dict[str, torch.Tensor]:
@@ -85,4 +105,71 @@ def params_from_jax(flax_params: Mapping) -> Dict[str, torch.Tensor]:
 
   _dense('policy_logits', tree['policy_logits'], out)
   _dense('baseline', tree['baseline'], out)
+  return out
+
+
+# --- the inverse: port names -> JAX leaves -------------------------------
+
+class JaxLeaf(NamedTuple):
+  path: str                  # the JAX parameter path
+  shape: Tuple[int, ...]     # its shape in JAX's layout
+  dims: Tuple[int, ...]      # dims[j]: the port dim of JAX dim j
+
+
+_CELL = 'params/_ResetCore_0/OptimizedLSTMCell_0'
+
+
+def _module_paths(names: Sequence[str]) -> Dict[str, str]:
+  """{port module: JAX module path} of a model's parameter names."""
+  deep = any(n.startswith('torso.sections.') for n in names)
+  sections = {int(n.split('.')[2]) for n in names
+              if n.startswith('torso.sections.')}
+  blocks = {int(n.split('.')[4]) for n in names
+            if n.startswith('torso.sections.') and '.blocks.' in n}
+  torso = 'params/' + ('DeepResNetTorso_0' if deep else 'ShallowTorso_0')
+  out = {prefix: f'{torso}/{path}' for prefix, path in _torso_modules(
+      deep, len(sections), len(blocks))}
+  out.update(policy_logits='params/policy_logits',
+             baseline='params/baseline')
+  return out
+
+
+def jax_leaves(name: str, shape: Sequence[int], names: Sequence[str]
+               ) -> Tuple[List[JaxLeaf], int]:
+  """The JAX leaves the port parameter `name` of `shape` holds (`names`:
+  all of the model's parameter names) and the number of gate blocks its
+  dim 0 fuses (4 for the LSTM, else 1). A name outside the agent maps
+  to the path with '.' as '/' and the same layout."""
+  shape = tuple(int(n) for n in shape)
+  if name.startswith('core.'):
+    kind = name.split('.')[1]
+    hidden = shape[0] // 4
+    if kind == 'bias_hh':
+      return [JaxLeaf(f'{_CELL}/h{g}/bias', (hidden,), (0,))
+              for g in _GATES], 4
+    prefix = 'i' if kind == 'weight_ih' else 'h'
+    return [JaxLeaf(f'{_CELL}/{prefix}{g}/kernel', (shape[1], hidden),
+                    (1, 0)) for g in _GATES], 4
+  module, _, leaf = name.rpartition('.')
+  path = _module_paths(names).get(module)
+  if path is None:
+    return [JaxLeaf(name.replace('.', '/'), shape,
+                    tuple(range(len(shape))))], 1
+  if leaf == 'bias':
+    return [JaxLeaf(f'{path}/bias', shape, (0,))], 1
+  if len(shape) == 4:   # OIHW -> HWIO
+    return [JaxLeaf(f'{path}/kernel', (shape[2], shape[3], shape[1],
+                                        shape[0]), (2, 3, 1, 0))], 1
+  return [JaxLeaf(f'{path}/kernel', (shape[1], shape[0]), (1, 0))], 1
+
+
+def jax_view(shapes: Mapping) -> Dict[str, Tuple[int, ...]]:
+  """{JAX path: JAX shape} of a port parameter dict ({name: tensor or
+  shape})."""
+  names = list(shapes)
+  out = {}
+  for name, value in shapes.items():
+    for leaf in jax_leaves(name, tuple(getattr(value, 'shape', value)),
+                           names)[0]:
+      out[leaf.path] = leaf.shape
   return out

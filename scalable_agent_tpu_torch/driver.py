@@ -36,11 +36,14 @@ from scalable_agent_tpu_torch import health as health_lib
 from scalable_agent_tpu_torch import learner as learner_lib
 from scalable_agent_tpu_torch import observability
 from scalable_agent_tpu_torch.config import (COMPUTE_DTYPES, Config,
-                                             validate_fleet)
+                                             validate_fleet,
+                                             validate_integrity)
 from scalable_agent_tpu_torch.envs import factory
 from scalable_agent_tpu_torch.models import ImpalaAgent, init_params
 from scalable_agent_tpu_torch.parallel import distributed
 from scalable_agent_tpu_torch.parallel import mesh as mesh_lib
+from scalable_agent_tpu_torch.parallel import sharding
+from scalable_agent_tpu_torch.parallel import train_parallel
 from scalable_agent_tpu_torch.runtime import faults as faults_lib
 from scalable_agent_tpu_torch.runtime import ring_buffer
 from scalable_agent_tpu_torch.runtime.actor import Actor, batch_unrolls
@@ -141,30 +144,38 @@ def build_agent(config: Config, num_actions: int) -> ImpalaAgent:
 
 
 def choose_mesh(config: Config, device):
-  """A mesh over the joined group's ranks, on this rank's `device`, when
-  the batch can shard; None means one rank's plain training (the
-  reference's single-machine mode).
+  """A [data, model] mesh over the joined group's ranks, on this rank's
+  `device`, when the batch can shard; None means one rank's plain
+  training (the reference's single-machine mode).
 
-  As in the JAX driver: one rank (and model_parallelism 1, the only
-  width the port has) gives None; a batch the ranks do not divide warns
+  As in the JAX driver: one rank and model_parallelism 1 give None; a
+  model_parallelism that does not divide the ranks raises; the batch
+  must divide the batch-sharding width (every rank when it shards over
+  the model axis too, else the data axis), and one that does not warns
   and gives None on one host, where every rank then trains the same
   replica, and raises across hosts (as the group's declared topology
   says), where the replicas would never meet."""
   ranks = distributed.world_size()
-  if ranks == 1 and config.model_parallelism == 1:
+  width = config.model_parallelism
+  if ranks == 1 and width == 1:
     return None
-  if config.batch_size % ranks:
+  if width > ranks or ranks % width:
+    raise ValueError(f'model_parallelism={width} does not divide the '
+                     f'device count {ranks}')
+  batch_width = (ranks if sharding.shard_batch_over_model(config)
+                 else ranks // width)
+  if config.batch_size % batch_width:
     topology = distributed.declared_topology(config)
     if topology is not None and topology.num_nodes > 1:
       raise ValueError(
           f'batch_size={config.batch_size} not divisible by the '
-          f'{ranks} ranks; the unsharded fallback is only safe on one '
-          'host')
+          f'{batch_width} ranks; the unsharded fallback is only safe on '
+          'one host')
     log.warning('batch_size %d not divisible by the %d ranks; falling '
                 'back to unsharded training on each rank',
-                config.batch_size, ranks)
+                config.batch_size, batch_width)
     return None
-  return mesh_lib.make_mesh(device, model_parallelism=config.model_parallelism)
+  return mesh_lib.make_mesh(device, model_parallelism=width)
 
 
 def make_fleet(config: Config, policy, buffer, levels: List[str],
@@ -199,12 +210,13 @@ def make_fleet(config: Config, policy, buffer, levels: List[str],
 
 
 class TrainRun:
-  """What a training run leaves: the final TrainState, the agent, the
-  live objects (closed when train() returns) and their final stats, the
-  checkpointer and the health monitor, and per learner step the host
-  time it ended at and the prefetcher's cumulative blocked-get seconds
-  then (`step_log`). The Anakin runtime's has no server, fleet,
-  prefetcher or buffer, and holds its final AnakinCarry (`carry`)."""
+  """What a training run leaves: the final TrainState (under tensor
+  parallelism, this rank's blocks), the agent, the live objects (closed
+  when train() returns) and their final stats, the checkpointer, the
+  health monitor and the mesh, and per learner step the host time it
+  ended at and the prefetcher's cumulative blocked-get seconds then
+  (`step_log`). The Anakin runtime's has no server, fleet, prefetcher or
+  buffer, and holds its final AnakinCarry (`carry`)."""
 
   def __init__(self, config, agent=None, state=None, server=None,
                fleet=None, prefetcher=None, buffer=None):
@@ -217,6 +229,7 @@ class TrainRun:
     self.buffer = buffer
     self.checkpointer: Optional[checkpoint_lib.Checkpointer] = None
     self.health: Optional[health_lib.HealthMonitor] = None
+    self.mesh = None
     self.carry = None
     self.stats: Dict[str, Dict] = {}
     self.step_log: List[Dict[str, float]] = []
@@ -246,19 +259,38 @@ class _HealthLadder:
   revert), and halts with a bundle on HALT or when nothing is
   restorable. `healthy` is False while a bad burst is open: no save
   lands then, since a save would advance LAST_GOOD onto the diverged
-  state."""
+  state.
 
-  def __init__(self, config: Config, monitor, checkpointer, incidents):
+  With `sdc` (the (fingerprint_fn, replicas) of
+  train_parallel.make_sdc_fingerprint_fn) each check also all-gathers
+  the replicas' param fingerprints, read with the sentinels one step
+  late into `sdc_replica_mismatch`; the `replica_divergence` fault fires
+  there, one event per check, perturbing one replica's probe lane."""
+
+  def __init__(self, config: Config, monitor, checkpointer, incidents,
+               sdc=None):
     self._config = config
     self.monitor = monitor
     self._checkpointer = checkpointer
     self._incidents = incidents
+    self._sdc = sdc
     self._pending = None
     self.bad_count_in_burst = 0
 
   @property
   def healthy(self) -> bool:
     return self.monitor is None or self.bad_count_in_burst == 0
+
+  def _fingerprints(self, step_now: int, state):
+    fingerprint_fn, replicas = self._sdc
+    probe = np.zeros((replicas,), np.uint32)
+    fault = faults_lib.fire('replica_divergence')
+    if fault is not None:
+      victim = fault.index % replicas
+      probe[victim] = np.uint32(1 + (fault.index % 1000))
+      self._incidents.event('fault_replica_divergence', step=step_now,
+                            replica=victim)
+    return fingerprint_fn(state.params, probe)
 
   def after_step(self, steps_done: int, step_now: int, metrics, state):
     """Stash this step's sentinels and judge the previous step's; returns
@@ -268,12 +300,26 @@ class _HealthLadder:
       return state, None
     previous, self._pending = self._pending, None
     if steps_done % self._config.health_check_every_steps == 0:
-      self._pending = (step_now, health_lib.stack_sentinels(metrics))
+      fingerprints = (self._fingerprints(step_now, state)
+                      if self._sdc is not None else None)
+      self._pending = (step_now, health_lib.stack_sentinels(metrics),
+                       fingerprints)
     if previous is None:
       return state, None
-    obs_step, handle = previous
+    obs_step, handle, fingerprints = previous
     monitor = self.monitor
-    verdict = monitor.observe_values(obs_step, health_lib.read_handle(handle))
+    values = health_lib.read_handle(handle)
+    if fingerprints is not None:
+      mismatch, fps = health_lib.read_fingerprints(fingerprints)
+      values['sdc_replica_mismatch'] = mismatch
+      if mismatch:
+        self._incidents.event('sdc_replica_mismatch', step=obs_step,
+                              fingerprints=fps)
+        log.error('SDC sentinel: per-replica param fingerprints DISAGREE at '
+                  'step %d: %s — deterministic compute violated (suspect '
+                  'the card or its memory)', obs_step,
+                  [f'{v:08x}' for v in fps])
+    verdict = monitor.observe_values(obs_step, values)
     # Bursts are judged by verdicts, not the monitor's consecutive count,
     # which a ROLLBACK resets.
     self.bad_count_in_burst += (verdict != health_lib.OK)
@@ -319,18 +365,23 @@ class _HealthLadder:
       stats = self.monitor.stats()
       writer.scalars({k: stats[k] for k in ('skipped_steps', 'flagged_steps',
                                             'rollbacks', 'halts')}, step)
+    if self._sdc is not None and self.monitor is not None:
+      writer.scalar('sdc_replica_mismatches', self.monitor.sdc_mismatches,
+                    step)
     writer.scalars({
         'checkpoint_save_errors': self._checkpointer.save_errors,
         'checkpoint_restore_fallbacks': self._checkpointer.restore_fallbacks,
         'ckpt_digest_fallbacks': self._checkpointer.digest_fallbacks}, step)
 
 
-def make_checkpointer(config: Config, mesh=None):
+def make_checkpointer(config: Config, mesh=None, registry=None,
+                      layout=None):
   """The run's Checkpointer, at `<logdir>/checkpoints`."""
   return checkpoint_lib.Checkpointer(
       os.path.join(config.logdir, 'checkpoints'),
       save_interval_secs=config.checkpoint_secs,
-      verify_digests=config.ckpt_digests, mesh=mesh)
+      verify_digests=config.ckpt_digests, mesh=mesh, registry=registry,
+      layout=layout)
 
 
 def restore_at_start(checkpointer, state):
@@ -343,9 +394,28 @@ def restore_at_start(checkpointer, state):
   return restored
 
 
-def _final_save(checkpointer, ladder, state):
+def _periodic_save(config: Config, checkpointer, ladder, state,
+                   steps_done: int, grouped: bool) -> None:
+  """The loops' periodic save, withheld while a bad burst is open (it
+  would advance LAST_GOOD onto the diverged state and evict the healthy
+  steps). Under a group the decision is rank 0's clock, checked every
+  checkpoint_check_every_steps; the verdicts, so `healthy`, are the
+  same on every rank."""
+  if not grouped:
+    if ladder.healthy:
+      checkpointer.maybe_save(state)
+  elif steps_done % config.checkpoint_check_every_steps == 0:
+    decision = checkpointer.group_should_save() and ladder.healthy
+    checkpointer.maybe_save(state, decision=decision)
+
+
+def _final_save(checkpointer, ladder, state, grouped: bool = False):
   """The tail save: forced, unless training was unhealthy at exit (the
-  retained last good step covers the resume)."""
+  retained last good step covers the resume), or, under a group, an
+  exception is on its way out: the save is a collective, only this rank
+  is here, and waiting for the others would hang."""
+  if grouped and sys.exc_info()[0] is not None:
+    return
   if not ladder.healthy:
     log.warning('skipping final checkpoint: training was unhealthy at '
                 'exit (the retained last-known-good checkpoint covers '
@@ -362,14 +432,15 @@ def train(config: Config, max_steps: Optional[int] = None, device='cuda',
   learner steps).
 
   `config.runtime == 'anakin'` runs `train_anakin`. The fleet runtime, in
-  order: the env spec and the agent, the learner state, the restore of
-  the newest restorable checkpoint under `<logdir>/checkpoints` (steps,
-  frames and summaries count on from its step, and a preempted run's
-  resume manifest is consumed), the trajectory buffer, the inference
-  server (published at the restored step, so its first snapshot holds
-  the restored weights, and warmed up to the fleet size), the fleet, the
-  batch staging and the prefetcher; then the loop: prefetcher.get ->
-  train step -> the health ladder -> publish every
+  order: the env spec and the agent, the mesh (`choose_mesh`, under a
+  process group) and the learner state, the restore of the newest
+  restorable checkpoint under `<logdir>/checkpoints` (steps, frames and
+  summaries count on from its step, and a preempted run's resume
+  manifest is consumed), the trajectory buffer, the inference server
+  (published at the restored step, so its first snapshot holds the
+  restored weights, and warmed up to the fleet size), the fleet, the
+  batch or unroll staging and the prefetcher; then the loop:
+  prefetcher.get -> train step -> the health ladder -> publish every
   `publish_params_every` steps -> summaries -> the periodic save. A
   `finally` tears all of it down, also after a failed set-up, and takes
   the final save unless training was unhealthy at exit.
@@ -384,41 +455,101 @@ def train(config: Config, max_steps: Optional[int] = None, device='cuda',
   quiesced, a verified save runs and resume_manifest.json is written; the
   call then returns normally.
 
+  Under a process group (the JAX driver's multi-host fleet; here every
+  rank is a process with its own fleet): `batch_size` is global and each
+  rank's fleet feeds its B / ranks rows; env and inference seeds are
+  offset by `rank * max(num_actors, 1000)`; rank 0 writes config.json,
+  summaries.jsonl and incidents.jsonl, rank r > 0 summaries_p{r}.jsonl
+  and incidents_p{r}.jsonl; params start as rank 0's broadcast; the save
+  decision is rank 0's, checked every checkpoint_check_every_steps; a
+  checkpoint saved on another mesh restores through the registry's
+  resharding (`Checkpointer.restore_resharded`, the `topology_resharded`
+  incident). A stop request (the drain's triggers) is rank 0's,
+  broadcast once per learner step, so every rank leaves the loop at the
+  same step: as in JAX, with no drain save and no manifest (the tail save
+  still runs). Under tensor parallelism the state holds this rank's
+  blocks and each publish gathers a full copy over the model group for
+  the server. With >= 2 data replicas the SDC sentinel (sdc_check) runs
+  with the health ladder. Every collective runs on this lockstep path.
+
   `on_step(run, steps_done, metrics)` runs after each learner step
   (chip_smoke.py times and profiles with it). `device` defaults to CUDA
-  and raises without it. A process group (data-parallel fleets,
-  ROADMAP A5b) raises. Returns the TrainRun.
+  and raises without it. Returns the TrainRun.
   """
   if config.runtime == 'anakin':
     return train_anakin(config, max_steps=max_steps, device=device,
                         drain_event=drain_event)
   if config.runtime != 'fleet':
     raise ValueError(f'unknown runtime {config.runtime!r} (fleet | anakin)')
-  if (torch.distributed.is_available() and torch.distributed.is_initialized()
-      ) or config.num_processes > 1:
-    raise NotImplementedError(
-        'the fleet runtime over a process group (data-parallel fleets) is '
-        'not in the PyTorch port yet (ROADMAP A5b)')
   validate_fleet(config)
+  for warning in validate_integrity(config):
+    log.warning('%s', warning)
   device = resolve_device(device)
   set_float32_precision()
+  world, rank = distributed.world_size(), distributed.rank()
+  if config.batch_size % world:
+    raise ValueError(f'batch_size={config.batch_size} must divide by '
+                     f'process count {world}')
+  local_batch_size = config.batch_size // world
   levels = factory.level_names(config)
   spec0 = factory.make_env_spec(config, levels[0], seed=1)
   num_actions = spec0.num_actions
   agent = build_agent(config, num_actions)
   init_params(agent, torch.Generator().manual_seed(config.seed))
   agent.to(device)
-  train_step = learner_lib.make_train_step_fn(agent, config)
-  checkpointer = make_checkpointer(config)
-  # Before the server exists: its first publish carries these weights.
-  state = restore_at_start(checkpointer,
-                            learner_lib.make_train_state(agent, config))
+  mesh = choose_mesh(config, device)
+  grouped = mesh is not None and mesh.world_size > 1
+  registry = sharding.from_config(config)
+  layout = None
+  if mesh is not None:
+    state = train_parallel.make_sharded_train_state(agent, config, mesh,
+                                                    registry=registry)
+    train_step, _ = train_parallel.make_sharded_train_step(
+        agent, config, mesh, None, registry=registry)
+    layout = train_step.layout
+  else:
+    train_step = learner_lib.make_train_step_fn(agent, config)
+    state = learner_lib.make_train_state(agent, config)
+  checkpointer = make_checkpointer(config, mesh, registry, layout)
+  # The elastic restore gate: a checkpoint saved on another mesh
+  # restores through the registry's resharding, strictly.
+  topology = distributed.topology_delta(checkpointer.saved_mesh_shape(),
+                                        mesh)
+  if topology is not None:
+    log.warning('cross-topology restore: checkpoint saved on mesh %s, this '
+                'run is mesh %s (%d process(es)) — resharding onto registry '
+                'targets for the live topology', topology['saved_mesh'],
+                topology['live_mesh'], topology['processes'])
+    restored = checkpointer.restore_resharded(state, registry, mesh)
+    if restored is None:
+      topology = None
+    else:
+      log.info('restored checkpoint at step %d (%.1f ms)',
+               restored.update_steps, 1e3 * checkpointer.last_restore_secs)
+      state = restored
+  else:
+    # Before the server exists: its first publish carries these weights.
+    state = restore_at_start(checkpointer, state)
   initial_steps = state.update_steps
-  _consume_resume_manifest(config.logdir, initial_steps)
+  if rank == 0:
+    _consume_resume_manifest(config.logdir, initial_steps)
   run = TrainRun(config, agent, state)
   run.checkpointer = checkpointer
+  run.mesh = mesh
   run.health = (health_lib.monitor_from_config(config)
                 if config.health_watchdog else None)
+  sdc = None
+  if (config.sdc_check and config.health_watchdog
+      and train_parallel.supports_sdc_check(config, mesh)):
+    sdc = train_parallel.make_sdc_fingerprint_fn(mesh)
+    log.info('SDC sentinel armed: param fingerprints cross-checked across '
+             '%d data replicas', sdc[1])
+  localize = sharding.needs_host_local_params(config, mesh)
+
+  def actor_params(params):
+    """What the server serves: under TP a full copy, gathered over the
+    model group (a collective: on the lockstep path only)."""
+    return layout.gather_tree(params) if localize and layout else params
 
   if device.type == 'cuda':
     copy_stream = torch.cuda.Stream(device)
@@ -431,6 +562,7 @@ def train(config: Config, max_steps: Optional[int] = None, device='cuda',
       return learner_lib.place_batch(batch, device, copy_stream,
                                      learner_stream)
   else:
+    copy_stream = learner_stream = None
     stack = batch_unrolls
 
     def place(batch):
@@ -445,27 +577,67 @@ def train(config: Config, max_steps: Optional[int] = None, device='cuda',
         minlength=num_actions)
     return _stats_only_view(host_batch), action_counts, place(host_batch)
 
+  def unroll_view(unroll):
+    """Unroll staging's per-unroll peel of `stage`'s host view."""
+    return (np.asarray(unroll.level_name),
+            map_structure(np.copy, unroll.env_outputs.info),
+            np.copy(unroll.env_outputs.done),
+            np.bincount(np.asarray(unroll.agent_outputs.action)[1:],
+                        minlength=num_actions))
+
+  def finalize_views(views, batch):
+    stats_view = ActorOutput(
+        level_name=np.stack([v[0] for v in views]), agent_state=None,
+        env_outputs=StepOutput(
+            reward=None,
+            info=map_structure(lambda *xs: np.stack(xs, axis=1),
+                               *[v[1] for v in views]),
+            done=np.stack([v[2] for v in views], axis=1), observation=None),
+        agent_outputs=None)
+    return stats_view, np.sum([v[3] for v in views], axis=0), batch
+
+  stager = None
+  if config.staging_mode == 'unroll':
+    if train_parallel.supports_unroll_staging(config, mesh):
+      stager = ring_buffer.UnrollBatchStager(
+          local_batch_size, device=device, host_view_fn=unroll_view,
+          finalize_fn=finalize_views, copy_stream=copy_stream,
+          consumer_stream=learner_stream)
+    else:
+      log.warning(
+          'staging_mode=unroll unsupported on this topology (model-axis '
+          'batch sharding) — falling back to batch staging')
+
+  process_seed_base = rank * max(config.num_actors, 1000)
   buffer = server = fleet = prefetcher = writer = incidents = None
   try:
     buffer = ring_buffer.TrajectoryBuffer(
         max(config.queue_capacity_batches * config.batch_size,
             config.batch_size))
+    initial_pub = actor_params(state.params)
     server = InferenceServer(
-        build_agent(config, num_actions), state.params, config,
-        seed=config.seed + 1000, fleet_size=config.num_actors,
-        device=device)
-    server.update_params(state.params, version=initial_steps)
+        build_agent(config, num_actions), initial_pub, config,
+        seed=config.seed + 1000 + process_seed_base,
+        fleet_size=config.num_actors, device=device)
+    server.update_params(initial_pub, version=initial_steps)
     if config.num_actors > 0:
       server.warmup(spec0.obs_spec, max_size=config.num_actors)
     fleet = make_fleet(config, server.policy, buffer, levels,
-                       server.initial_core_state)
+                       server.initial_core_state,
+                       seed_base=process_seed_base)
     prefetcher = ring_buffer.BatchPrefetcher(
-        buffer, config.batch_size, place_fn=stage,
-        depth=config.staging_depth, stack_fn=stack)
-    writer = observability.SummaryWriter(config.logdir)
-    incidents = observability.EventLog(config.logdir)
-    with open(os.path.join(config.logdir, 'config.json'), 'w') as f:
-      json.dump(dataclasses.asdict(config), f, indent=2, sort_keys=True)
+        buffer, local_batch_size, place_fn=stage,
+        depth=config.staging_depth, stack_fn=stack, stager=stager)
+    suffix = '' if rank == 0 else f'_p{rank}'
+    writer = observability.SummaryWriter(
+        config.logdir, filename=f'summaries{suffix}.jsonl')
+    incidents = observability.EventLog(
+        config.logdir, filename=f'incidents{suffix}.jsonl')
+    if topology is not None:
+      incidents.event('topology_resharded', step=initial_steps, **topology)
+    if rank == 0:
+      with open(os.path.join(config.logdir, 'config.json'), 'w') as f:
+        json.dump(dataclasses.asdict(config), f, indent=2, sort_keys=True)
     run.server, run.fleet = server, fleet
     run.prefetcher, run.buffer = prefetcher, buffer
     fleet.start()
@@ -473,7 +645,7 @@ def train(config: Config, max_steps: Optional[int] = None, device='cuda',
     _teardown(fleet, prefetcher, server, buffer, writer, incidents)
     raise
 
-  ladder = _HealthLadder(config, run.health, checkpointer, incidents)
+  ladder = _HealthLadder(config, run.health, checkpointer, incidents, sdc)
   episodes = observability.EpisodeStats(levels, writer=writer)
   fps_meter = observability.FpsMeter()
   action_counts_acc = np.zeros((num_actions,), np.int64)
@@ -489,28 +661,41 @@ def train(config: Config, max_steps: Optional[int] = None, device='cuda',
   draining = False
   drain_source = None
   drain_t0 = drain_deadline = 0.0
+
+  def stop_signals():
+    """(the preempt_signal fault, the drain event): one fault event per
+    call."""
+    return (faults_lib.fire('preempt_signal') is not None,
+            drain_event is not None and drain_event.is_set())
+
+  def group_stop() -> bool:
+    """Rank 0's stop request, broadcast: every rank calls this once per
+    learner step, before the step's collectives."""
+    flag = torch.tensor([int(any(stop_signals()))], device=mesh.device)
+    return bool(mesh.broadcast_(flag, src=0)[0])
+
   try:
     while True:
-      # The preemption drain: one preempt_signal event per iteration.
-      preempt_fault = faults_lib.fire('preempt_signal') is not None
-      if not draining and (preempt_fault or (
-          drain_event is not None and drain_event.is_set())):
-        draining = True
-        drain_source = 'fault' if preempt_fault else 'signal'
-        drain_t0 = time.monotonic()
-        drain_deadline = drain_t0 + config.preempt_drain_timeout_secs
-        incidents.event('preempt_drain_start',
-                        step=initial_steps + steps_done,
-                        source=drain_source)
-        log.warning('preemption drain (%s): admissions stopped; flushing '
-                    'in-flight unrolls within %.1fs', drain_source,
-                    config.preempt_drain_timeout_secs)
-        # Actors finish their current unroll and put it: that is what
-        # the loop trains on until the feed dries.
-        fleet.stop_event.set()
-      if draining and time.monotonic() > drain_deadline:
-        log.warning('preemption drain budget exhausted; finalizing')
-        break
+      if not grouped:
+        # The preemption drain: one preempt_signal event per iteration.
+        preempt_fault, signaled = stop_signals()
+        if not draining and (preempt_fault or signaled):
+          draining = True
+          drain_source = 'fault' if preempt_fault else 'signal'
+          drain_t0 = time.monotonic()
+          drain_deadline = drain_t0 + config.preempt_drain_timeout_secs
+          incidents.event('preempt_drain_start',
+                          step=initial_steps + steps_done,
+                          source=drain_source)
+          log.warning('preemption drain (%s): admissions stopped; '
+                      'flushing in-flight unrolls within %.1fs',
+                      drain_source, config.preempt_drain_timeout_secs)
+          # Actors finish their current unroll and put it: that is what
+          # the loop trains on until the feed dries.
+          fleet.stop_event.set()
+        if draining and time.monotonic() > drain_deadline:
+          log.warning('preemption drain budget exhausted; finalizing')
+          break
       if (initial_steps + steps_done) * config.frames_per_step >= (
           config.total_environment_frames):
         break
@@ -541,6 +726,15 @@ def train(config: Config, max_steps: Optional[int] = None, device='cuda',
         raise
       last_batch_time = time.monotonic()
       errors = []
+      if grouped and group_stop():
+        # The drain is one process's (JAX's multi-host rule): every rank
+        # leaves here, at the same step; the tail save covers it.
+        incidents.event('preempt_group_stop',
+                        step=initial_steps + steps_done)
+        log.warning('preemption requested on a multi-process run: drain '
+                    'is single-process, exiting the loop at step %d',
+                    initial_steps + steps_done)
+        break
       # Fault site 'nan_burst': NaN rewards on the staged batch.
       batch, poisoned = faults_lib.maybe_poison_batch(batch)
       if poisoned:
@@ -563,7 +757,7 @@ def train(config: Config, max_steps: Optional[int] = None, device='cuda',
       # weights.
       if (rolled_back is not None or
           steps_done % config.publish_params_every == 0):
-        server.update_params(state.params, version=step_now)
+        server.update_params(actor_params(state.params), version=step_now)
         last_publish_step = step_now
 
       now = time.monotonic()
@@ -575,10 +769,8 @@ def train(config: Config, max_steps: Optional[int] = None, device='cuda',
             last_quarantined, stall_timeout_secs)
         ladder.write_summaries(writer, step_now)
         action_counts_acc[:] = 0
-      # No save while a bad burst is open: it would advance LAST_GOOD
-      # onto the diverged state and evict the healthy steps.
-      if ladder.healthy:
-        checkpointer.maybe_save(state)
+      _periodic_save(config, checkpointer, ladder, state, steps_done,
+                     grouped)
       run.step_log.append({'time': time.monotonic(),
                            'get_wait_secs':
                                prefetcher.stats()['wait_secs']})
@@ -598,7 +790,7 @@ def train(config: Config, max_steps: Optional[int] = None, device='cuda',
   finally:
     run.stats = _teardown(fleet, prefetcher, server, buffer, writer,
                           incidents)
-    _final_save(checkpointer, ladder, run.state)
+    _final_save(checkpointer, ladder, run.state, grouped)
   return run
 
 
@@ -753,21 +945,13 @@ def train_anakin(config: Config, max_steps: Optional[int] = None,
       if now - last_summary >= config.summary_secs:
         flush(step_now)
         last_summary, summarised_step = now, step_now
-      if not grouped:
-        if ladder.healthy:
-          checkpointer.maybe_save(train_state)
-      elif steps_done % config.checkpoint_check_every_steps == 0:
-        # Verdicts are the same on every rank, so `healthy` is too.
-        decision = checkpointer.group_should_save() and ladder.healthy
-        checkpointer.maybe_save(train_state, decision=decision)
+      _periodic_save(config, checkpointer, ladder, train_state, steps_done,
+                     grouped)
     if steps_done and initial_steps + steps_done > summarised_step:
       flush(initial_steps + steps_done)  # a short run's one window
   finally:
     try:
-      if sys.exc_info()[0] is None or not grouped:
-        # Under a group the tail save is a collective: on an exception
-        # only this rank is here, and waiting for the others would hang.
-        _final_save(checkpointer, ladder, run.state)
+      _final_save(checkpointer, ladder, run.state, grouped)
     finally:
       for stream in (writer, incidents):
         if stream is not None:

@@ -14,10 +14,14 @@ The fused on-device Anakin trainer (`--mode=anakin`, or `--mode=train
       --use_pallas_vtrace=true --use_instruction=false \\
       --total_environment_frames=1000000 --logdir=/path/to/run
 
-Data-parallel over N ranks of one host, one card each (NCCL):
+Data-parallel over N ranks of one host, one card each (NCCL), for
+either runtime (`--model_parallelism=M` cuts the fleet's model over M of
+them, tensor parallelism):
 
   python -m torch.distributed.run --standalone --nproc_per_node=N \\
       -m scalable_agent_tpu_torch.experiment --mode=anakin ...
+  python -m torch.distributed.run --standalone --nproc_per_node=N \\
+      -m scalable_agent_tpu_torch.experiment --mode=train --runtime=fleet ...
 
 The flags are the JAX CLI's (experiment.py at the repo root), for the
 config fields this slice reads; booleans take `--flag`, `--flag=true` or
@@ -25,11 +29,13 @@ config fields this slice reads; booleans take `--flag`, `--flag=true` or
 CUDA the run raises unless `--device=cpu` is given. A group is joined
 when torch.distributed.run's environment or `--coordinator_address`
 declares one (with `--num_processes` and `--process_id`); each rank then
-trains its block of the batch, as the JAX CLI's Anakin does over the
-devices of one host. Its backend follows the device: NCCL for CUDA ranks,
-one card each, gloo for CPU ranks. Anakin stays on one host: a group
-across nodes raises, as in the JAX CLI; the fleet runtime over a group is
-ROADMAP A5b and raises. `--mode=test` (evaluation, ROADMAP A7) raises.
+trains its block of the batch, as the JAX CLI does over the devices of
+one host (Anakin) or of every host (the fleet: each rank runs its own
+actors and feeds its rows). Its backend follows the device: NCCL for
+CUDA ranks, one card each, gloo for CPU ranks. Anakin stays on one host:
+a group across nodes raises, as in the JAX CLI, and so does
+`--model_parallelism` > 1 with it. `--mode=test` (evaluation, ROADMAP
+A7) raises.
 
 Both runtimes resume from `<logdir>/checkpoints` (the newest restorable
 step; the format is the port's own, `torch.save` files, not the JAX
@@ -188,13 +194,19 @@ def _run(config: Config, device: str, drain_event: threading.Event):
 
 
 def _train_fleet(config: Config, device: str, drain_event: threading.Event):
-  if distributed.declared_topology(config) is not None:
-    raise NotImplementedError(
-        'the fleet runtime over a process group (data-parallel fleets) is '
-        'not in the PyTorch port yet (ROADMAP A5b); run one process, or '
-        '--mode=anakin')
   from scalable_agent_tpu_torch import driver
-  run = driver.train(config, device=device, drain_event=drain_event)
+  backend = 'gloo' if torch.device(device).type == 'cpu' else 'nccl'
+  rank_device = distributed.maybe_initialize(config, backend=backend,
+                                             device=device)
+  if rank_device is None:
+    run = driver.train(config, device=device, drain_event=drain_event)
+  else:
+    try:
+      run = driver.train(config, device=rank_device, drain_event=drain_event)
+    except BaseException:
+      distributed.shutdown(wait=False)
+      raise
+    distributed.shutdown()
   logging.info('fleet training done at %d frames', run.frames)
   return run
 

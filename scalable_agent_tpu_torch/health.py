@@ -22,9 +22,12 @@ behind an event; `read_handle` waits on that event alone. Read one step
 later, the values are computed by then, so the learner's stream never
 waits for the host.
 
-The PopArt and SDC detectors are here as in JAX; this port produces
-neither key (PopArt: ROADMAP A2; the SDC sentinel: A5b.5), so they stay
-off. The flight recorder of the halt bundle waits for the telemetry plane
+The SDC detector reads `sdc_replica_mismatch`, which the fleet's loop
+adds under data parallelism from the replicas' param fingerprints
+(parallel/train_parallel.make_sdc_fingerprint_fn), read one step late
+like the other sentinels (`read_fingerprints`). The PopArt detectors are
+here as in JAX, and stay off until PopArt exists (ROADMAP A2). The
+flight recorder of the halt bundle waits for the telemetry plane
 (A7.4).
 """
 
@@ -36,7 +39,7 @@ import platform
 import subprocess
 import threading
 import time
-from typing import Dict, NamedTuple, Optional
+from typing import Dict, List, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
@@ -95,6 +98,15 @@ def read_handle(handle: SentinelHandle) -> Dict[str, Optional[float]]:
   out = {k: None for k in _SENTINEL_KEYS}
   out.update({k: float(v) for k, v in zip(handle.keys, values)})
   return out
+
+
+def read_fingerprints(fingerprints) -> Tuple[float, List[int]]:
+  """The SDC sentinel's reading of the replicas' all-gathered param
+  fingerprints: (sdc_replica_mismatch, the fingerprints). 1.0 when any
+  replica's differs from the first's: deterministic compute was
+  violated."""
+  values = [int(v) for v in fingerprints.tolist()]
+  return (1.0 if any(v != values[0] for v in values) else 0.0), values
 
 
 def read_sentinels(metrics: Dict) -> Dict[str, Optional[float]]:

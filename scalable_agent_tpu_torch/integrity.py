@@ -9,9 +9,10 @@ into every record: a checksum is compared only with one made by the same
 algorithm, and a record of another algorithm skips the verification
 instead of reporting corruption that is not there.
 
-The JAX module's tree and sharding-table digests serve the remote plane
-and the sharding manifest (ROADMAP A7.3, A5b.3), and its telemetry
-counters the metrics registry (A7.4): not here yet.
+`spec_table_digest` is the CRC of a checkpoint's sharding manifest
+(checkpoint.py's SHARDING_<step>.json). The JAX module's tree digest
+serves the remote plane (ROADMAP A7.3), and its telemetry counters the
+metrics registry (A7.4): not here yet.
 """
 
 from typing import Dict, Optional, Tuple
@@ -68,6 +69,17 @@ def digest_record(value: int) -> Dict:
   """The on-disk spelling of a digest: value and algorithm, so a reader
   built with another algorithm refuses to compare."""
   return {'crc': int(value), 'algo': CRC_ALGO}
+
+
+def spec_table_digest(specs: Dict[str, str]) -> int:
+  """CRC of a sharding-spec table ({JAX param path: spec string},
+  parallel/sharding.ShardingRegistry.describe) in sorted-path order, as
+  the JAX package computes it: a spec change is a layout change even
+  when every byte of the arrays is the same."""
+  crc = Crc()
+  for path in sorted(specs):
+    crc.update(f'{path}={specs[path]};'.encode())
+  return crc.value
 
 
 def verify_record(record, value: int) -> Optional[bool]:

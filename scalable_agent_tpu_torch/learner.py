@@ -19,6 +19,10 @@ JAX sharded step's gradient is the sum of the ranks' gradients: one SUM
 all-reduce of a flat buffer of the gradients and the four losses, after
 which every rank takes the same norm, clip, watchdog decision and update.
 
+Under tensor parallelism (parallel/train_parallel.py) the step is built
+from the same parts: `loss_fn` on given parameters, and
+`apply_gradients` on this rank's blocks of the parameters.
+
 The fleet runtime hands the learner host numpy batches: `place_batch`
 moves one to the learner's device with the dtypes the Anakin path
 builds, reading from pinned host memory (`pinned_empty`) on CUDA.
@@ -98,11 +102,21 @@ def align_batch(env_outputs, agent_outputs, learner_outputs,
 LOSS_KEYS = ('total_loss', 'pg_loss', 'baseline_loss', 'entropy_loss')
 
 
-def loss_fn(agent, batch: ActorOutput, config: Config, mesh=None):
+def loss_fn(agent, batch: ActorOutput, config: Config, mesh=None,
+            params=None, tp=None, vtrace_axis='data'):
   """Total IMPALA loss for one batch: (loss, metrics). With `mesh` the
-  batch is this rank's shard and so are the loss and metrics."""
-  learner_outputs, _ = agent(batch.agent_outputs.action, batch.env_outputs,
-                             batch.agent_state)
+  batch is this rank's shard and so are the loss and metrics; its
+  columns are the shard of the global batch over `vtrace_axis` (an axis
+  of the mesh or a tuple of them). `params` ({name: tensor}) replace the
+  agent's parameters for this call (torch.func.functional_call), and
+  `tp` (a models.TensorParallel) runs the layers whose parameters are
+  blocks as blocks."""
+  args = (batch.agent_outputs.action, batch.env_outputs, batch.agent_state)
+  if params is None:
+    learner_outputs, _ = agent(*args)
+  else:
+    learner_outputs, _ = torch.func.functional_call(
+        agent, params, args, {'tp': tp}, strict=False)
   inputs = align_batch(batch.env_outputs, batch.agent_outputs,
                        learner_outputs, config)
   vtrace_returns = vtrace.from_logits(
@@ -114,7 +128,7 @@ def loss_fn(agent, batch: ActorOutput, config: Config, mesh=None):
       values=inputs.values,
       bootstrap_value=inputs.bootstrap_value,
       use_associative_scan=config.use_associative_scan,
-      use_pallas=config.use_pallas_vtrace, mesh=mesh,
+      use_pallas=config.use_pallas_vtrace, mesh=mesh, batch_axis=vtrace_axis,
       batch_size=config.batch_size if mesh is not None else None)
   pg_loss = losses_lib.compute_policy_gradient_loss(
       inputs.target_logits, inputs.actions, vtrace_returns.pg_advantages)
@@ -165,11 +179,14 @@ def rmsprop_init(params: Dict[str, torch.Tensor],
 
 @torch.no_grad()
 def rmsprop_update(grads: Dict[str, torch.Tensor], state: RMSPropState,
-                   config: Config, schedule):
+                   config: Config, schedule, g_norm=None):
   """optax.chain([clip_by_global_norm,] rmsprop(schedule, decay, eps,
-  momentum)).update: returns (updates, new state)."""
+  momentum)).update: returns (updates, new state). `g_norm` is the
+  global norm of the gradients when `grads` are blocks of them (tensor
+  parallelism); None: computed from `grads`."""
   if config.grad_clip_norm is not None:
-    g_norm = global_norm(grads)
+    if g_norm is None:
+      g_norm = global_norm(grads)
     max_norm = config.grad_clip_norm
     grads = {k: torch.where(g_norm < max_norm, g, g / g_norm * max_norm)
              for k, g in grads.items()}
@@ -229,15 +246,74 @@ def load_state_(state: TrainState, payload: Dict[str, Any]) -> TrainState:
   return TrainState(state.params, opt, int(payload['update_steps']))
 
 
-def _all_reduce_sum(mesh, grads, metrics):
-  """The gradients and the losses summed over the mesh's ranks, in one
-  all-reduce of one flat float32 buffer."""
+def param_fingerprint(params) -> torch.Tensor:
+  """The JAX package's `param_fingerprint`: every leaf viewed as the
+  unsigned integers of its width (8-byte leaves as pairs of 32-bit
+  ones, bool as uint8) and summed mod 2**32. Integer addition is exact
+  in any order, so bit-equal replicas give equal values, and the value
+  does not depend on the port's layouts (transposed kernels, fused LSTM
+  gates): it equals JAX's on the converted params. A 0-d int64 tensor
+  holding the uint32 value, on the params' device."""
+  total = None
+  for leaf in params.values():
+    x = leaf.detach()
+    if x.numel() == 0:
+      continue
+    if x.dtype == torch.bool:
+      bits, width = x.to(torch.uint8).to(torch.int64), 8
+    else:
+      size = x.element_size()
+      view = {1: torch.uint8, 2: torch.int16}.get(size, torch.int32)
+      x = x.contiguous().reshape(-1)
+      bits, width = x.view(view).to(torch.int64), min(8 * size, 32)
+    part = torch.sum(bits & ((1 << width) - 1))
+    total = part if total is None else total + part
+  if total is None:
+    return torch.zeros((), dtype=torch.int64)
+  return total & 0xFFFFFFFF
+
+
+def _all_reduce_sum(mesh, grads, metrics, axis='data'):
+  """The gradients and the losses summed over the ranks of the mesh's
+  `axis` (None: every rank), in one all-reduce of one flat float32
+  buffer."""
   leaves = list(grads.values()) + [metrics[k] for k in LOSS_KEYS]
-  flat = mesh.all_reduce_sum_(torch.cat([x.reshape(-1) for x in leaves]))
+  flat = mesh.all_reduce_sum_(torch.cat([x.reshape(-1) for x in leaves]),
+                              axis=axis)
   parts = [part.view_as(x) for part, x in
            zip(torch.split(flat, [x.numel() for x in leaves]), leaves)]
   metrics = dict(metrics, **dict(zip(LOSS_KEYS, parts[len(grads):])))
   return dict(zip(grads, parts)), metrics
+
+
+@torch.no_grad()
+def apply_gradients(state: TrainState, grads, metrics, config: Config,
+                    schedule, g_norm=None):
+  """RMSProp on `state`'s parameters with `grads` (the same keys and
+  shapes), the health watchdog's keep-or-skip, and the in-place update;
+  returns (TrainState, metrics). `g_norm` is the pre-clip global norm
+  (None: computed from `grads`); it is reported as `grad_norm`."""
+  params = state.params
+  metrics['grad_norm'] = global_norm(grads) if g_norm is None else g_norm
+  updates, opt_state = rmsprop_update(grads, state.opt_state, config,
+                                      schedule, g_norm=metrics['grad_norm'])
+  new_params = {k: p + updates[k] for k, p in params.items()}
+  if config.health_watchdog:
+    step_ok = (torch.isfinite(metrics['total_loss']) &
+               torch.isfinite(metrics['grad_norm']))
+    keep = lambda new, old: {k: torch.where(step_ok, new[k], old[k])  # noqa: E731
+                             for k in new}
+    new_params = keep(new_params, params)
+    opt_state = RMSPropState(
+        count=torch.where(step_ok, opt_state.count, state.opt_state.count),
+        nu=keep(opt_state.nu, state.opt_state.nu),
+        trace=(None if opt_state.trace is None
+               else keep(opt_state.trace, state.opt_state.trace)))
+    metrics['step_ok'] = step_ok.float()
+  for k, p in params.items():
+    p.copy_(new_params[k])
+  metrics['learning_rate'] = schedule(state.update_steps)
+  return TrainState(params, opt_state, state.update_steps + 1), metrics
 
 
 def make_train_step_fn(agent, config: Config, mesh=None):
@@ -263,27 +339,7 @@ def make_train_step_fn(agent, config: Config, mesh=None):
       if mesh is not None:
         grads, metrics = _all_reduce_sum(mesh, grads, metrics)
       # Pre-clip norm: explosions stay visible even with clipping on.
-      metrics['grad_norm'] = global_norm(grads)
-      updates, opt_state = rmsprop_update(grads, state.opt_state, config,
-                                          schedule)
-      new_params = {k: p + updates[k] for k, p in params.items()}
-      if config.health_watchdog:
-        step_ok = (torch.isfinite(metrics['total_loss']) &
-                   torch.isfinite(metrics['grad_norm']))
-        keep = lambda new, old: {k: torch.where(step_ok, new[k], old[k])  # noqa: E731
-                                 for k in new}
-        new_params = keep(new_params, params)
-        opt_state = RMSPropState(
-            count=torch.where(step_ok, opt_state.count,
-                              state.opt_state.count),
-            nu=keep(opt_state.nu, state.opt_state.nu),
-            trace=(None if opt_state.trace is None
-                   else keep(opt_state.trace, state.opt_state.trace)))
-        metrics['step_ok'] = step_ok.float()
-      for k, p in params.items():
-        p.copy_(new_params[k])
-    metrics['learning_rate'] = schedule(state.update_steps)
-    return TrainState(params, opt_state, state.update_steps + 1), metrics
+      return apply_gradients(state, grads, metrics, config, schedule)
 
   return train_step
 

@@ -17,6 +17,13 @@
   out (`_lstm_step`), since `nn.LSTMCell`'s fused CUDA cell computes its
   gates in float32 and rounds only c and h. The float32 path keeps
   `nn.LSTMCell`.
+- Tensor parallelism (`tp`, models.torsos.TensorParallel): with the
+  parameters swapped for this rank's blocks, the torso's blocked layers
+  run as torsos.py says, and the LSTM computes this rank's block of the
+  hidden units of each gate: the cell state stays a block through the
+  time loop, and each step's hidden state is gathered over the model
+  group (the next step's hidden product needs all of it). The heads stay
+  whole on every rank.
 - With no generator the action is argmax; with one it is sampled
   (Gumbel-max, drawn from that generator on the logits' device). A rank
   holding block `index` of `count` of a batch draws the noise of the
@@ -39,13 +46,16 @@ from scalable_agent_tpu_torch.parallel.sharding import shard_range
 from scalable_agent_tpu_torch.structs import AgentOutput, map_structure
 
 
-def _lstm_step(cell: nn.LSTMCell, input_product, c, h, dtype):
+def _lstm_step(cell: nn.LSTMCell, input_product, c, h, dtype, tp=None):
   """One step of Flax's OptimizedLSTMCell in `dtype` on the port's
   LSTMCell parameters: `input_product` (x @ W_ih, no bias, precomputed
   for all steps at once: a row's product does not depend on the others)
   plus the hidden product with its bias, then i, f, g, o,
   `c' = f*c + i*g` and `h' = o*tanh(c')`, every op rounding in `dtype`.
-  Returns (c', h')."""
+  Returns (c', h'). With `tp` the cell's parameters are this rank's
+  blocks of the gates: `c` and the result are blocks, `h` is whole."""
+  if tp is not None:
+    h = tp.enter(h)
   hidden = F.linear(h, cell.weight_hh.to(dtype)) + cell.bias_hh.to(dtype)
   i, f, g, o = (hidden + input_product).chunk(4, dim=-1)
   c = torch.sigmoid(f) * c + torch.sigmoid(i) * torch.tanh(g)
@@ -82,7 +92,7 @@ class ImpalaAgent(nn.Module):
 
   def forward(self, prev_actions, env_outputs, core_state,
               sample_generator: Optional[torch.Generator] = None,
-              sample_shard: Tuple[int, int] = (0, 1)):
+              sample_shard: Tuple[int, int] = (0, 1), tp=None):
     """Unroll over a [T, B] trajectory.
 
     Args:
@@ -94,6 +104,8 @@ class ImpalaAgent(nn.Module):
         action is sampled from the policy; None -> argmax.
       sample_shard: (index, count): the batch is block `index` of
         `count` equal blocks of the batch the noise is drawn for.
+      tp: a TensorParallel when the parameters are this rank's blocks
+        (see the module docstring).
 
     Returns:
       (AgentOutput of [T, B, ...] tensors, final carry (c, h)).
@@ -101,7 +113,7 @@ class ImpalaAgent(nn.Module):
     reward, _, done, (frame, _) = env_outputs
     t, b = reward.shape[0], reward.shape[1]
 
-    torso_out = self.torso(frame.reshape((t * b,) + frame.shape[2:]))
+    torso_out = self.torso(frame.reshape((t * b,) + frame.shape[2:]), tp)
     clipped_reward = torch.clamp(reward, -1.0, 1.0).reshape(t * b, 1)
     one_hot_action = F.one_hot(prev_actions.reshape(t * b).long(),
                                self.num_actions).to(torso_out.dtype)
@@ -110,18 +122,30 @@ class ImpalaAgent(nn.Module):
         dim=-1).reshape(t, b, -1)
 
     c, h = (s.to(self.dtype) for s in core_state)
-    if self.dtype != torch.float32:
-      input_product = F.linear(core_input, self.core.weight_ih.to(self.dtype))
+    block = self.core.weight_hh.shape[0] // 4
+    blocked = tp is not None and block != self.hidden_size
+    if blocked:
+      c = c[:, tp.index * block:(tp.index + 1) * block]
+      core_input = tp.enter(core_input)
+    if blocked or self.dtype != torch.float32:
+      input_product = F.linear(core_input.to(self.dtype),
+                               self.core.weight_ih.to(self.dtype))
     outputs = []
     for step in range(t):
       reset = done[step].reshape(b, 1)
       c = c.masked_fill(reset, 0.0)
       h = h.masked_fill(reset, 0.0)
-      if self.dtype == torch.float32:
+      if blocked:
+        c, h = _lstm_step(self.core, input_product[step], c, h, self.dtype,
+                          tp)
+        h = tp.gather(h, -1)
+      elif self.dtype == torch.float32:
         h, c = self.core(core_input[step], (h, c))
       else:
         c, h = _lstm_step(self.core, input_product[step], c, h, self.dtype)
       outputs.append(h)
+    if blocked:
+      c = tp.gather(c, -1)
     flat_core = torch.stack(outputs).reshape(t * b, -1)
     c, h = c.float(), h.float()
 

@@ -18,14 +18,83 @@ each layer casts its input and its parameters to `dtype`, computes there,
 and adds the bias to the rounded product (`Conv`, `Dense`), as Flax does.
 The frame is scaled in `dtype` (`frame.to(dtype) / 255`), and the pool,
 residual adds, flatten and relus stay in it.
+
+Tensor parallelism (`tp`, a `TensorParallel`): a `Conv` or `Dense`
+whose weight holds fewer output features than the layer declares (its
+parameters swapped for this rank's blocks, torch.func.functional_call)
+computes this rank's block of the output features, and an all-gather
+over the model group joins the blocks; every layer after it computes
+the same values on every rank of the group. The input of such a layer
+passes through `TensorParallel.enter`: the identity forward, and a sum
+over the group backward, since each rank's block of the output gives
+only its part of the input's gradient (Megatron's f and g operators).
 """
 
 import math
 from typing import Sequence, Tuple
 
 import torch
+import torch.distributed as dist
 from torch import nn
 from torch.nn import functional as F
+
+
+class _Enter(torch.autograd.Function):
+  """Identity forward; the gradient summed over the model group."""
+
+  @staticmethod
+  def forward(ctx, x, tp):
+    ctx.tp = tp
+    return x.view_as(x)
+
+  @staticmethod
+  def backward(ctx, grad):
+    grad = grad.contiguous().clone()
+    ctx.tp.all_reduce_(grad)
+    return grad, None
+
+
+class _Gather(torch.autograd.Function):
+  """All-gather of every rank's block along `dim`, in rank order; the
+  gradient is this rank's block of the (group-wide equal) gradient."""
+
+  @staticmethod
+  def forward(ctx, x, dim, tp):
+    ctx.dim, ctx.tp, ctx.size = dim, tp, x.shape[dim]
+    return torch.cat(tp.all_gather(x), dim)
+
+  @staticmethod
+  def backward(ctx, grad):
+    start = ctx.tp.index * ctx.size
+    return grad.narrow(ctx.dim, start, ctx.size).contiguous(), None, None
+
+
+class TensorParallel:
+  """This rank's place on the model axis: its `index` of `count` and the
+  axis' process group (None when count is 1). `gather` and `enter` are
+  the autograd-aware collectives of the layers computing in blocks."""
+
+  def __init__(self, index: int, count: int, group=None):
+    self.index, self.count, self.group = index, count, group
+
+  def all_gather(self, x):
+    x = x.contiguous()
+    if self.count == 1:
+      return [x]
+    parts = [torch.empty_like(x) for _ in range(self.count)]
+    dist.all_gather(parts, x, group=self.group)
+    return parts
+
+  def all_reduce_(self, x):
+    if self.count > 1:
+      dist.all_reduce(x, op=dist.ReduceOp.SUM, group=self.group)
+    return x
+
+  def gather(self, x, dim: int):
+    return _Gather.apply(x, dim, self)
+
+  def enter(self, x):
+    return _Enter.apply(x, self) if x.requires_grad else x
 
 
 def same_pads(size: int, kernel: int, stride: int) -> Tuple[int, int]:
@@ -61,12 +130,17 @@ class Conv(nn.Conv2d):
     super().__init__(*args, **kwargs)
     self.compute_dtype = compute_dtype
 
-  def forward(self, x):
+  def forward(self, x, tp=None):
+    blocked = tp is not None and self.weight.shape[0] != self.out_channels
+    if blocked:
+      x = tp.enter(x)
     dtype = self.compute_dtype
     if dtype == torch.float32:
-      return super().forward(x)
-    y = self._conv_forward(x.to(dtype), self.weight.to(dtype), None)
-    return y + self.bias.to(dtype)[:, None, None]
+      y = super().forward(x)
+    else:
+      y = self._conv_forward(x.to(dtype), self.weight.to(dtype), None)
+      y = y + self.bias.to(dtype)[:, None, None]
+    return tp.gather(y, 1) if blocked else y
 
 
 class Dense(nn.Linear):
@@ -78,11 +152,16 @@ class Dense(nn.Linear):
     super().__init__(*args, **kwargs)
     self.compute_dtype = compute_dtype
 
-  def forward(self, x):
+  def forward(self, x, tp=None):
+    blocked = tp is not None and self.weight.shape[0] != self.out_features
+    if blocked:
+      x = tp.enter(x)
     dtype = self.compute_dtype
     if dtype == torch.float32:
-      return super().forward(x)
-    return F.linear(x.to(dtype), self.weight.to(dtype)) + self.bias.to(dtype)
+      y = super().forward(x)
+    else:
+      y = F.linear(x.to(dtype), self.weight.to(dtype)) + self.bias.to(dtype)
+    return tp.gather(y, -1) if blocked else y
 
 
 def scaled_nchw(frame, dtype):
@@ -98,9 +177,9 @@ class ResidualBlock(nn.Module):
     self.conv0 = Conv(channels, channels, 3, padding=1, compute_dtype=dtype)
     self.conv1 = Conv(channels, channels, 3, padding=1, compute_dtype=dtype)
 
-  def forward(self, x):
-    y = self.conv0(F.relu(x))
-    y = self.conv1(F.relu(y))
+  def forward(self, x, tp=None):
+    y = self.conv0(F.relu(x), tp)
+    y = self.conv1(F.relu(y), tp)
     return x + y
 
 
@@ -113,10 +192,10 @@ class _Section(nn.Module):
     self.blocks = nn.ModuleList(
         ResidualBlock(channels, dtype) for _ in range(num_blocks))
 
-  def forward(self, x):
-    x = max_pool_same(self.conv(x))
+  def forward(self, x, tp=None):
+    x = max_pool_same(self.conv(x, tp))
     for block in self.blocks:
-      x = block(x)
+      x = block(x, tp)
     return x
 
 
@@ -140,12 +219,12 @@ class DeepResNetTorso(nn.Module):
     self.linear = Dense(height * width * in_channels, output_size,
                         compute_dtype=dtype)
 
-  def forward(self, frame):
+  def forward(self, frame, tp=None):
     x = scaled_nchw(frame, self.dtype)
     for section in self.sections:
-      x = section(x)
+      x = section(x, tp)
     x = _flatten_nhwc(F.relu(x))
-    return F.relu(self.linear(x))
+    return F.relu(self.linear(x, tp))
 
 
 class ShallowTorso(nn.Module):
@@ -167,11 +246,11 @@ class ShallowTorso(nn.Module):
     height, width = (height - 4) // 2 + 1, (width - 4) // 2 + 1
     self.linear = Dense(height * width * 32, output_size, compute_dtype=dtype)
 
-  def forward(self, frame):
+  def forward(self, frame, tp=None):
     x = scaled_nchw(frame, self.dtype)
-    x = F.relu(self.conv0(x))
-    x = F.relu(self.conv1(x))
-    return F.relu(self.linear(_flatten_nhwc(x)))
+    x = F.relu(self.conv0(x, tp))
+    x = F.relu(self.conv1(x, tp))
+    return F.relu(self.linear(_flatten_nhwc(x), tp))
 
 
 TORSOS = {

@@ -153,16 +153,21 @@ def sharded_from_importance_weights(mesh, log_rhos, discounts, rewards,
                                     batch_axis='data', batch_size=None
                                     ) -> Tuple[torch.Tensor, torch.Tensor]:
   """Fused V-trace on this rank's shard of a batch split over
-  `batch_axis` of `mesh` (parallel/mesh.py): [T, B/D, ...] float32
-  tensors, bootstrap [B/D, ...], D = mesh.shape[batch_axis]. Returns
+  `batch_axis` of `mesh` (parallel/mesh.py; a tuple of axes splits over
+  their product, as the batch does under tensor parallelism): [T, B/D,
+  ...] float32 tensors, bootstrap [B/D, ...], D = mesh.shape[batch_axis].
+  Returns
   this rank's (vs, pg_advantages); no collectives.
 
   `batch_size` is the global batch B (None: the local batch times D). B
   must split into D equal shards, as under `shard_map`: otherwise, or
   when the local batch is not B/D, it raises ValueError."""
-  if batch_axis not in mesh.shape:
-    raise ValueError(f'mesh has no axis {batch_axis!r}: {mesh.shape}')
-  shards = mesh.shape[batch_axis]
+  shards = 1
+  for axis in (batch_axis if isinstance(batch_axis, tuple)
+               else (batch_axis,)):
+    if axis not in mesh.shape:
+      raise ValueError(f'mesh has no axis {axis!r}: {mesh.shape}')
+    shards *= mesh.shape[axis]
   if log_rhos.ndim < 2:
     raise ValueError(f'log_rhos must be [T, B, ...], got shape '
                      f'{tuple(log_rhos.shape)}')

@@ -297,7 +297,11 @@ def build_run(config: Config, device='cuda', mesh=None):
   initial carry seeded from config.seed. `device` 'cuda' with no CUDA
   raises. With `mesh` the run is this rank's and its device the mesh's,
   which must be of `device`'s type; a batch the data axis does not
-  divide raises ValueError before any work."""
+  divide, or a model axis (JAX's Anakin is data-parallel only), raises
+  ValueError before any work."""
+  if config.model_parallelism > 1:
+    raise ValueError('runtime=anakin is data-parallel only; drop '
+                     '--model_parallelism')
   _check_divisible(config, mesh)
   device = driver.resolve_device(device)
   driver.set_float32_precision()

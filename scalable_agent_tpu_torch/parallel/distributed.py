@@ -20,6 +20,11 @@ the CPU tests run and how two ranks share one card. Every group gets a
 timeout, so a rank that never arrives, or dies, fails the others instead
 of hanging them.
 
+`topology_delta` compares the mesh a checkpoint was saved on with the
+live one (the driver's elastic restore gate). JAX's
+`global_batch_from_local` has no counterpart: no array spans the ranks,
+and each rank trains on the rows its own actors made.
+
 The JAX module's XLA-only parts, the compile cache and the CPU
 collectives flag, have no counterpart.
 """
@@ -27,7 +32,7 @@ collectives flag, have no counterpart.
 import datetime
 import logging
 import os
-from typing import Mapping, NamedTuple, Optional
+from typing import Dict, Mapping, NamedTuple, Optional
 
 import torch
 import torch.distributed as dist
@@ -169,3 +174,21 @@ def shutdown(wait: bool = True):
     else:
       dist.barrier()
   dist.destroy_process_group()
+
+
+def topology_delta(saved_mesh_shape: Optional[Mapping[str, int]], mesh
+                   ) -> Optional[Dict]:
+  """The elastic-restart detector: None when the mesh a checkpoint's
+  sharding manifest recorded is the live mesh's shape (or nothing was
+  recorded, or there is no mesh); else the change record the driver logs
+  and writes as the `topology_resharded` incident, with this rank's
+  place in the group."""
+  if saved_mesh_shape is None or mesh is None:
+    return None
+  live = {str(axis): int(n) for axis, n in dict(mesh.shape).items()}
+  saved = {str(axis): int(n) for axis, n in saved_mesh_shape.items()}
+  if saved == live:
+    return None
+  return {'saved_mesh': saved, 'live_mesh': live,
+          'processes': world_size(), 'process_index': rank()}
+

@@ -27,11 +27,16 @@ The sites this port fires, each on the real code path:
   preempt_signal    the learner loops, one event per step: a fired fault
                     requests the preemption drain, SIGTERM made
                     deterministic.
+  replica_divergence  the fleet loop under data parallelism, one event
+                    per health check with the SDC sentinel on: a fired
+                    fault perturbs one replica's lane of the fingerprint
+                    probe (replica `index % replicas`), so the real
+                    detection -> incident -> rollback path runs.
 
 `SITES` is the JAX package's full tuple, so a plan validates the same
 way in both packages; `install` refuses a plan that schedules a fault at
-a site the port does not fire yet (the env, transport, serving and
-replica sites: ROADMAP A7.3), rather than accept it and never fire it.
+a site the port does not fire yet (the env, transport and serving
+sites: ROADMAP A7.3), rather than accept it and never fire it.
 """
 
 import dataclasses
@@ -56,7 +61,7 @@ SITES = ('env_step', 'transport_send', 'checkpoint_save', 'nan_burst',
 
 # The sites this port fires (see the module docstring).
 PORTED_SITES = ('checkpoint_save', 'ckpt_bitrot', 'nan_burst',
-                'preempt_signal')
+                'preempt_signal', 'replica_divergence')
 
 PLAN_ENV_VAR = 'SA_FAULT_PLAN'
 

@@ -54,7 +54,9 @@ def stop_forkserver():
   started them leaves no process behind (a no-op when none runs)."""
   from multiprocessing import forkserver, resource_tracker
   forkserver._forkserver._stop()
-  resource_tracker._resource_tracker._stop()
+  tracker = resource_tracker._resource_tracker
+  if getattr(tracker, '_pid', None) is not None:  # a process may have none
+    tracker._stop()
 
 
 class ProcessClosed(Exception):

@@ -20,7 +20,9 @@ def test_every_port_field_has_the_jax_default():
   assert not sorted(set(port) - set(ref))
   differ = {k: (v, ref[k]) for k, v in port.items() if ref[k] != v}
   assert not differ
-  assert len(port) == 74  # 63 until the checkpoint slice, 11 more now
+  # 63 until the checkpoint slice, 74 after it; the multi-process slice
+  # adds tp_compute, sharding_rules, sdc_check and sdc_allgather.
+  assert len(port) == 78
 
 
 def test_the_checkpoint_and_health_fields_reach_the_cli():
@@ -33,3 +35,16 @@ def test_the_checkpoint_and_health_fields_reach_the_cli():
   assert (config.checkpoint_secs, config.ckpt_digests,
           config.preempt_drain_timeout_secs,
           config.health_rollback_after) == (5, False, 2.5, 2)
+
+
+def test_the_tp_and_sdc_fields_reach_the_cli():
+  from scalable_agent_tpu_torch import experiment
+  args = vars(experiment._parser().parse_args(
+      ['--model_parallelism=2', '--tp_compute=sharded',
+       '--sharding_rules=megatron', '--sdc_check=false',
+       '--staging_mode=unroll']))
+  args.pop('device')
+  config = Config(**args)
+  assert (config.model_parallelism, config.tp_compute,
+          config.sharding_rules, config.sdc_check,
+          config.staging_mode) == (2, 'sharded', 'megatron', False, 'unroll')

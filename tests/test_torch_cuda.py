@@ -353,3 +353,143 @@ def test_a_checkpoint_restored_on_the_card_is_the_live_state(cuda, tmp_path):
   values = health.read_handle(handle)
   assert values['step_ok'] == 0.0 and values['grad_norm'] == 2.5
   assert values['total_loss'] != values['total_loss']  # NaN
+
+
+# --- process groups on the card (gloo: two ranks share one card) ----------
+
+def _free_port():
+  import socket
+  with socket.socket() as s:
+    s.bind(('localhost', 0))
+    return s.getsockname()[1]
+
+
+def _spawn_on_card(worker, world, *args):
+  import torch.multiprocessing as mp
+  mp.spawn(worker, args=(world, _free_port()) + args, nprocs=world)
+
+
+_TP_KW = dict(torso='shallow', batch_size=8, unroll_length=5,
+              num_action_repeats=1, total_environment_frames=10**6,
+              use_pallas_vtrace=True, use_instruction=False, height=24,
+              width=32, grad_clip_norm=5.0)
+
+
+def _tp_card_rank(rank, world, port, outdir, mode):
+  """A gloo rank on cuda:0 of a {data 1, model 2} mesh: two TP steps of
+  `mode` on its rows of a fixed batch; rank 0 also the one-rank step."""
+  torch.backends.cudnn.allow_tf32 = False
+  torch.backends.cuda.matmul.allow_tf32 = False
+  from scalable_agent_tpu_torch.parallel import train_parallel
+  config = Config(**_TP_KW, model_parallelism=2, tp_compute=mode,
+                  coordinator_address=f'localhost:{port}',
+                  num_processes=world, process_id=rank)
+  device = distributed.maybe_initialize(config, backend='gloo',
+                                        device='cuda:0', timeout_secs=120)
+  mesh = mesh_lib.make_mesh(device, model_parallelism=2)
+  batch = map_structure(torch.from_numpy, _small_batch())
+
+  def agent():
+    a = ImpalaAgent(4, (24, 32, 3), torso='shallow')
+    init_params(a, torch.Generator().manual_seed(0))
+    return a.to(device)
+
+  tp_agent = agent()
+  state = train_parallel.make_sharded_train_state(tp_agent, config, mesh)
+  step, place = train_parallel.make_sharded_train_step(tp_agent, config,
+                                                       mesh, batch)
+  vtrace_cuda.sharded_from_importance_weights.launches = 0
+  for _ in range(2):
+    state, metrics = step(state, place(batch))
+  full = train_parallel.gather_state(state, step.layout)
+  result = {'launches': vtrace_cuda.sharded_from_importance_weights.launches,
+            'mode': step.tp_compute, 'loss': float(metrics['total_loss']),
+            'params': {k: v.detach().cpu() for k, v in full.params.items()}}
+  if rank == 0:
+    one = agent()
+    one_config = Config(**_TP_KW)
+    one_state = learner.make_train_state(one, one_config)
+    one_step = learner.make_train_step_fn(one, one_config)
+    for _ in range(2):
+      one_state, one_metrics = one_step(
+          one_state, map_structure(lambda x: x.to(device), batch))
+    result['one'] = {'loss': float(one_metrics['total_loss']),
+                     'params': {k: v.detach().cpu()
+                                for k, v in one_state.params.items()}}
+  torch.save(result, f'{outdir}/rank{rank}.pt')
+  distributed.shutdown()
+
+
+def _small_batch(t=5, b=8, seed=0):
+  rng = np.random.RandomState(seed)
+  return ActorOutput(
+      level_name=np.zeros(b, np.int32),
+      agent_state=(rng.randn(b, 256).astype(np.float32) * 0.3,
+                   rng.randn(b, 256).astype(np.float32) * 0.3),
+      env_outputs=StepOutput(
+          rng.randn(t + 1, b).astype(np.float32),
+          StepOutputInfo(np.zeros((t + 1, b), np.float32),
+                         np.zeros((t + 1, b), np.int32)),
+          rng.rand(t + 1, b) > 0.8,
+          (rng.randint(0, 256, (t + 1, b, 24, 32, 3)).astype(np.uint8),
+           np.zeros((t + 1, b, 16), np.int32))),
+      agent_outputs=AgentOutput(
+          rng.randint(0, 4, (t + 1, b)),
+          rng.randn(t + 1, b, 4).astype(np.float32),
+          rng.randn(t + 1, b).astype(np.float32)))
+
+
+@pytest.mark.parametrize('mode', ['gathered', 'sharded'])
+def test_tp_step_on_card_through_gloo_matches_one_rank(cuda, tmp_path, mode):
+  """Two gloo ranks on the card, the TP step's collectives (the blocks'
+  all-gather, the gradient all-reduce; in `sharded` the activations' too)
+  on CUDA tensors: the same numbers as the one-rank step on the card
+  (loss rtol 2e-4, params rtol 5e-4 / atol 5e-6, the data-parallel
+  gates), and K1b once per step per rank."""
+  _spawn_on_card(_tp_card_rank, 2, str(tmp_path), mode)
+  ranks = [torch.load(tmp_path / f'rank{r}.pt') for r in range(2)]
+  one = ranks[0]['one']
+  for result in ranks:
+    assert result['mode'] == mode and result['launches'] == 2
+    np.testing.assert_allclose(result['loss'], one['loss'], rtol=2e-4)
+    for k, v in one['params'].items():
+      np.testing.assert_allclose(result['params'][k].numpy(), v.numpy(),
+                                 rtol=5e-4, atol=5e-6, err_msg=k)
+
+
+def _dp_fleet_card_rank(rank, world, port, outdir):
+  torch.backends.cudnn.allow_tf32 = False
+  torch.backends.cuda.matmul.allow_tf32 = False
+  config = Config(logdir=outdir, env_backend='bandit', num_actors=2,
+                  batch_size=4, unroll_length=5, num_action_repeats=1,
+                  episode_length=4, height=24, width=32, torso='shallow',
+                  use_py_process=False, use_instruction=False,
+                  use_pallas_vtrace=True, inference_timeout_ms=5,
+                  summary_secs=0, seed=0,
+                  coordinator_address=f'localhost:{port}',
+                  num_processes=world, process_id=rank)
+  device = distributed.maybe_initialize(config, backend='gloo',
+                                        device='cuda:0', timeout_secs=120)
+  vtrace_cuda.from_importance_weights.launches = 0
+  vtrace_cuda.sharded_from_importance_weights.launches = 0
+  run = driver.train(config, max_steps=3, device=device,
+                     stall_timeout_secs=120)
+  torch.save({'k1': vtrace_cuda.from_importance_weights.launches,
+              'k1b': vtrace_cuda.sharded_from_importance_weights.launches,
+              'steps': run.state.update_steps,
+              'params': {k: v.detach().cpu()
+                         for k, v in run.state.params.items()}},
+             f'{outdir}/rank{rank}.pt')
+  distributed.shutdown()
+
+
+def test_dp_fleet_on_card_launches_k1b_once_per_step(cuda, tmp_path):
+  """The fleet's learner under a group of two gloo ranks on the card runs
+  the sharded V-trace kernel (K1b), once per learner step per rank, and
+  the ranks' params stay bit-equal."""
+  _spawn_on_card(_dp_fleet_card_rank, 2, str(tmp_path))
+  ranks = [torch.load(tmp_path / f'rank{r}.pt') for r in range(2)]
+  for result in ranks:
+    assert (result['k1'], result['k1b'], result['steps']) == (0, 3, 3)
+  for k, v in ranks[0]['params'].items():
+    assert torch.equal(v, ranks[1]['params'][k]), k

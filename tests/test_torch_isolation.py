@@ -101,3 +101,38 @@ def test_the_port_holds_its_own_batcher_source():
   assert build.HOST_SOURCES['batcher'] == source
   assert build.host_library_path('batcher').startswith(
       os.path.join(PACKAGE, '_build') + os.sep)
+
+
+def test_the_multi_process_paths_load_no_jax():
+  """The registry, the TP train state, the SDC fingerprint, the unroll
+  stager and the checkpoint's manifest, run (not only imported) in a
+  fresh process: no JAX module loads. A spawned rank runs exactly these."""
+  script = (
+      'import sys, tempfile, numpy as np, torch\n'
+      'from scalable_agent_tpu_torch import checkpoint, learner\n'
+      'from scalable_agent_tpu_torch.config import Config\n'
+      'from scalable_agent_tpu_torch.models import ImpalaAgent\n'
+      'from scalable_agent_tpu_torch.parallel import mesh, sharding\n'
+      'from scalable_agent_tpu_torch.parallel import train_parallel\n'
+      'from scalable_agent_tpu_torch.runtime import ring_buffer\n'
+      'config = Config(batch_size=4, model_parallelism=2)\n'
+      'agent = ImpalaAgent(3, (24, 32, 3), torso="shallow")\n'
+      'one = mesh.Mesh(0, 1, torch.device("cpu"))\n'
+      'layout = train_parallel.param_layout(agent, config,\n'
+      '                                     {"data": 1, "model": 2})\n'
+      'assert layout.cut_any\n'
+      'fp, replicas = train_parallel.make_sdc_fingerprint_fn(one)\n'
+      'assert fp(dict(agent.named_parameters())).shape == (replicas,)\n'
+      'state = learner.make_train_state(agent, Config())\n'
+      'with tempfile.TemporaryDirectory() as d:\n'
+      '  ckpt = checkpoint.Checkpointer(d, mesh=one,\n'
+      '                                 registry=layout.registry)\n'
+      '  assert ckpt.save(state, force=True)\n'
+      '  assert ckpt.read_sharding_manifest(0)["rule_set"] == "megatron"\n'
+      'stager = ring_buffer.UnrollBatchStager(1)\n'
+      'bad = sorted(m for m in sys.modules if m.split(".")[0] in '
+      '("jax", "jaxlib", "flax", "optax", "scalable_agent_tpu"))\n'
+      'assert not bad, bad\n')
+  proc = subprocess.run([sys.executable, '-c', script], cwd=REPO,
+                        capture_output=True, text=True, timeout=120)
+  assert proc.returncode == 0, proc.stderr

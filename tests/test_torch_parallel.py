@@ -507,10 +507,21 @@ def test_choose_mesh_rules(monkeypatch, caplog):
 
 
 def test_model_parallelism_is_a_later_slice():
-  with pytest.raises(NotImplementedError, match='A5b'):
-    Config(model_parallelism=2)
-  with pytest.raises(NotImplementedError, match='A5b'):
+  """Tensor parallelism is in the port now: the config takes a model
+  axis, and the mesh builds one over a group whose ranks it divides; with
+  no group (one rank) a model axis of 2 raises JAX's ValueError, as does
+  the Anakin runtime, which is data-parallel only."""
+  config = Config(model_parallelism=2)
+  assert config.model_parallelism == 2 and config.tp_compute == 'auto'
+  with pytest.raises(ValueError, match='not divisible by '
+                     'model_parallelism=2'):
     mesh_lib.make_mesh('cpu', model_parallelism=2)
+  with pytest.raises(ValueError, match='data-parallel only'):
+    anakin.build_run(Config(**dict(_ANAKIN_KW, model_parallelism=2)),
+                     device='cpu')
+  with pytest.raises(ValueError, match='data-parallel only'):
+    driver.train_anakin(Config(**dict(_ANAKIN_KW, model_parallelism=2)),
+                        device='cpu')
 
 
 _DIST_CONFIGS = [
@@ -583,6 +594,9 @@ def test_cli_refuses_multi_node_anakin(monkeypatch, tmp_path):
     experiment.main(['--mode=anakin', '--device=cpu', '--env_backend=bandit',
                      f'--logdir={tmp_path}'])
   assert not distributed.is_initialized()
-  with pytest.raises(NotImplementedError, match='A5b'):
+  for name in ('RANK', 'WORLD_SIZE', 'LOCAL_RANK', 'LOCAL_WORLD_SIZE'):
+    monkeypatch.delenv(name)
+  # Tensor parallelism with Anakin: JAX's refusal.
+  with pytest.raises(ValueError, match='data-parallel only'):
     experiment.main(['--mode=anakin', '--device=cpu',
                      '--model_parallelism=2', f'--logdir={tmp_path}'])
