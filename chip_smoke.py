@@ -150,6 +150,40 @@ Phases, each of which raises (exit code != 0) when it fails:
              gathered params; its save at {data 1, model 2} restored at
              {data 1, model 1} bit-equal. It prints each mode's ms per step
              and the save's and the restore's ms.
+23. full_feature — the learner extensions' main path: `driver.train` on
+             the 30 fake DMLab-30 levels at the fleet phase's widths in
+             bfloat16, with PopArt over the 30 tasks, pixel control at
+             0.01 and the instruction encoder, 32 process-hosted actors
+             stamping level ids i % 30, for 8 learner steps (6 timed):
+             K1 once per learner step, finite losses, every task's PopArt
+             statistics moved; env-frames/s, ms per learner step, the
+             blocked-get share, device busy and idle share (torch.profiler,
+             last 2 steps), peak memory and the PopArt sigma range.
+24. full_feature_reference — the float32 full-feature learner step (deep
+             torso, 72x96, T=20, B=4, 30 tasks) on the card against the
+             CPU from one seeded state on one fixed batch: loss, grad
+             norm, pixel-control loss and PopArt statistics rtol 1e-4;
+             each parameter tensor within 4x the CPU float32 run's
+             distance to the same step with float64 layers on the CPU,
+             or 1e-3 of its update's norm, whichever is larger.
+25. cli_full_feature — the CLI with the full-feature flags for 2 steps.
+26. impact_fleet — IMPACT with sample reuse (replay_k 2, replay_ratio
+             0.5, target_update_interval 4) at the same widths in float32
+             for 8 learner steps: K1 once per step (on the target
+             network's inputs), the frame clock at the fresh slots served,
+             re-serves and replayed unrolls, the target equal to the params
+             after step 8's refresh; fresh frames against steps x
+             frames_per_step, the tier's occupancy, the clip fraction.
+27. extensions_anakin — `anakin.train` with PopArt, pixel control and the
+             instruction encoder at the slice's widths for 3 fused steps.
+28. popart_dp — 2 gloo ranks: the data-parallel fleet with PopArt, pixel
+             control and the instruction encoder for 4 learner steps (K1b
+             per step per rank, params and PopArt statistics bit-equal
+             across the ranks after every step), then the sharded step on
+             a fixed full-width batch against the one-rank step.
+29. fit — parallel/fit.py's memory fit at B=32 and B=16 per card: one
+             full-feature bf16 step each, peak memory against 0.85 of the
+             card's.
 
 Every CLI phase checks that its process logged `float32 precision: tf32 off
 (cudnn, matmul)`: the port's entry points run float32 layers without TF32.
@@ -157,8 +191,9 @@ Every CLI phase checks that its process logged `float32 precision: tf32 off
 The forkserver that env processes fork from is started before the first
 CUDA call. Every kernel's launch count is set to 0 just before each path
 (the three slices, the fleet, the K2 entry point, resume_anakin's second
-call, rollback_fleet and unroll_fleet; the ranks of slice_dp, dp_fleet
-and tp count their own and report them)
+call, rollback_fleet, unroll_fleet, full_feature, impact_fleet and
+extensions_anakin; the ranks of slice_dp, dp_fleet, tp and popart_dp
+count their own and report them)
 and read just after; a kernel that its
 path did not launch fails the run. The second-to-last line of the output is the
 JSON `{"kernels": [...]}` record, the last `{"ok": true, "device": {...}}`.
@@ -167,6 +202,7 @@ either.
 """
 
 import dataclasses
+import gc
 import hashlib
 import json
 import math
@@ -190,6 +226,7 @@ from scalable_agent_tpu_torch import checkpoint as checkpoint_lib
 from scalable_agent_tpu_torch import driver
 from scalable_agent_tpu_torch import integrity
 from scalable_agent_tpu_torch import learner
+from scalable_agent_tpu_torch import popart as popart_lib
 from scalable_agent_tpu_torch.config import Config
 from scalable_agent_tpu_torch.models import init_params
 from scalable_agent_tpu_torch.models.torsos import max_pool_same, scaled_nchw
@@ -807,6 +844,7 @@ def phase_slice_dp():
   """2 ranks sharing the card over gloo (see _dp_rank); returns the
   launch counts of the fused-step path, summed over the ranks."""
   with tempfile.TemporaryDirectory(prefix='chip_smoke_dp_') as outdir:
+    _free_the_card('slice_dp')
     context = mp.start_processes(
         _dp_rank, args=(DP_RANKS, _free_port(), outdir), nprocs=DP_RANKS,
         join=False, start_method='spawn')
@@ -1418,11 +1456,30 @@ TP_FLEET_STEPS = 3
 MEASURED = {}
 
 
+def _free_the_card(name):
+  """Before ranks that share the card start: the blocks the parent's
+  allocator keeps from earlier phases go back to the card. Kept, they
+  starve the ranks' cuDNN workspaces, a starved convolution falls back
+  to algorithms that round otherwise, and the tp phase's comparison
+  with the one-rank step then read up to 3x its gate (PERF.md). Logs
+  the card's memory as the ranks start."""
+  gc.collect()
+  reserved = torch.cuda.memory_reserved()
+  torch.cuda.empty_cache()
+  released = reserved - torch.cuda.memory_reserved()
+  free, total = torch.cuda.mem_get_info()
+  log(f'{name}: the parent released {released / 2**30:.2f} GiB of cache '
+      f'and holds {torch.cuda.memory_allocated() / 2**30:.2f} GiB; the '
+      f'ranks start with {free / 2**30:.2f} of {total / 2**30:.2f} GiB '
+      'free')
+
+
 def _run_ranks(name, worker, outdir, *args):
   """`worker(rank, world, port, outdir, *args)` in DP_RANKS spawned
-  processes sharing the card; returns each rank's result (its
-  `outdir`/rank<r>.pt). A rank that raises stops the others and fails
-  the phase."""
+  processes sharing the card, the parent's cache released first;
+  returns each rank's result (its `outdir`/rank<r>.pt). A rank that
+  raises stops the others and fails the phase."""
+  _free_the_card(name)
   context = mp.start_processes(
       worker, args=(DP_RANKS, _free_port(), outdir) + args,
       nprocs=DP_RANKS, join=False, start_method='spawn')
@@ -1834,6 +1891,14 @@ def _tp_violations(what, got, want, rtol, atol):
   return float(diff.max(initial=0.0)), [what] if bad else []
 
 
+def _gate_share(got, want, rtol, atol):
+  """The largest |got - want| / (atol + rtol |want|): above 1 fails."""
+  got = np.asarray(got, np.float64)
+  want = np.asarray(want, np.float64)
+  return float((np.abs(got - want) / (atol + rtol * np.abs(want))).max(
+      initial=0.0))
+
+
 def _bit_equal(a, b):
   return a.keys() == b.keys() and all(torch.equal(a[k], b[k]) for k in b)
 
@@ -1885,12 +1950,14 @@ def _tp_check(mode, ranks, decay):
       step['grad_norm'], bad = _tp_violations(
           f'{what} grad_norm', got['norms'][i], norm, 2e-4, 0.0)
       failures += bad
-      step['params'] = 0.0
+      step['params'] = step['params_share'] = 0.0
       for k, v in after['params'].items():
-        diff, bad = _tp_violations(f'{what} params {k}',
-                                   tp_after['params'][k].numpy(), v.numpy(),
+        have, want = tp_after['params'][k].numpy(), v.numpy()
+        diff, bad = _tp_violations(f'{what} params {k}', have, want,
                                    5e-4, 5e-6)
         step['params'] = max(step['params'], diff)
+        step['params_share'] = max(step['params_share'],
+                                   _gate_share(have, want, 5e-4, 5e-6))
         failures += bad
       step['nu'] = step['nu_rel'] = 0.0
       before = got['states'][i]['opt_state']['nu']
@@ -1988,6 +2055,444 @@ def phase_tp():
   return counts
 
 
+# --- the learner extensions (PopArt, pixel control, the instruction
+# encoder, IMPACT with the replay tier, the memory fit) ---------------------
+
+# The full-feature fleet: the fleet phase's widths on the 30 fake DMLab-30
+# levels (actor i plays level i % 30 and stamps its level id), PopArt over
+# the 30 tasks, pixel control at 0.01, the instruction encoder, bf16.
+FULL_FEATURE = dict(FLEET, env_backend='fake', level_name='dmlab30',
+                    use_popart=True, pixel_control_cost=0.01,
+                    use_instruction=True, compute_dtype='bfloat16')
+# IMPACT with sample reuse at the same widths, float32.
+IMPACT_FLEET = dict(FULL_FEATURE, compute_dtype='float32',
+                    surrogate='impact', replay_k=2, replay_ratio=0.5,
+                    target_update_interval=4)
+EXTENSIONS_ANAKIN = dict(SLICE, use_popart=True, pixel_control_cost=0.01,
+                         use_instruction=True)
+EXTENSIONS_ANAKIN_STEPS = 3
+POPART_DP_FLEET = dict(DP_FLEET, env_backend='fake', level_name='dmlab30',
+                       use_popart=True, pixel_control_cost=0.01,
+                       use_instruction=True)
+POPART_DP_STEPS = 4
+NUM_TASKS = 30
+
+
+def _extension_run(name, config, steps=FLEET_STEPS):
+  """driver.train at `config` for `steps` learner steps, steps 3.. timed
+  and the last two profiled; returns (run, counts, the last step's
+  metrics as floats, the timings)."""
+  window, last = [], {}
+  profiler = torch.profiler.profile(activities=[
+      torch.profiler.ProfilerActivity.CPU,
+      torch.profiler.ProfilerActivity.CUDA])
+
+  def on_step(run, step, metrics):
+    if step == steps - 2:
+      torch.cuda.synchronize()
+      profiler.start()
+      window.append(time.perf_counter())
+    elif step == steps:
+      torch.cuda.synchronize()
+      window.append(time.perf_counter())
+      profiler.stop()
+      last.update({k: float(v) for k, v in metrics.items()})
+
+  torch.cuda.reset_peak_memory_stats()
+  run, counts = _drive(name, lambda: driver.train(
+      config, max_steps=steps, device='cuda', stall_timeout_secs=300,
+      on_step=on_step))
+  if run.state.update_steps != steps:
+    raise AssertionError(f'{name}: update_steps {run.state.update_steps}')
+  if counts['vtrace'] != steps or counts['conv_pool'] or (
+      counts['vtrace_sharded']):
+    raise AssertionError(f'{name}: launches {counts} in {steps} learner '
+                         'steps')
+  with open(os.path.join(config.logdir, 'summaries.jsonl')) as f:
+    events = [json.loads(line) for line in f]
+  losses = [e['value'] for e in events if e['tag'] == 'total_loss']
+  if len(losses) != steps or not all(map(math.isfinite, losses)):
+    raise AssertionError(f'{name} losses: {losses}')
+  timed_s, waited_s = _step_times(run, FLEET_TIMED_FROM)
+  busy_ms = _device_busy_ms(profiler)
+  timing = dict(
+      step_ms=1e3 * timed_s / (steps - FLEET_TIMED_FROM),
+      blocked=waited_s / timed_s,
+      busy_ms=busy_ms / 2 if busy_ms else None,
+      idle=(1 - busy_ms / (1e3 * (window[1] - window[0]))
+            if busy_ms else None),
+      peak_gib=torch.cuda.max_memory_allocated() / 2**30)
+  return run, counts, last, losses, timing
+
+
+def _timing_line(timing):
+  busy = ('not measured (no device events)' if timing['busy_ms'] is None
+          else f'{timing["busy_ms"]:.2f} ms per learner step, idle share '
+               f'{timing["idle"]:.4f}')
+  return (f'{timing["step_ms"]:.2f} ms per learner step over steps '
+          f'{FLEET_TIMED_FROM + 1}-{FLEET_STEPS}; learner blocked in '
+          f'prefetcher.get {timing["blocked"]:.4f} of that time; device '
+          f'busy {busy} (torch.profiler over the last 2 steps, inference '
+          f'kernels included); peak allocated {timing["peak_gib"]:.3f} GiB')
+
+
+def phase_full_feature():
+  """The full-feature fleet (FULL_FEATURE) for 8 learner steps, 6 timed:
+  one K1 launch per learner step, finite losses, PopArt statistics over
+  the 30 tasks that every task's actors moved, a finite pixel-control
+  loss; env-frames/s, ms per learner step, device busy and idle share,
+  peak memory, the PopArt sigma range."""
+  with tempfile.TemporaryDirectory(prefix='chip_smoke_ff_') as logdir:
+    config = Config(**FULL_FEATURE, logdir=logdir)
+    run, counts, last, losses, timing = _extension_run('full_feature',
+                                                       config)
+  popart = run.state.popart
+  moved = int((popart.mu != 0).sum())
+  if popart.mu.shape != (NUM_TASKS,) or moved != NUM_TASKS:
+    raise AssertionError(f'full_feature: PopArt over {popart.mu.shape} '
+                         f'tasks, {moved} moved')
+  for key in ('pixel_control_loss', 'popart_sigma_min', 'popart_sigma_max'):
+    if not math.isfinite(last[key]):
+      raise AssertionError(f'full_feature: {key} {last[key]}')
+  fps = config.frames_per_step / timing['step_ms'] * 1e3
+  log(f'full_feature: {fps:.1f} env-frames/s, {_timing_line(timing)}; '
+      f'losses {losses}; pixel_control_loss {last["pixel_control_loss"]}; '
+      f'PopArt sigma {last["popart_sigma_min"]:.6f}..'
+      f'{last["popart_sigma_max"]:.6f} over {moved} of {NUM_TASKS} tasks; '
+      f'vtrace launches {counts["vtrace"]}')
+  MEASURED['full_feature_step_ms'] = timing['step_ms']
+  return counts
+
+
+def _ff_reference_steps(device, compute=torch.float32, steps=1):
+  """`steps` full-feature learner steps (deep torso, 72x96, T=20, B=4, 30
+  tasks, PopArt, pixel control, the instruction encoder, fused V-trace)
+  on one fixed batch from the seeded state, on `device`, the layers
+  computing in `compute` (float64 gives the reference's accurate sums;
+  params, the heads' outputs, V-trace and the losses stay float32):
+  (losses, metrics, initial params, params, PopArt mu) on the CPU."""
+  from scalable_agent_tpu_torch.models import ImpalaAgent
+  from scalable_agent_tpu_torch.models.instruction import MAX_INSTRUCTION_LEN
+  from scalable_agent_tpu_torch.testing import make_example_batch
+  config = Config(**dict(FULL_FEATURE, compute_dtype='float32',
+                         unroll_length=20, batch_size=4,
+                         num_action_repeats=1))
+  agent = ImpalaAgent(SLICE['num_actions'], (72, 96, 3), torso='deep',
+                      dtype=compute, use_instruction=True,
+                      num_popart_tasks=NUM_TASKS, use_pixel_control=True)
+  init_params(agent, torch.Generator().manual_seed(config.seed))
+  agent.to(device)
+  state = learner.make_train_state(agent, config, NUM_TASKS)
+  initial = _param_snapshot(state.params)
+  step = learner.make_train_step_fn(agent, config)
+  batch = make_example_batch(21, 4, 72, 96, SLICE['num_actions'],
+                             MAX_INSTRUCTION_LEN, device=device,
+                             num_tasks=NUM_TASKS, done_prob=0.1)
+  batch = batch._replace(level_name=torch.tensor(
+      [0, 7, 29, 7], dtype=torch.int32, device=device))
+  losses = []
+  for _ in range(steps):
+    state, metrics = step(state, batch)
+    losses.append(float(metrics['total_loss']))
+  return (np.asarray(losses), {k: float(v) for k, v in metrics.items()},
+          initial, _param_snapshot(state.params), state.popart.mu.cpu())
+
+
+# The reference's parameter gate. Over two steps an elementwise gate
+# (rtol 1e-3 / atol 1e-5) and then a normwise one (1e-3 of each tensor's
+# two updates) failed on the first conv: at losses of ~1e4 a gradient
+# element of it is a float32 sum of ~6e5 terms with heavy cancellation,
+# RMSProp's first steps carry that rounding into the update, and the
+# second step's gradient, taken at the moved params, compounds it. So
+# the phase holds one step, and holds the card to the float32 error
+# itself: per parameter tensor, its distance to the same step computed
+# with float64 layers on the CPU within FF_REFERENCE_MARGIN times the
+# CPU float32 run's distance to it, or within FF_REFERENCE_FLOOR of the
+# norm of the tensor's update, whichever is larger. cuDNN's and cuBLAS's
+# algorithms round otherwise than the CPU's (a margin of 2 read 2.02 on
+# a conv bias), and where the CPU's float32 happens to land very close
+# the floor carries the gate. A layout or arithmetic fault reads orders
+# of magnitude more.
+FF_REFERENCE_MARGIN = 4.0
+FF_REFERENCE_FLOOR = 1e-3
+
+
+def phase_full_feature_reference():
+  """The float32 full-feature learner step on the card against the same
+  step on the CPU, from one seeded state on one fixed batch: loss, grad
+  norm, pixel-control loss and PopArt sigma rtol 1e-4, PopArt mu rtol
+  1e-4 / atol 1e-7; per parameter tensor ||p_card - p_64|| <=
+  max(FF_REFERENCE_MARGIN ||p_cpu - p_64||, FF_REFERENCE_FLOOR
+  ||p_64 - p_initial||), with p_64 the same steps with float64 layers on
+  the CPU. It prints the largest shares of that bound and the largest
+  elementwise differences."""
+  cpu_losses, cpu_m, initial, cpu_params, cpu_mu = _ff_reference_steps(
+      'cpu')
+  _, _, _, ref_params, _ = _ff_reference_steps('cpu', torch.float64)
+  gpu_losses, gpu_m, _, gpu_params, gpu_mu = _ff_reference_steps('cuda')
+  np.testing.assert_allclose(gpu_losses, cpu_losses, rtol=1e-4)
+  for key in ('grad_norm', 'pixel_control_loss', 'popart_sigma_min',
+              'popart_sigma_max'):
+    np.testing.assert_allclose(gpu_m[key], cpu_m[key], rtol=1e-4,
+                               err_msg=key)
+  np.testing.assert_allclose(gpu_mu.numpy(), cpu_mu.numpy(), rtol=1e-4,
+                             atol=1e-7)
+  ratios, card_err, cpu_err = [], 0.0, 0.0
+  for k in cpu_params:
+    card = float((gpu_params[k] - ref_params[k]).norm())
+    cpu = float((cpu_params[k] - ref_params[k]).norm())
+    moved = float((ref_params[k] - initial[k]).norm())
+    bound = max(FF_REFERENCE_MARGIN * cpu, FF_REFERENCE_FLOOR * moved)
+    if not card <= bound:
+      raise AssertionError(
+          f'full_feature_reference {k}: ||card - f64|| {card:.3e} > max('
+          f'{FF_REFERENCE_MARGIN} x ||cpu - f64|| {cpu:.3e}, '
+          f'{FF_REFERENCE_FLOOR} x ||update|| {moved:.3e})')
+    ratios.append((card / bound if bound else 0.0, k))
+    card_err = max(card_err,
+                   float((gpu_params[k] - ref_params[k]).abs().max()))
+    cpu_err = max(cpu_err, float((cpu_params[k] - ref_params[k]).abs().max()))
+  log(f'full_feature reference: loss card {gpu_losses.tolist()} cpu '
+      f'{cpu_losses.tolist()}; grad_norm card {gpu_m["grad_norm"]} cpu '
+      f'{cpu_m["grad_norm"]}; pixel_control_loss card '
+      f'{gpu_m["pixel_control_loss"]} cpu {cpu_m["pixel_control_loss"]}; '
+      f'max |PopArt mu diff| {float((gpu_mu - cpu_mu).abs().max()):.3e}; '
+      f'against the float64-layer steps: ||card - f64|| over its bound, '
+      f'largest {[(round(r, 3), k) for r, k in sorted(ratios)[-3:]]}, '
+      f'median {statistics.median(r for r, _ in ratios):.3f}; max '
+      f'|card - f64| {card_err:.3e}, max |cpu - f64| {cpu_err:.3e}')
+
+
+def phase_cli_full_feature():
+  """The CLI with the full-feature flags (bf16, dmlab30 on the fake
+  backend, PopArt, pixel control, the instruction encoder) for 2 learner
+  steps through 32 process-hosted actors."""
+  config = Config(**FULL_FEATURE)
+  with tempfile.TemporaryDirectory(prefix='chip_smoke_cli_ff_') as logdir:
+    cmd = [sys.executable, '-m', 'scalable_agent_tpu_torch.experiment',
+           '--mode=train', '--runtime=fleet', f'--logdir={logdir}',
+           f'--total_environment_frames={2 * config.frames_per_step}']
+    cmd += [f'--{field}={value}' for field, value in FULL_FEATURE.items()]
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, capture_output=True, text=True, timeout=600,
+                          cwd=os.path.dirname(os.path.abspath(__file__)))
+    if proc.returncode != 0:
+      raise RuntimeError(f'full-feature CLI failed ({proc.returncode}):\n'
+                         f'{proc.stderr[-8000:]}')
+    _check_precision_line(proc.stderr, 'cli_full_feature')
+    if 'PopArt statistics per task' not in proc.stderr:
+      raise AssertionError('cli_full_feature: no PopArt statistics logged')
+    with open(os.path.join(logdir, 'summaries.jsonl')) as f:
+      events = [json.loads(line) for line in f]
+  tags = {e['tag']: e['value'] for e in events if 'value' in e}
+  for key in ('total_loss', 'pixel_control_loss', 'popart_sigma_max'):
+    if not math.isfinite(tags.get(key, math.nan)):
+      raise AssertionError(f'cli_full_feature: {key} {tags.get(key)}')
+  log(f'cli_full_feature: 2 steps in {time.perf_counter() - t0:.1f} s; '
+      f'last total_loss {tags["total_loss"]}, pixel_control_loss '
+      f'{tags["pixel_control_loss"]}, popart_sigma_max '
+      f'{tags["popart_sigma_max"]}')
+
+
+def phase_impact_fleet():
+  """IMPACT with sample reuse (IMPACT_FLEET) for 8 learner steps: one K1
+  launch per learner step (on the target network's rhos and values), the
+  frame clock at the fresh slots served (fewer frames than steps x
+  frames_per_step), re-serves and replayed unrolls, the target network
+  equal to the params after the refresh at step 8; fresh frames, the
+  tier's occupancy and the clip fraction."""
+  with tempfile.TemporaryDirectory(prefix='chip_smoke_impact_') as logdir:
+    config = Config(**IMPACT_FLEET, logdir=logdir)
+    run, counts, last, losses, timing = _extension_run('impact_fleet',
+                                                       config)
+  prefetch, buffer = run.stats['prefetcher'], run.stats['buffer']
+  frames_per_unroll = config.unroll_length * config.num_action_repeats
+  fresh = prefetch['fresh_slots_served'] * frames_per_unroll
+  steps_frames = FLEET_STEPS * config.frames_per_step
+  if run.frames != fresh or not fresh < steps_frames:
+    raise AssertionError(f'impact_fleet: frames {run.frames}, fresh {fresh}'
+                         f', steps x frames_per_step {steps_frames}')
+  if prefetch['batch_reserves'] < FLEET_STEPS // 2 - 1 or not (
+      buffer['replay_reused_unrolls']):
+    raise AssertionError(f'impact_fleet: no reuse: {prefetch} {buffer}')
+  state = run.state
+  if not all(torch.equal(state.target_params[k], p.detach())
+             for k, p in state.params.items()):
+    raise AssertionError('impact_fleet: the target network is not the '
+                         'params after the refresh at step 8')
+  if not math.isfinite(last['impact_clip_fraction']):
+    raise AssertionError(f'impact_fleet: clip fraction {last}')
+  fps = fresh / (1e-3 * timing['step_ms'] * FLEET_STEPS)
+  log(f'impact_fleet: fresh frames {fresh} against {FLEET_STEPS} steps x '
+      f'{config.frames_per_step} = {steps_frames} ({fresh / steps_frames:.4f}'
+      f'); {prefetch["serves"]} serves, {prefetch["batch_reserves"]} '
+      f're-serves; replay tier occupancy {buffer["replay_occupancy"]} of '
+      f'{buffer["replay_capacity"]}, {buffer["replay_reused_unrolls"]} '
+      f'replayed unrolls, mean staleness {buffer["replay_mean_staleness"]}, '
+      f'evictions age/version/crc {buffer["replay_evictions_age"]}/'
+      f'{buffer["replay_evictions_version"]}/{buffer["replay_evictions_crc"]}'
+      f'; clip fraction at step {FLEET_STEPS} {last["impact_clip_fraction"]}'
+      f'; about {fps:.1f} fresh env-frames/s; {_timing_line(timing)}; '
+      f'losses {losses}; vtrace launches {counts["vtrace"]}')
+  return counts
+
+
+def phase_extensions_anakin():
+  """anakin.train with PopArt (one task), pixel control and the
+  instruction encoder at the slice's widths for 3 fused steps: one K1
+  launch per step, finite summaries, the state's PopArt statistics and
+  a checkpoint that holds them."""
+  with tempfile.TemporaryDirectory(prefix='chip_smoke_ext_anakin_') as d:
+    config = Config(**EXTENSIONS_ANAKIN, mode='anakin', logdir=d,
+                    summary_secs=0,
+                    total_environment_frames=10**9)
+    t0 = time.perf_counter()
+    carry, counts = _drive('extensions_anakin', lambda: anakin.train(
+        config, max_steps=EXTENSIONS_ANAKIN_STEPS, device='cuda'))
+    wall = time.perf_counter() - t0
+    with open(os.path.join(d, 'summaries.jsonl')) as f:
+      losses = [e['value'] for e in map(json.loads, f)
+                if e['tag'] == 'total_loss']
+    saved = checkpoint_lib.Checkpointer(os.path.join(d, 'checkpoints'))
+    steps = saved.all_steps()
+  state = carry.train_state
+  if counts['vtrace'] != EXTENSIONS_ANAKIN_STEPS or counts['conv_pool']:
+    raise AssertionError(f'extensions_anakin: launches {counts}')
+  if (state.update_steps != EXTENSIONS_ANAKIN_STEPS or not losses or
+      not all(map(math.isfinite, losses)) or
+      state.popart.mu.shape != (1,) or steps != [EXTENSIONS_ANAKIN_STEPS]):
+    raise AssertionError(f'extensions_anakin: steps {state.update_steps}, '
+                         f'losses {losses}, popart {state.popart}, '
+                         f'checkpoints {steps}')
+  log(f'extensions_anakin: {EXTENSIONS_ANAKIN_STEPS} fused steps in '
+      f'{wall:.2f} s (set-up and first step included); losses {losses}; '
+      f'PopArt mu {state.popart.mu.tolist()} sigma '
+      f'{float(popart_lib.sigma(state.popart)[0]):.6f}; vtrace launches '
+      f'{counts["vtrace"]}')
+  return counts
+
+
+def _popart_dp_rank(rank, world, port, outdir):
+  def body(group, device):
+    digests, moments = [], []
+
+    def on_step(run, step, metrics):
+      digests.append(_params_digest(run.state.params))
+      moments.append(run.state.popart.mu.cpu().numpy().tobytes().hex())
+
+    config = Config(**POPART_DP_FLEET, **group,
+                    logdir=os.path.join(outdir, 'fleet'))
+    _zero_counts()
+    run = driver.train(config, max_steps=POPART_DP_STEPS, device=device,
+                       stall_timeout_secs=300, on_step=on_step)
+    counts = _counts()
+    gathered = [None] * world
+    dist.all_gather_object(gathered, (digests, moments))
+    result = dict(counts=counts, update_steps=run.state.update_steps,
+                  gathered=gathered, sdc_mismatches=run.health.sdc_mismatches)
+    del run
+    # The sharded step on a fixed full-width global batch (float32)
+    # against the one-rank step from the same seeded state.
+    from scalable_agent_tpu_torch.models.instruction import (
+        MAX_INSTRUCTION_LEN)
+    from scalable_agent_tpu_torch.testing import make_example_batch
+    step_config = Config(**dict(POPART_DP_FLEET, **group,
+                                num_action_repeats=1))
+    batch = make_example_batch(
+        step_config.unroll_length + 1, step_config.batch_size, 72, 96,
+        SLICE['num_actions'], MAX_INSTRUCTION_LEN, num_tasks=NUM_TASKS,
+        done_prob=0.1)
+    mesh = mesh_lib.make_mesh(device)
+
+    def fresh_agent(cfg):
+      agent = driver.build_agent(cfg, SLICE['num_actions'], NUM_TASKS)
+      init_params(agent, torch.Generator().manual_seed(cfg.seed))
+      return agent.to(device)
+
+    agent = fresh_agent(step_config)
+    state = train_parallel.make_sharded_train_state(agent, step_config, mesh)
+    step, place = train_parallel.make_sharded_train_step(agent, step_config,
+                                                         mesh, batch)
+    _zero_counts()
+    state, metrics = step(state, place(batch))
+    result['step_counts'] = _counts()
+    result['step'] = dict(loss=float(metrics['total_loss']),
+                          pc=float(metrics['pixel_control_loss']),
+                          params=_param_snapshot(state.params),
+                          mu=state.popart.mu.cpu())
+    if rank == 0:
+      one = Config(**dict(POPART_DP_FLEET, num_action_repeats=1))
+      agent1 = fresh_agent(one)
+      state1, metrics1 = learner.make_train_step_fn(agent1, one)(
+          learner.make_train_state(agent1, one, NUM_TASKS),
+          map_structure(lambda v: v.to(device), batch))
+      result['single'] = dict(loss=float(metrics1['total_loss']),
+                              pc=float(metrics1['pixel_control_loss']),
+                              params=_param_snapshot(state1.params),
+                              mu=state1.popart.mu.cpu())
+    return result
+
+  _in_rank(rank, world, port, outdir, body)
+
+
+def phase_popart_dp():
+  """2 gloo ranks sharing the card: the data-parallel fleet with PopArt,
+  pixel control and the instruction encoder (16 actors per rank, global
+  B=32) for 4 learner steps: K1b once per learner step per rank, the
+  ranks' params and PopArt statistics bit-equal after every step, no SDC
+  mismatch. Then the sharded step on a fixed full-width global batch
+  against the one-rank step from the same state: loss and pixel-control
+  loss rtol 2e-4, PopArt mu rtol 2e-4 / atol 1e-7, params rtol 5e-4 /
+  atol 5e-6 (slice_dp's gate). Returns the fleet's launch counts."""
+  with tempfile.TemporaryDirectory(prefix='chip_smoke_popart_dp_') as out:
+    ranks = _run_ranks('popart_dp', _popart_dp_rank, out)
+  counts = {name: sum(r['counts'][name] for r in ranks) for name in COUNTERS}
+  for rank, r in enumerate(ranks):
+    if (r['counts']['vtrace_sharded'] != POPART_DP_STEPS or
+        r['counts']['vtrace'] or r['update_steps'] != POPART_DP_STEPS or
+        r['step_counts']['vtrace_sharded'] != 1):
+      raise AssertionError(f'popart_dp rank {rank}: launches {r["counts"]},'
+                           f' {r["step_counts"]}, {r["update_steps"]} steps')
+    if r['gathered'][0] != r['gathered'][1] or r['sdc_mismatches']:
+      raise AssertionError("popart_dp: the ranks' params or PopArt "
+                           'statistics differ after a step, or the SDC '
+                           f'sentinel fired ({r["sdc_mismatches"]})')
+  single = ranks[0]['single']
+  err = 0.0
+  for rank, r in enumerate(ranks):
+    got = r['step']
+    np.testing.assert_allclose(got['loss'], single['loss'], rtol=2e-4)
+    np.testing.assert_allclose(got['pc'], single['pc'], rtol=2e-4)
+    np.testing.assert_allclose(got['mu'].numpy(), single['mu'].numpy(),
+                               rtol=2e-4, atol=1e-7)
+    for k, p in single['params'].items():
+      np.testing.assert_allclose(got['params'][k].numpy(), p.numpy(),
+                                 rtol=5e-4, atol=5e-6, err_msg=k)
+      err = max(err, float((got['params'][k] - p).abs().max()))
+  log(f'popart_dp: kernel launches {counts} (by rank: '
+      f'{[r["counts"] for r in ranks]}); params and PopArt statistics '
+      f'bit-equal across the ranks after each of the {POPART_DP_STEPS} '
+      f'steps; SDC 0 mismatches. Sharded step at full width, float32: loss '
+      f'2 ranks {ranks[0]["step"]["loss"]} / {ranks[1]["step"]["loss"]}, '
+      f'1 rank {single["loss"]}; pixel_control_loss '
+      f'{ranks[0]["step"]["pc"]} / {single["pc"]}; max |param diff| '
+      f'{err:.3e}')
+  return counts
+
+
+def phase_fit():
+  """parallel/fit.py's memory_fit on the card at B=32 and B=16 per card:
+  one full-feature bf16 train step each, its peak allocated memory
+  against HBM_BUDGET_FRACTION of the card's memory."""
+  from scalable_agent_tpu_torch.parallel import fit
+  for rows in (32, 16):
+    result = fit.memory_fit('cuda', batch_size=rows)
+    if not result['fits'] or not result['total_loss_finite']:
+      raise AssertionError(f'fit B={rows}: {result}')
+    log(fit.format_fit(result))
+    log(json.dumps(result, sort_keys=True))
+
+
 def main():
   # Before any CUDA call: the fleet's env processes fork from this
   # server, which has this script's imports loaded.
@@ -2039,6 +2544,14 @@ def run_phases():
   timed('cli_fleet_dp', phase_cli_fleet_dp)
   paths['unroll_fleet'] = timed('unroll_fleet', phase_unroll_fleet)
   paths['tp'] = timed('tp', phase_tp)
+  paths['full_feature'] = timed('full_feature', phase_full_feature)
+  timed('full_feature_reference', phase_full_feature_reference)
+  timed('cli_full_feature', phase_cli_full_feature)
+  paths['impact_fleet'] = timed('impact_fleet', phase_impact_fleet)
+  paths['extensions_anakin'] = timed('extensions_anakin',
+                                     phase_extensions_anakin)
+  paths['popart_dp'] = timed('popart_dp', phase_popart_dp)
+  timed('fit', phase_fit)
   log('phases: ' + ', '.join(f'{n} {s:.1f} s' for n, s in phases))
   launches = {name: {path: counts[name] for path, counts in paths.items()}
               for name in COUNTERS}

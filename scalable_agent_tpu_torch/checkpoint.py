@@ -6,8 +6,10 @@ latest on start: the network parameters, the optimizer slots and the
 environment-frame counter. Actor-local state (LSTM carries, env state) is
 not checkpointed, so unrolls that straddle a restart are lost, as
 upstream. Here the state is the learner's TrainState: params, the RMSProp
-state and `update_steps` (times frames per step, the reference's global
-step).
+state, `update_steps` (times frames per step, the reference's global
+step), and with the extensions the PopArt statistics and IMPACT's target
+network with its statistics. A health rollback reverts all of them but
+the step.
 
 The JAX package saves through Orbax; the port writes its own format with
 `torch.save`, read back with `torch.load(weights_only=True)`. Neither
@@ -154,13 +156,16 @@ def _wrap_structure_error(e, directory, step):
 
 def _specs(payload) -> Dict[str, Tuple]:
   """{path: (shape, dtype)} of the tensors of a payload
-  (learner.state_to_payload's layout). Raises when the object is not one
-  at all."""
+  (learner.state_to_payload's layout, JAX's TrainState tree: params,
+  opt_state, update_steps, and popart, target_params and target_popart
+  where present). Raises when the object is not one at all."""
   specs = {}
-  for prefix, tree in (('params', payload['params']),
-                       ('opt_state/nu', payload['opt_state']['nu']),
-                       ('opt_state/trace', payload['opt_state']['trace']
-                        or {})):
+  trees = [('params', payload['params']),
+           ('opt_state/nu', payload['opt_state']['nu']),
+           ('opt_state/trace', payload['opt_state']['trace'] or {})]
+  trees += [(name, payload.get(name) or {})
+            for name in ('popart', 'target_params', 'target_popart')]
+  for prefix, tree in trees:
     specs.update({f'{prefix}/{k}': (tuple(v.shape), v.dtype)
                   for k, v in tree.items()})
   count = payload['opt_state']['count']
@@ -171,10 +176,14 @@ def _specs(payload) -> Dict[str, Tuple]:
 
 def _state_specs(state: TrainState) -> Dict[str, Tuple]:
   opt = state.opt_state
+  as_dict = lambda p: None if p is None else p._asdict()  # noqa: E731
   return _specs({'params': state.params,
                  'opt_state': {'count': opt.count, 'nu': opt.nu,
                                'trace': opt.trace},
-                 'update_steps': state.update_steps})
+                 'update_steps': state.update_steps,
+                 'popart': as_dict(state.popart),
+                 'target_params': state.target_params,
+                 'target_popart': as_dict(state.target_popart)})
 
 
 def _structure_diff(want: Dict, got: Dict) -> List[str]:
@@ -607,20 +616,25 @@ class Checkpointer:
     return payload
 
   def _localize(self, payload: Dict) -> Dict:
-    """The payload with this rank's blocks of the params and moments in
-    place of the full tensors (a tensor the layout does not know is
-    kept whole, and the structure check then names it)."""
+    """The payload with this rank's blocks of the params, their moments
+    and the target network in place of the full tensors (a tensor the
+    layout does not know is kept whole, and the structure check then
+    names it)."""
     layout = self._layout
 
     def local(tree):
+      if tree is None:
+        return None
       return {k: layout.local(k, v) if k in layout.cuts else v
               for k, v in tree.items()}
 
     opt = payload['opt_state']
-    return dict(payload, params=local(payload['params']),
-                opt_state=dict(opt, nu=local(opt['nu']),
-                               trace=None if opt['trace'] is None
-                               else local(opt['trace'])))
+    out = dict(payload, params=local(payload['params']),
+               opt_state=dict(opt, nu=local(opt['nu']),
+                              trace=local(opt['trace'])))
+    if 'target_params' in payload:
+      out['target_params'] = local(payload['target_params'])
+    return out
 
   def _restore_one(self, step: int, target: TrainState) -> TrainState:
     self.verify_step_digests(step)

@@ -2,8 +2,8 @@
 
 The field names and defaults are those of the JAX package's `Config`
 (scalable_agent_tpu/config.py), so a config carries across the two
-packages unchanged. Only the fields this slice of the port reads are
-here; a setting that selects a path the port does not have yet raises
+packages unchanged. Only the fields the port reads are here; a setting
+that selects a path the port does not have yet raises
 `NotImplementedError` naming the ROADMAP item that brings it — the port
 never ignores a setting silently.
 """
@@ -81,13 +81,46 @@ class Config:
   # The fused hand-written V-trace kernel (ops/vtrace_cuda.py,
   # csrc/vtrace.cu). The JAX name is kept so configs carry across.
   use_pallas_vtrace: bool = False
+  # PopArt value normalization (popart.py): one value column per task.
   use_popart: bool = False
+  popart_beta: float = 3e-4               # the stats' EMA step size
+  # UNREAL pixel control (unreal.py): >0 adds the auxiliary Q-head.
   pixel_control_cost: float = 0.0
+  pixel_control_discount: float = 0.9
+  pixel_control_cell_size: int = 4
+  # Pseudo-rewards in the integer domain (uint8 frames only; a float
+  # observation takes the float32 form).
+  pixel_control_integer_rewards: bool = False
+  # The Q-head's stride-2 deconv: 'deconv' (the transposed convolution)
+  # or 'd2s' (one 2x2 convolution and a depth-to-space interleave), on
+  # the same parameters.
+  pixel_control_head_impl: str = 'deconv'  # deconv | d2s
+  # Cast the Q-map to float32 at the head; False keeps it in the compute
+  # dtype until the loss's gather and max.
+  pixel_control_q_f32: bool = True
   grad_clip_norm: Optional[float] = None
   summary_secs: int = 30
-  surrogate: str = 'vtrace'               # vtrace (impact: later slice)
+  # The policy-gradient surrogate: vtrace, or IMPACT's clipped ratio
+  # against a target network (learner.py).
+  surrogate: str = 'vtrace'               # vtrace | impact
+  impact_epsilon: float = 0.2             # the surrogate's clip width
+  # Learner steps between refreshes of the target network (impact).
+  target_update_interval: int = 1
+  # Sample reuse: each staged batch is served replay_k times, and a
+  # replay_ratio share of each batch's unrolls comes from the replay
+  # tier (runtime/ring_buffer.py).
   replay_k: int = 1
   replay_ratio: float = 0.0
+  # The replay tier's capacity in unrolls (0: 4 x batch_size), its
+  # staleness window in published param versions (0: defer to
+  # max_unroll_staleness; both 0: no bound), and the CRC check of every
+  # replayed unroll against its insert-time digest.
+  replay_capacity_unrolls: int = 0
+  replay_max_staleness: int = 0
+  replay_crc: bool = True
+  # The ingest admission window of remote actors (ROADMAP A7.3), in
+  # published param versions; the replay window defers to it.
+  max_unroll_staleness: int = 0
   runtime: str = 'fleet'                  # fleet | anakin
 
   # The fleet runtime (driver.train, runtime/). Host actors, one env
@@ -159,26 +192,12 @@ class Config:
 
   def __post_init__(self):
     later = []
-    if self.resolved_use_instruction:
-      later.append('use_instruction=True (instruction encoder: ROADMAP '
-                   'Queue A, extensions slice)')
-    if self.use_popart:
-      later.append('use_popart (ROADMAP Queue A, extensions slice)')
-    if self.pixel_control_cost > 0:
-      later.append('pixel_control_cost>0 (ROADMAP Queue A, extensions '
-                   'slice)')
-    if self.surrogate != 'vtrace':
-      later.append(f'surrogate={self.surrogate!r} (IMPACT: ROADMAP Queue '
-                   'A, extensions slice)')
-    if self.replay_k != 1 or self.replay_ratio != 0.0:
-      later.append('replay_k>1 / replay_ratio>0 (sample reuse and the '
-                   'replay tier: ROADMAP A2)')
     if self.curriculum != 'uniform':
       later.append(f'curriculum={self.curriculum!r} (population: ROADMAP '
-                   'Queue A, population slice)')
+                   'A6)')
     if self.torso not in ('deep', 'shallow'):
       later.append(f'torso={self.torso!r} (the port has deep and '
-                   'shallow; ROADMAP Queue A)')
+                   'shallow; ROADMAP A6)')
     if later:
       raise NotImplementedError(
           'not in the PyTorch port yet: ' + '; '.join(later))
@@ -193,6 +212,28 @@ class Config:
   @property
   def frames_per_step(self):
     return self.batch_size * self.unroll_length * self.num_action_repeats
+
+  @property
+  def resolved_replay_capacity(self) -> int:
+    """The replay tier's capacity with the 0-auto rule (4 x batch)."""
+    if self.replay_capacity_unrolls > 0:
+      return self.replay_capacity_unrolls
+    return 4 * self.batch_size
+
+  @property
+  def resolved_replay_max_staleness(self) -> int:
+    """The replay staleness window in published param versions: 0
+    defers to the ingest window; both 0 is no bound."""
+    if self.replay_max_staleness > 0:
+      return self.replay_max_staleness
+    return self.max_unroll_staleness
+
+  @property
+  def reuse_on(self) -> bool:
+    """Whether a learner step may consume fewer than frames_per_step
+    fresh frames (sample reuse), so the frame clock counts fresh slots
+    at serve time."""
+    return self.replay_k > 1 or self.replay_ratio > 0
 
   @property
   def resolved_use_instruction(self) -> bool:
@@ -257,6 +298,57 @@ def validate_fleet(config: Config) -> None:
   if later:
     raise NotImplementedError(
         'not in the PyTorch port\'s fleet runtime yet: ' + '; '.join(later))
+
+
+def validate_replay(config: Config) -> List[str]:
+  """The JAX package's `validate_replay`: the sample-reuse knob group.
+  Raises ValueError on a hard error; returns the warnings."""
+  warnings = []
+  if config.surrogate not in ('vtrace', 'impact'):
+    raise ValueError(f'surrogate must be vtrace|impact, got '
+                     f'{config.surrogate!r}')
+  if config.replay_k < 1:
+    raise ValueError(f'replay_k must be >= 1, got {config.replay_k}')
+  if not 0.0 <= config.replay_ratio < 1.0:
+    raise ValueError(f'replay_ratio must be in [0, 1) (a batch needs '
+                     f'at least one fresh slot), got '
+                     f'{config.replay_ratio}')
+  if config.target_update_interval < 1:
+    raise ValueError(f'target_update_interval must be >= 1, got '
+                     f'{config.target_update_interval}')
+  if config.impact_epsilon <= 0:
+    raise ValueError(f'impact_epsilon must be > 0, got '
+                     f'{config.impact_epsilon}')
+  if config.replay_capacity_unrolls < 0:
+    raise ValueError(f'replay_capacity_unrolls must be >= 0, got '
+                     f'{config.replay_capacity_unrolls}')
+  if config.replay_max_staleness < 0:
+    raise ValueError(f'replay_max_staleness must be >= 0, got '
+                     f'{config.replay_max_staleness}')
+  if config.reuse_on and config.surrogate == 'vtrace':
+    warnings.append(
+        'sample reuse (replay_k=%d, replay_ratio=%.2f) with '
+        'surrogate=vtrace: plain V-trace has no clipped-target anchor '
+        'against reused/stale data (IMPACT, arXiv 1912.00167) — '
+        'consider --surrogate=impact' %
+        (config.replay_k, config.replay_ratio))
+  if (config.replay_max_staleness > 0 and
+      config.max_unroll_staleness > 0 and
+      config.replay_max_staleness < config.max_unroll_staleness):
+    warnings.append(
+        'replay_max_staleness=%d is narrower than '
+        'max_unroll_staleness=%d (both in published param-version '
+        'deltas): unrolls admitted near the ingest window will be '
+        'version-evicted from the replay tier without ever being '
+        'replayed' %
+        (config.replay_max_staleness, config.max_unroll_staleness))
+  if (config.replay_ratio > 0 and
+      config.resolved_replay_capacity < config.batch_size):
+    warnings.append(
+        'replay capacity %d is below batch_size %d: replayed slots '
+        'will repeat the same few unrolls within adjacent batches' %
+        (config.resolved_replay_capacity, config.batch_size))
+  return warnings
 
 
 def resolve_process_id(config: Config) -> int:

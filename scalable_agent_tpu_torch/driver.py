@@ -35,9 +35,11 @@ from scalable_agent_tpu_torch import checkpoint as checkpoint_lib
 from scalable_agent_tpu_torch import health as health_lib
 from scalable_agent_tpu_torch import learner as learner_lib
 from scalable_agent_tpu_torch import observability
+from scalable_agent_tpu_torch import popart as popart_lib
 from scalable_agent_tpu_torch.config import (COMPUTE_DTYPES, Config,
                                              validate_fleet,
-                                             validate_integrity)
+                                             validate_integrity,
+                                             validate_replay)
 from scalable_agent_tpu_torch.envs import factory
 from scalable_agent_tpu_torch.models import ImpalaAgent, init_params
 from scalable_agent_tpu_torch.parallel import distributed
@@ -133,14 +135,21 @@ def resolve_device(device) -> torch.device:
   return device
 
 
-def build_agent(config: Config, num_actions: int) -> ImpalaAgent:
+def build_agent(config: Config, num_actions: int,
+                num_tasks: int = 1) -> ImpalaAgent:
   """The config's agent, on the CPU with PyTorch's default init: callers
   initialise it (models.init_params) and move it to their device. Its
-  parameters are float32 whatever `config.compute_dtype` says."""
-  return ImpalaAgent(num_actions=num_actions,
-                     frame_shape=(config.height, config.width, 3),
-                     torso=config.torso,
-                     dtype=COMPUTE_DTYPES[config.compute_dtype])
+  parameters are float32 whatever `config.compute_dtype` says. With
+  use_popart the value head has `num_tasks` columns."""
+  return ImpalaAgent(
+      num_actions=num_actions, frame_shape=(config.height, config.width, 3),
+      torso=config.torso, dtype=COMPUTE_DTYPES[config.compute_dtype],
+      use_instruction=config.resolved_use_instruction,
+      num_popart_tasks=num_tasks if config.use_popart else 0,
+      use_pixel_control=config.pixel_control_cost > 0,
+      pixel_control_cell_size=config.pixel_control_cell_size,
+      pixel_control_head_impl=config.pixel_control_head_impl,
+      pixel_control_q_f32=config.pixel_control_q_f32)
 
 
 def choose_mesh(config: Config, device):
@@ -233,9 +242,14 @@ class TrainRun:
     self.carry = None
     self.stats: Dict[str, Dict] = {}
     self.step_log: List[Dict[str, float]] = []
+    # Under sample reuse: the fresh env frames consumed so far, counted
+    # at serve time (driver.train).
+    self.env_frames_fn: Optional[Callable[[], int]] = None
 
   @property
   def frames(self) -> int:
+    if self.env_frames_fn is not None:
+      return int(self.env_frames_fn())
     return self.state.update_steps * self.config.frames_per_step
 
 
@@ -255,8 +269,8 @@ class _HealthLadder:
   """The loops' side of the health ladder (health.py): feeds the
   monitor each step's sentinels one step late, brackets bad bursts with
   incidents, rolls back to the last good checkpoint on ROLLBACK (the
-  step counter stays where it is: only params and optimizer state
-  revert), and halts with a bundle on HALT or when nothing is
+  step counter stays where it is: params, optimizer state, the PopArt
+  statistics and IMPACT's target network revert), and halts with a bundle on HALT or when nothing is
   restorable. `healthy` is False while a bad burst is open: no save
   lands then, since a save would advance LAST_GOOD onto the diverged
   state.
@@ -347,7 +361,7 @@ class _HealthLadder:
                               restored_checkpoint_step=restored_step,
                               reason=monitor.last_reason)
         log.warning('health rollback at step %d: restored checkpoint step '
-                    '%d (params and optimizer revert; the step counter '
+                    '%d (params/optimizer/popart revert; the step counter '
                     'keeps running)', step_now, restored_step)
     if verdict == health_lib.HALT:
       bundle = monitor.write_halt_bundle(self._config.logdir, self._config,
@@ -445,6 +459,17 @@ def train(config: Config, max_steps: Optional[int] = None, device='cuda',
   `finally` tears all of it down, also after a failed set-up, and takes
   the final save unless training was unhealthy at exit.
 
+  The learner extensions: with use_popart the value head has one column
+  per training level (a suite's levels, `factory.level_names`), actor i
+  stamps level id i % len(levels), and the statistics are logged per
+  task at the end. With replay_ratio > 0 a replay tier retains the
+  consumed unrolls behind the buffer (its staleness clock is the publish
+  cadence), and with replay_k > 1 the prefetcher serves each staged
+  batch replay_k times; under either, the frame budget, the fps meter,
+  `TrainRun.frames` and the drain manifest count the fresh slots served,
+  and episode stats count only a batch's fresh columns at its first
+  serve.
+
   The health ladder (health.py) reads each step's sentinels one step
   late: K bad steps roll back to LAST_GOOD and republish; a rollback with
   nothing to restore, or past the budget, halts with a bundle and raises
@@ -482,7 +507,7 @@ def train(config: Config, max_steps: Optional[int] = None, device='cuda',
   if config.runtime != 'fleet':
     raise ValueError(f'unknown runtime {config.runtime!r} (fleet | anakin)')
   validate_fleet(config)
-  for warning in validate_integrity(config):
+  for warning in validate_integrity(config) + validate_replay(config):
     log.warning('%s', warning)
   device = resolve_device(device)
   set_float32_precision()
@@ -494,7 +519,10 @@ def train(config: Config, max_steps: Optional[int] = None, device='cuda',
   levels = factory.level_names(config)
   spec0 = factory.make_env_spec(config, levels[0], seed=1)
   num_actions = spec0.num_actions
-  agent = build_agent(config, num_actions)
+  # PopArt: one value column per training level (a suite's 30 for
+  # dmlab30); actor i stamps its unrolls with level id i % len(levels).
+  num_tasks = len(levels)
+  agent = build_agent(config, num_actions, num_tasks)
   init_params(agent, torch.Generator().manual_seed(config.seed))
   agent.to(device)
   mesh = choose_mesh(config, device)
@@ -502,14 +530,14 @@ def train(config: Config, max_steps: Optional[int] = None, device='cuda',
   registry = sharding.from_config(config)
   layout = None
   if mesh is not None:
-    state = train_parallel.make_sharded_train_state(agent, config, mesh,
-                                                    registry=registry)
+    state = train_parallel.make_sharded_train_state(
+        agent, config, mesh, registry=registry, num_popart_tasks=num_tasks)
     train_step, _ = train_parallel.make_sharded_train_step(
         agent, config, mesh, None, registry=registry)
     layout = train_step.layout
   else:
     train_step = learner_lib.make_train_step_fn(agent, config)
-    state = learner_lib.make_train_state(agent, config)
+    state = learner_lib.make_train_state(agent, config, num_tasks)
   checkpointer = make_checkpointer(config, mesh, registry, layout)
   # The elastic restore gate: a checkpoint saved on another mesh
   # restores through the registry's resharding, strictly.
@@ -568,14 +596,36 @@ def train(config: Config, max_steps: Optional[int] = None, device='cuda',
     def place(batch):
       return learner_lib.place_batch(batch, device)
 
-  def stage(host_batch):
+  def stage(host_batch, n_fresh=None):
     """Prefetcher stage: peel the host stats view and the action counts
     of the trained-on steps ([1:] drops the overlap row, as the loss
-    does), then copy the batch to the device."""
+    does), then copy the batch to the device. With a replay tier the
+    peel takes the `n_fresh` fresh columns only: a replayed unroll's
+    episodes and actions were counted at its first consumption."""
+    view = host_batch
+    if n_fresh is not None:
+      view = ActorOutput(
+          level_name=np.asarray(host_batch.level_name)[:n_fresh],
+          agent_state=None,
+          env_outputs=StepOutput(
+              reward=None,
+              info=map_structure(lambda x: np.asarray(x)[:, :n_fresh],
+                                 host_batch.env_outputs.info),
+              done=np.asarray(host_batch.env_outputs.done)[:, :n_fresh],
+              observation=None),
+          agent_outputs=host_batch.agent_outputs._replace(
+              action=np.asarray(host_batch.agent_outputs.action)[:, :n_fresh]))
     action_counts = np.bincount(
-        np.asarray(host_batch.agent_outputs.action)[1:].ravel(),
+        np.asarray(view.agent_outputs.action)[1:].ravel(),
         minlength=num_actions)
-    return _stats_only_view(host_batch), action_counts, place(host_batch)
+    return _stats_only_view(view), action_counts, place(host_batch)
+
+  no_actions = np.zeros((num_actions,), np.int64)
+
+  def reserve_view(item):
+    """A re-serve (replay_k > 1): the staged device batch trains again,
+    and its host view is blanked, since it consumes no new env frames."""
+    return None, no_actions, item[2]
 
   def unroll_view(unroll):
     """Unroll staging's per-unroll peel of `stage`'s host view."""
@@ -611,12 +661,22 @@ def train(config: Config, max_steps: Optional[int] = None, device='cuda',
   process_seed_base = rank * max(config.num_actors, 1000)
   buffer = server = fleet = prefetcher = writer = incidents = None
   try:
+    # The replay tier retains consumed unrolls behind the FIFO; their
+    # staleness counts in published param versions.
+    replay_tier = None
+    if config.replay_ratio > 0:
+      replay_tier = ring_buffer.ReplayTier(
+          config.resolved_replay_capacity,
+          max_staleness=config.resolved_replay_max_staleness,
+          verify_crc=config.replay_crc)
     buffer = ring_buffer.TrajectoryBuffer(
         max(config.queue_capacity_batches * config.batch_size,
-            config.batch_size))
+            config.batch_size), replay=replay_tier,
+        replay_ratio=config.replay_ratio)
+    buffer.note_param_version(initial_steps)
     initial_pub = actor_params(state.params)
     server = InferenceServer(
-        build_agent(config, num_actions), initial_pub, config,
+        build_agent(config, num_actions, num_tasks), initial_pub, config,
         seed=config.seed + 1000 + process_seed_base,
         fleet_size=config.num_actors, device=device)
     server.update_params(initial_pub, version=initial_steps)
@@ -627,7 +687,23 @@ def train(config: Config, max_steps: Optional[int] = None, device='cuda',
                        seed_base=process_seed_base)
     prefetcher = ring_buffer.BatchPrefetcher(
         buffer, local_batch_size, place_fn=stage,
-        depth=config.staging_depth, stack_fn=stack, stager=stager)
+        depth=config.staging_depth, stack_fn=stack, stager=stager,
+        replay_k=config.replay_k, reserve_fn=reserve_view)
+    if config.reuse_on:
+      # Under sample reuse a learner step consumes fewer fresh frames
+      # than frames_per_step: the frame budget, the fps meter, the run's
+      # frames and the drain manifest count the fresh slots at their
+      # first serve (scaled from this rank's rows to the global batch).
+      # Steps before a resume count at frames_per_step.
+      frames_per_unroll = config.unroll_length * config.num_action_repeats
+      scale = max(config.batch_size // max(local_batch_size, 1), 1)
+      resumed_frames = initial_steps * config.frames_per_step
+
+      def env_frames_fn():
+        return (resumed_frames + prefetcher.fresh_slots_served() *
+                frames_per_unroll * scale)
+
+      run.env_frames_fn = env_frames_fn
     suffix = '' if rank == 0 else f'_p{rank}'
     writer = observability.SummaryWriter(
         config.logdir, filename=f'summaries{suffix}.jsonl')
@@ -696,8 +772,9 @@ def train(config: Config, max_steps: Optional[int] = None, device='cuda',
         if draining and time.monotonic() > drain_deadline:
           log.warning('preemption drain budget exhausted; finalizing')
           break
-      if (initial_steps + steps_done) * config.frames_per_step >= (
-          config.total_environment_frames):
+      frames = run.frames if run.env_frames_fn else (
+          (initial_steps + steps_done) * config.frames_per_step)
+      if frames >= config.total_environment_frames:
         break
       if max_steps is not None and steps_done >= max_steps:
         break
@@ -744,12 +821,16 @@ def train(config: Config, max_steps: Optional[int] = None, device='cuda',
       run.state = state
       steps_done += 1
       step_now = initial_steps + steps_done
-      fps_meter.update(config.frames_per_step)
+      # Under reuse: the fresh frames this batch's first serve credited
+      # (0 on a re-serve), so fps stays an env-frame rate.
+      fps_meter.update(max(run.frames - frames, 0) if run.env_frames_fn
+                       else config.frames_per_step)
       action_counts_acc += action_counts
-      for name, ep_return, ep_frames in episodes.record_batch(
-          stats_view, step_now):
-        log.debug('episode %s return=%.2f frames=%d', name, ep_return,
-                  ep_frames)
+      if stats_view is not None:
+        for name, ep_return, ep_frames in episodes.record_batch(
+            stats_view, step_now):
+          log.debug('episode %s return=%.2f frames=%d', name, ep_return,
+                    ep_frames)
       state, rolled_back = ladder.after_step(steps_done, step_now, metrics,
                                              state)
       run.state = state
@@ -759,6 +840,8 @@ def train(config: Config, max_steps: Optional[int] = None, device='cuda',
           steps_done % config.publish_params_every == 0):
         server.update_params(actor_params(state.params), version=step_now)
         last_publish_step = step_now
+        # The replay tier's staleness clock.
+        buffer.note_param_version(step_now)
 
       now = time.monotonic()
       if now - last_summary >= config.summary_secs:
@@ -787,6 +870,9 @@ def train(config: Config, max_steps: Optional[int] = None, device='cuda',
       _finish_drain(config, run, ladder, checkpointer, incidents, writer,
                     initial_steps + steps_done, last_publish_step,
                     drain_source, drain_t0, drain_deadline)
+    if run.state.popart is not None:
+      log.info('PopArt statistics per task: %s', json.dumps(
+          popart_lib.stats_summary(run.state.popart, levels)))
   finally:
     run.stats = _teardown(fleet, prefetcher, server, buffer, writer,
                           incidents)
@@ -814,7 +900,7 @@ def _finish_drain(config, run, ladder, checkpointer, incidents, writer,
   latency = time.monotonic() - drain_t0
   manifest = {
       'update_steps': step_final,
-      'frames': step_final * config.frames_per_step,
+      'frames': run.frames,
       'params_version_step': last_publish_step,
       'params_publishes': run.server.stats()['params_version'],
       'checkpoint_step': checkpoint_step,
@@ -999,7 +1085,13 @@ def _write_summaries(writer, incidents, step, metrics, fps_meter,
       'staged_batches': prefetch_stats['staged_batches'],
       'h2d_overlap_fraction': prefetch_stats['h2d_overlap_fraction'],
       'prefetch_wait_secs': prefetch_stats['wait_secs'],
+      'batch_serves': prefetch_stats['serves'],
+      'batch_reserves': prefetch_stats['batch_reserves'],
+      'fresh_slots_served': prefetch_stats['fresh_slots_served'],
   }, step)
+  # The replay tier's occupancy, evictions and reuse, when there is one.
+  writer.scalars({k: v for k, v in buffer_stats.items()
+                  if k.startswith('replay_')}, step)
   quarantined = fleet_stats['slots_quarantined']
   if quarantined > last_quarantined:
     incidents.event('actor_slots_quarantined', step=step,

@@ -12,8 +12,9 @@ Environments live on the host, possibly each in its own process
   dtype/shape declaration that process hosting checks replies against.
 
 Observations are `(frame uint8 [H, W, 3], instruction_ids int32 [L])`:
-strings are hashed on the host (envs/fake.py `hash_instruction`), so only
-fixed-shape numbers cross process and device boundaries.
+strings are hashed on the host (models/instruction.py
+`hash_instruction`), so only fixed-shape numbers cross process and
+device boundaries.
 """
 
 from typing import NamedTuple, Tuple

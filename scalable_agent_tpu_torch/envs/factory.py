@@ -1,8 +1,10 @@
 """Environment factory: config -> host environment instances, as in the
 JAX package's envs/factory.py, for the backends the port has: `fake`,
-`bandit` and `cue_memory` (envs/fake.py). The real simulators (DMLab,
-Atari), the benchmark suites and the gridworld/procgen host wrappers
-raise `NotImplementedError` naming the ROADMAP item that brings them.
+`bandit` and `cue_memory` (envs/fake.py). A suite name (`dmlab30`,
+`atari57`, envs/suites.py) expands into its level list, as in JAX, so
+the fake backends run a suite's levels, one per actor slot. The real
+simulators (DMLab, Atari) and the gridworld/procgen host wrappers raise
+`NotImplementedError` naming the ROADMAP item that brings them.
 
 With `use_py_process` each env is hosted in its own OS process
 (runtime/py_process.py), the GIL escape of the reference's PyProcess.
@@ -11,8 +13,8 @@ With `use_py_process` each env is hosted in its own OS process
 from typing import List, Optional, Tuple
 
 from scalable_agent_tpu_torch.config import Config
-from scalable_agent_tpu_torch.envs import fake
-from scalable_agent_tpu_torch.envs.fake import MAX_INSTRUCTION_LEN
+from scalable_agent_tpu_torch.envs import fake, suites
+from scalable_agent_tpu_torch.models.instruction import MAX_INSTRUCTION_LEN
 
 _FAKE_ENVS = {'bandit': fake.ContextualBanditEnv,
               'cue_memory': fake.CueMemoryEnv,
@@ -24,9 +26,6 @@ _LATER_BACKENDS = {
     'gridworld': 'ROADMAP A6 (envs/jittable.py host wrappers)',
     'procgen': 'ROADMAP A6 (envs/jittable.py host wrappers)',
 }
-# Suite names that the JAX factory expands into level lists.
-_SUITES = ('dmlab30', 'atari57')
-
 
 class EnvSpec:
   """What the driver needs to know about a backend before building it."""
@@ -47,12 +46,18 @@ class EnvSpec:
 
 
 def level_names(config: Config) -> List[str]:
-  """The training levels: the one level the config names. A suite name
-  (multi-task DMLab-30, Atari-57) raises."""
-  if config.level_name in _SUITES:
-    raise NotImplementedError(
-        f'level_name={config.level_name!r} (a benchmark suite) is not in '
-        'the PyTorch port yet (ROADMAP A7)')
+  """The training levels: a suite name ('dmlab30', 'atari57') expands to
+  its level list, any other name is the one level."""
+  if config.level_name in suites.SUITES:
+    return list(suites.SUITES[config.level_name].train_levels)
+  return [config.level_name]
+
+
+def test_level_names(config: Config) -> List[str]:
+  """The held-out evaluation levels of a suite (envs/suites.py), or the
+  one level."""
+  if config.level_name in suites.SUITES:
+    return list(suites.SUITES[config.level_name].test_levels)
   return [config.level_name]
 
 

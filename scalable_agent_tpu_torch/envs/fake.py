@@ -9,32 +9,15 @@ only, bit-equal to it for the same seeds and actions):
   action that pays — the simplest task where the IMPALA loss must
   visibly learn.
 
-`hash_instruction` is the port's copy of the JAX package's host-side
-instruction hashing (its models/instruction.py imports Flax): a level
-name becomes int32 token ids in [1, VOCAB_SIZE], 0-padded to
-MAX_INSTRUCTION_LEN.
+Each env stamps its level name's instruction ids
+(models/instruction.hash_instruction) on every observation.
 """
-
-import zlib
 
 import numpy as np
 
 from scalable_agent_tpu_torch.envs import base
-
-VOCAB_SIZE = 1000  # hash buckets
-MAX_INSTRUCTION_LEN = 16
-
-
-def hash_instruction(text, vocab_size=VOCAB_SIZE,
-                     max_len=MAX_INSTRUCTION_LEN):
-  """Whitespace split + crc32 (stable across processes and runs) ->
-  int32 [max_len] ids; 0 is the padding id."""
-  if isinstance(text, bytes):
-    text = text.decode('utf-8', errors='replace')
-  ids = np.zeros((max_len,), dtype=np.int32)
-  for i, token in enumerate(text.split()[:max_len]):
-    ids[i] = (zlib.crc32(token.encode('utf-8')) % vocab_size) + 1
-  return ids
+from scalable_agent_tpu_torch.models.instruction import (MAX_INSTRUCTION_LEN,
+                                                        hash_instruction)
 
 
 class FakeEnv(base.Environment):

@@ -25,10 +25,10 @@ waits for the host.
 The SDC detector reads `sdc_replica_mismatch`, which the fleet's loop
 adds under data parallelism from the replicas' param fingerprints
 (parallel/train_parallel.make_sdc_fingerprint_fn), read one step late
-like the other sentinels (`read_fingerprints`). The PopArt detectors are
-here as in JAX, and stay off until PopArt exists (ROADMAP A2). The
-flight recorder of the halt bundle waits for the telemetry plane
-(A7.4).
+like the other sentinels (`read_fingerprints`). The PopArt detectors
+read `popart_sigma_min` and `popart_sigma_max`, which the learner step
+emits with use_popart (learner.apply_gradients). The flight recorder of
+the halt bundle waits for the telemetry plane (A7.4).
 """
 
 import collections

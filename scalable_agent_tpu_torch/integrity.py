@@ -10,12 +10,15 @@ algorithm, and a record of another algorithm skips the verification
 instead of reporting corruption that is not there.
 
 `spec_table_digest` is the CRC of a checkpoint's sharding manifest
-(checkpoint.py's SHARDING_<step>.json). The JAX module's tree digest
-serves the remote plane (ROADMAP A7.3), and its telemetry counters the
-metrics registry (A7.4): not here yet.
+(checkpoint.py's SHARDING_<step>.json), `tree_digest` that of a tree of
+host arrays (the replay tier's insert-time digest of an unroll,
+runtime/ring_buffer.py). The JAX module's telemetry counters belong to
+the metrics registry (ROADMAP A7.4): not here yet.
 """
 
-from typing import Dict, Optional, Tuple
+from typing import Dict, Iterator, Optional, Tuple
+
+import numpy as np
 
 try:
   import google_crc32c as _crc32c_lib
@@ -52,6 +55,35 @@ class Crc:
   def update(self, data) -> 'Crc':
     self.value = _crc_update(self.value, data)
     return self
+
+
+def _leaves(tree) -> Iterator:
+  """The leaves of a tree of (named) tuples, lists and dicts, depth
+  first, dicts by sorted key and None skipped: JAX's flatten order."""
+  if tree is None:
+    return
+  if isinstance(tree, (tuple, list)):
+    for child in tree:
+      yield from _leaves(child)
+  elif isinstance(tree, dict):
+    for key in sorted(tree):
+      yield from _leaves(tree[key])
+  else:
+    yield tree
+
+
+def tree_digest(tree) -> int:
+  """Content CRC of a tree of host arrays in flatten order. Each leaf
+  adds its dtype name and shape to the stream, so a reshaped or recast
+  tree never collides with the original."""
+  crc = Crc()
+  for leaf in _leaves(tree):
+    arr = np.asarray(leaf)
+    crc.update(f'{arr.dtype.name}:{arr.shape};'.encode())
+    if not arr.flags['C_CONTIGUOUS']:
+      arr = np.ascontiguousarray(arr)
+    crc.update(arr.reshape(-1).view(np.uint8))
+  return crc.value
 
 
 def file_digest(path: str, chunk_bytes: int = 1 << 20) -> int:

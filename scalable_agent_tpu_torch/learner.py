@@ -1,12 +1,28 @@
 """Learner: one SGD step over a [T+1, B] batch of unrolls, ported from
-scalable_agent_tpu/learner.py (the V-trace branch).
+scalable_agent_tpu/learner.py.
 
 The step runs the agent over the batch, aligns it (the 1-frame overlap),
 computes V-trace, the three sum-reduced losses, and RMSProp with the
-frame-driven linear learning-rate decay. PyTorch runs it eagerly; the
-parameters are the agent's own tensors and are updated in place (the JAX
-step returns new arrays and donates the old ones — the same memory
-footprint, reached the PyTorch way).
+frame-driven linear learning-rate decay. The JAX learner's extensions
+are here too, in its order:
+
+- PopArt (popart.py): V-trace runs on the unnormalized values, the
+  baseline loss in normalized space with the current statistics; after
+  the update the statistics move toward the batch's targets and the
+  value head is rewritten to preserve its outputs;
+- UNREAL pixel control (unreal.py): the Q-head's n-step loss, a mean
+  over T and B, added at pixel_control_cost;
+- IMPACT (surrogate='impact'): a target network (`target_params`, with
+  the PopArt statistics it was frozen under, `target_popart`) runs a
+  second forward without autograd; V-trace takes its IS ratios and
+  values from it, and the policy gradient is the clipped surrogate of
+  the current policy against it. The target refreshes every
+  target_update_interval steps, after the watchdog's keep.
+
+PyTorch runs the step eagerly; the parameters are the agent's own
+tensors and are updated in place (the JAX step returns new arrays and
+donates the old ones — the same memory footprint, reached the PyTorch
+way).
 
 Trajectory layout reminder (time-major [T+1, B]):
   env_outputs[i]  = o_i  (o_0 is the previous unroll's last frame)
@@ -42,6 +58,8 @@ import numpy as np
 import torch
 
 from scalable_agent_tpu_torch import losses as losses_lib
+from scalable_agent_tpu_torch import popart as popart_lib
+from scalable_agent_tpu_torch import unreal
 from scalable_agent_tpu_torch import vtrace
 from scalable_agent_tpu_torch.config import Config
 from scalable_agent_tpu_torch.structs import ActorOutput, map_structure
@@ -57,6 +75,13 @@ class TrainState(NamedTuple):
   params: Dict[str, torch.Tensor]  # the agent's parameters, by name
   opt_state: RMSPropState
   update_steps: int                # host-side: counting needs no sync
+  popart: Optional[popart_lib.PopArtState] = None  # with use_popart
+  # IMPACT's target network (surrogate='impact'): tensors apart from
+  # the params (which train in place), and the PopArt statistics taken
+  # with it at each refresh (impact with use_popart): the frozen head
+  # is unnormalized with the statistics it was frozen under.
+  target_params: Optional[Dict[str, torch.Tensor]] = None
+  target_popart: Optional[popart_lib.PopArtState] = None
 
 
 class VTraceInputs(NamedTuple):
@@ -99,59 +124,132 @@ def align_batch(env_outputs, agent_outputs, learner_outputs,
       bootstrap_value=learner_outputs.baseline[-1])
 
 
-LOSS_KEYS = ('total_loss', 'pg_loss', 'baseline_loss', 'entropy_loss')
+# The metrics a process group sums over its ranks: the sum-reduced
+# losses, and the means that each rank computes over the global T*B.
+SUMMED_KEYS = ('total_loss', 'pg_loss', 'baseline_loss', 'entropy_loss',
+               'pixel_control_loss', 'impact_clip_fraction')
 
 
 def loss_fn(agent, batch: ActorOutput, config: Config, mesh=None,
-            params=None, tp=None, vtrace_axis='data'):
-  """Total IMPALA loss for one batch: (loss, metrics). With `mesh` the
-  batch is this rank's shard and so are the loss and metrics; its
-  columns are the shard of the global batch over `vtrace_axis` (an axis
-  of the mesh or a tuple of them). `params` ({name: tensor}) replace the
-  agent's parameters for this call (torch.func.functional_call), and
-  `tp` (a models.TensorParallel) runs the layers whose parameters are
-  blocks as blocks."""
+            params=None, tp=None, vtrace_axis='data', popart_state=None,
+            target_params=None, target_popart=None):
+  """Total IMPALA loss for one batch: (loss, metrics, aux), aux holding
+  the V-trace targets `vs` and the task ids for the PopArt update.
+
+  With `mesh` the batch is this rank's shard and so are the loss and
+  metrics; its columns are the shard of the global batch over
+  `vtrace_axis` (an axis of the mesh or a tuple of them), and the
+  mean-reduced terms divide by the global T*B. `params` ({name:
+  tensor}) replace the agent's parameters for this call
+  (torch.func.functional_call), and `tp` (a models.TensorParallel) runs
+  the layers whose parameters are blocks as blocks. `popart_state`,
+  `target_params` and `target_popart` are the TrainState's."""
   args = (batch.agent_outputs.action, batch.env_outputs, batch.agent_state)
-  if params is None:
-    learner_outputs, _ = agent(*args)
-  else:
-    learner_outputs, _ = torch.func.functional_call(
-        agent, params, args, {'tp': tp}, strict=False)
+  task_ids = (None if batch.level_name is None
+              else torch.as_tensor(batch.level_name).long())
+  use_pc = config.pixel_control_cost > 0
+
+  def forward(weights, **kwargs):
+    kwargs = dict(kwargs, tp=tp, level_ids=task_ids)
+    if weights is None:
+      return agent(*args, **kwargs)
+    return torch.func.functional_call(agent, weights, args, kwargs,
+                                      strict=False)
+
+  outputs = forward(params, compute_pixel_control=use_pc)
+  learner_outputs = outputs[0]
+  learner_for_align = learner_outputs
+  if popart_state is not None:
+    learner_for_align = learner_outputs._replace(
+        baseline=popart_lib.unnormalize(popart_state,
+                                        learner_outputs.baseline, task_ids))
   inputs = align_batch(batch.env_outputs, batch.agent_outputs,
-                       learner_outputs, config)
+                       learner_for_align, config)
+  # The mean-reduced terms' T*B: the global batch's under a mesh.
+  denominator = (inputs.rewards.shape[0] * config.batch_size
+                 if mesh is not None else None)
+
+  use_impact = config.surrogate == 'impact' and target_params is not None
+  vtrace_src = inputs
+  if use_impact:
+    # The target network's logits and values over the same batch; no
+    # gradient reaches it.
+    with torch.no_grad():
+      target_outputs = forward(target_params)[0]
+    if popart_state is not None:
+      stats = target_popart if target_popart is not None else popart_state
+      target_outputs = target_outputs._replace(
+          baseline=popart_lib.unnormalize(stats, target_outputs.baseline,
+                                          task_ids))
+    vtrace_src = align_batch(batch.env_outputs, batch.agent_outputs,
+                             target_outputs, config)
   vtrace_returns = vtrace.from_logits(
-      behaviour_policy_logits=inputs.behaviour_logits,
-      target_policy_logits=inputs.target_logits,
-      actions=inputs.actions,
-      discounts=inputs.discounts,
-      rewards=inputs.rewards,
-      values=inputs.values,
-      bootstrap_value=inputs.bootstrap_value,
+      behaviour_policy_logits=vtrace_src.behaviour_logits,
+      target_policy_logits=vtrace_src.target_logits,
+      actions=vtrace_src.actions,
+      discounts=vtrace_src.discounts,
+      rewards=vtrace_src.rewards,
+      values=vtrace_src.values,
+      bootstrap_value=vtrace_src.bootstrap_value,
       use_associative_scan=config.use_associative_scan,
       use_pallas=config.use_pallas_vtrace, mesh=mesh, batch_axis=vtrace_axis,
       batch_size=config.batch_size if mesh is not None else None)
-  pg_loss = losses_lib.compute_policy_gradient_loss(
-      inputs.target_logits, inputs.actions, vtrace_returns.pg_advantages)
-  baseline_loss = losses_lib.compute_baseline_loss(
-      vtrace_returns.vs - inputs.values)
+  metrics = {}
+  if use_impact:
+    log_ratio = (vtrace.log_probs_from_logits_and_actions(
+        inputs.target_logits, inputs.actions) -
+        vtrace_returns.target_action_log_probs)
+    pg_loss = losses_lib.compute_impact_surrogate_loss(
+        log_ratio, vtrace_returns.pg_advantages, config.impact_epsilon)
+    metrics['impact_clip_fraction'] = losses_lib.impact_clip_fraction(
+        log_ratio, config.impact_epsilon, denominator)
+  else:
+    pg_loss = losses_lib.compute_policy_gradient_loss(
+        inputs.target_logits, inputs.actions, vtrace_returns.pg_advantages)
+  if popart_state is not None:
+    # The normalized head regresses toward the normalized targets.
+    norm_targets = popart_lib.normalize(popart_state, vtrace_returns.vs,
+                                        task_ids)
+    baseline_loss = losses_lib.compute_baseline_loss(
+        norm_targets.detach() - learner_outputs.baseline[:-1])
+  else:
+    baseline_loss = losses_lib.compute_baseline_loss(
+        vtrace_returns.vs - inputs.values)
   entropy_loss = losses_lib.compute_entropy_loss(inputs.target_logits)
   total_loss = (pg_loss + config.baseline_cost * baseline_loss +
                 config.entropy_cost * entropy_loss)
-  metrics = {
+  if use_pc:
+    # Pseudo-rewards from frame deltas; the action of transition t ->
+    # t+1 is agent_outputs[t+1] (inputs.actions, the [1:] slice).
+    frames = batch.env_outputs.observation[0]
+    use_int = (config.pixel_control_integer_rewards and
+               frames.dtype == torch.uint8)
+    pc_rewards = unreal.pixel_control_rewards(
+        frames, config.pixel_control_cell_size, integer_path=use_int)
+    pc_loss = unreal.pixel_control_loss(
+        outputs[2], inputs.actions, pc_rewards, batch.env_outputs.done[1:],
+        discount=config.pixel_control_discount, denominator=denominator)
+    total_loss = total_loss + config.pixel_control_cost * pc_loss
+    metrics['pixel_control_loss'] = pc_loss.detach()
+  metrics.update({
       'total_loss': total_loss.detach(),
       'pg_loss': pg_loss.detach(),
       'baseline_loss': baseline_loss.detach(),
       'entropy_loss': entropy_loss.detach(),
-  }
-  return total_loss, metrics
+  })
+  aux = {'vs': vtrace_returns.vs, 'task_ids': task_ids}
+  return total_loss, metrics, aux
 
 
 def make_schedule(config: Config):
   """Linear learning-rate decay to 0 over total env frames, driven by the
-  update count x frames-per-step; float32 arithmetic as in the
-  reference. `count` is an int or an integer tensor (the result then
-  lives on its device)."""
-  fps = float(config.frames_per_step)
+  update count x fresh frames per step; float32 arithmetic as in the
+  reference. Under sample reuse an update consumes frames_per_step *
+  (1 - replay_ratio) / replay_k fresh frames at steady state (the frame
+  budget counts fresh frames too). `count` is an int or an integer
+  tensor (the result then lives on its device)."""
+  fps = (float(config.frames_per_step) *
+         (1.0 - config.replay_ratio) / config.replay_k)
 
   def schedule(count):
     frames = torch.as_tensor(count).to(torch.float32) * fps
@@ -204,25 +302,62 @@ def rmsprop_update(grads: Dict[str, torch.Tensor], state: RMSPropState,
   return updates, RMSPropState(state.count + 1, nu, trace)
 
 
-def make_train_state(agent, config: Config) -> TrainState:
+def _copy_popart(state: Optional[popart_lib.PopArtState]):
+  if state is None:
+    return None
+  return popart_lib.PopArtState(*(x.detach().clone() for x in state))
+
+
+def make_train_state(agent, config: Config,
+                     num_popart_tasks: Optional[int] = None) -> TrainState:
+  """The agent's own parameters, fresh RMSProp state, and with the
+  extensions the PopArt statistics (`num_popart_tasks` tasks, None: the
+  agent's value columns) and IMPACT's target network, a copy of the
+  parameters in tensors of its own."""
   params = dict(agent.named_parameters())
-  return TrainState(params=params, opt_state=rmsprop_init(params, config),
-                    update_steps=0)
+  device = next(iter(params.values())).device
+  popart = None
+  if config.use_popart:
+    if num_popart_tasks is None:
+      num_popart_tasks = getattr(agent, 'num_popart_tasks', 0)
+    popart = popart_lib.init(max(num_popart_tasks, 1), device=device)
+  return with_target(TrainState(params=params,
+                                opt_state=rmsprop_init(params, config),
+                                update_steps=0, popart=popart), config)
+
+
+def with_target(state: TrainState, config: Config) -> TrainState:
+  """`state` with IMPACT's target network set to a copy of its params
+  (and of its PopArt statistics) when config.surrogate is 'impact'."""
+  if config.surrogate != 'impact':
+    return state
+  target = {k: p.detach().clone() for k, p in state.params.items()}
+  return state._replace(target_params=target,
+                        target_popart=_copy_popart(state.popart))
 
 
 def state_to_payload(state: TrainState) -> Dict[str, Any]:
   """The TrainState as plain dicts of CPU tensors, the form a checkpoint
   holds (`torch.load(weights_only=True)` refuses NamedTuples):
-  {'params', 'opt_state': {'count', 'nu', 'trace'}, 'update_steps'}."""
+  {'params', 'opt_state': {'count', 'nu', 'trace'}, 'update_steps'},
+  and, as in JAX's TrainState tree, 'popart' ({'mu', 'nu', 'sigma_min',
+  'sigma_max'}), 'target_params' and 'target_popart' when the state has
+  them (absent when None)."""
   host = lambda tree: {k: v.detach().to('cpu', copy=True)  # noqa: E731
                        for k, v in tree.items()}
   opt = state.opt_state
-  return {'params': host(state.params),
-          'opt_state': {'count': opt.count.detach().to('cpu', copy=True),
-                        'nu': host(opt.nu),
-                        'trace': None if opt.trace is None
-                        else host(opt.trace)},
-          'update_steps': int(state.update_steps)}
+  payload = {'params': host(state.params),
+             'opt_state': {'count': opt.count.detach().to('cpu', copy=True),
+                           'nu': host(opt.nu),
+                           'trace': None if opt.trace is None
+                           else host(opt.trace)},
+             'update_steps': int(state.update_steps)}
+  for name in ('popart', 'target_popart'):
+    if getattr(state, name) is not None:
+      payload[name] = host(getattr(state, name)._asdict())
+  if state.target_params is not None:
+    payload['target_params'] = host(state.target_params)
+  return payload
 
 
 @torch.no_grad()
@@ -234,16 +369,22 @@ def load_state_(state: TrainState, payload: Dict[str, Any]) -> TrainState:
   (`make_train_state`): a restore that rebound the dict would leave the
   agent training its old weights. The caller has checked the payload's
   structure against `state`."""
-  for k, p in state.params.items():
-    p.copy_(payload['params'][k])
+  def copy_tree(tree, saved):
+    for k, v in tree.items():
+      v.copy_(saved[k])
+
+  copy_tree(state.params, payload['params'])
   opt, saved = state.opt_state, payload['opt_state']
   opt.count.copy_(saved['count'])
-  for k, v in opt.nu.items():
-    v.copy_(saved['nu'][k])
+  copy_tree(opt.nu, saved['nu'])
   if opt.trace is not None:
-    for k, v in opt.trace.items():
-      v.copy_(saved['trace'][k])
-  return TrainState(state.params, opt, int(payload['update_steps']))
+    copy_tree(opt.trace, saved['trace'])
+  for name in ('popart', 'target_popart'):
+    if getattr(state, name) is not None:
+      copy_tree(getattr(state, name)._asdict(), payload[name])
+  if state.target_params is not None:
+    copy_tree(state.target_params, payload['target_params'])
+  return state._replace(update_steps=int(payload['update_steps']))
 
 
 def param_fingerprint(params) -> torch.Tensor:
@@ -273,31 +414,60 @@ def param_fingerprint(params) -> torch.Tensor:
   return total & 0xFFFFFFFF
 
 
-def _all_reduce_sum(mesh, grads, metrics, axis='data'):
-  """The gradients and the losses summed over the ranks of the mesh's
-  `axis` (None: every rank), in one all-reduce of one flat float32
-  buffer."""
-  leaves = list(grads.values()) + [metrics[k] for k in LOSS_KEYS]
+def popart_moments(state: TrainState, aux):
+  """This rank's PopArt batch moments ([K] count, sum and sum of squares
+  of the V-trace targets per task), or None without PopArt."""
+  if state.popart is None:
+    return None
+  return popart_lib.batch_moments(aux['vs'], aux['task_ids'],
+                                  state.popart.mu.shape[0])
+
+
+def _all_reduce_sum(mesh, grads, metrics, axis='data', moments=None):
+  """The gradients, the summed metrics (SUMMED_KEYS) and the PopArt
+  moments summed over the ranks of the mesh's `axis` (None: every rank),
+  in one all-reduce of one flat float32 buffer. Returns (grads, metrics,
+  moments)."""
+  keys = [k for k in SUMMED_KEYS if k in metrics]
+  extra = list(moments) if moments is not None else []
+  leaves = (list(grads.values()) + [metrics[k] for k in keys] + extra)
   flat = mesh.all_reduce_sum_(torch.cat([x.reshape(-1) for x in leaves]),
                               axis=axis)
   parts = [part.view_as(x) for part, x in
            zip(torch.split(flat, [x.numel() for x in leaves]), leaves)]
-  metrics = dict(metrics, **dict(zip(LOSS_KEYS, parts[len(grads):])))
-  return dict(zip(grads, parts)), metrics
+  n = len(grads)
+  metrics = dict(metrics, **dict(zip(keys, parts[n:n + len(keys)])))
+  moments = tuple(parts[n + len(keys):]) if moments is not None else None
+  return dict(zip(grads, parts[:n])), metrics, moments
 
 
 @torch.no_grad()
 def apply_gradients(state: TrainState, grads, metrics, config: Config,
-                    schedule, g_norm=None):
+                    schedule, g_norm=None, moments=None):
   """RMSProp on `state`'s parameters with `grads` (the same keys and
-  shapes), the health watchdog's keep-or-skip, and the in-place update;
-  returns (TrainState, metrics). `g_norm` is the pre-clip global norm
-  (None: computed from `grads`); it is reported as `grad_norm`."""
+  shapes), then in JAX's order: the PopArt statistics move by
+  `moments` (`popart_moments`, summed over a group's ranks) and the
+  value head is rewritten to preserve its outputs; the health
+  watchdog's keep-or-skip, over the parameters, the optimizer state and
+  the statistics; the in-place update; and the target network's
+  refresh every target_update_interval steps, after the keep, so a
+  skipped step's target takes the kept parameters. Returns
+  (TrainState, metrics). `g_norm` is the pre-clip global norm (None:
+  computed from `grads`); it is reported as `grad_norm`."""
   params = state.params
   metrics['grad_norm'] = global_norm(grads) if g_norm is None else g_norm
   updates, opt_state = rmsprop_update(grads, state.opt_state, config,
                                       schedule, g_norm=metrics['grad_norm'])
   new_params = {k: p + updates[k] for k, p in params.items()}
+  popart = state.popart
+  if popart is not None:
+    popart = popart_lib.update_from_moments(state.popart, *moments,
+                                            beta=config.popart_beta)
+    new_params = popart_lib.apply_preservation(new_params, state.popart,
+                                               popart)
+    sig = popart_lib.sigma(popart)
+    metrics['popart_sigma_min'] = torch.min(sig)
+    metrics['popart_sigma_max'] = torch.max(sig)
   if config.health_watchdog:
     step_ok = (torch.isfinite(metrics['total_loss']) &
                torch.isfinite(metrics['grad_norm']))
@@ -309,11 +479,24 @@ def apply_gradients(state: TrainState, grads, metrics, config: Config,
         nu=keep(opt_state.nu, state.opt_state.nu),
         trace=(None if opt_state.trace is None
                else keep(opt_state.trace, state.opt_state.trace)))
+    if popart is not None:
+      popart = popart_lib.PopArtState(**keep(popart._asdict(),
+                                             state.popart._asdict()))
     metrics['step_ok'] = step_ok.float()
   for k, p in params.items():
     p.copy_(new_params[k])
   metrics['learning_rate'] = schedule(state.update_steps)
-  return TrainState(params, opt_state, state.update_steps + 1), metrics
+  new_state = state._replace(opt_state=opt_state,
+                             update_steps=state.update_steps + 1,
+                             popart=popart)
+  if (state.target_params is not None and
+      (state.update_steps + 1) % config.target_update_interval == 0):
+    # The refresh: the target takes the kept parameters, and the
+    # statistics with them, in place.
+    for k, t in state.target_params.items():
+      t.copy_(params[k])
+    new_state = new_state._replace(target_popart=_copy_popart(popart))
+  return new_state, metrics
 
 
 def make_train_step_fn(agent, config: Config, mesh=None):
@@ -322,24 +505,30 @@ def make_train_step_fn(agent, config: Config, mesh=None):
   The returned state holds the same parameter tensors, updated in place.
   Metrics are 0-d device tensors; reading one waits for the device. With
   `health_watchdog` a non-finite loss or gradient norm keeps the old
-  parameters and optimizer state (one `where` per tensor, no host sync)
-  and `update_steps` still advances.
+  parameters, optimizer state and PopArt statistics (one `where` per
+  tensor, no host sync) and `update_steps` still advances.
 
   With `mesh` the batch is this rank's shard (parallel/train_parallel.py
-  places it), the gradients and losses are summed over the ranks, and
-  the metrics are the global batch's."""
+  places it), the gradients, losses and PopArt batch moments are summed
+  over the ranks, and the metrics are the global batch's."""
   schedule = make_schedule(config)
 
   def train_step(state: TrainState, batch: ActorOutput):
     params = state.params
-    total_loss, metrics = loss_fn(agent, batch, config, mesh=mesh)
+    total_loss, metrics, aux = loss_fn(
+        agent, batch, config, mesh=mesh, popart_state=state.popart,
+        target_params=state.target_params,
+        target_popart=state.target_popart)
     grads = dict(zip(params, torch.autograd.grad(total_loss,
                                                  list(params.values()))))
     with torch.no_grad():
+      moments = popart_moments(state, aux)
       if mesh is not None:
-        grads, metrics = _all_reduce_sum(mesh, grads, metrics)
+        grads, metrics, moments = _all_reduce_sum(mesh, grads, metrics,
+                                                  moments=moments)
       # Pre-clip norm: explosions stay visible even with clipping on.
-      return apply_gradients(state, grads, metrics, config, schedule)
+      return apply_gradients(state, grads, metrics, config, schedule,
+                             moments=moments)
 
   return train_step
 

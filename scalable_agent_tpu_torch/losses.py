@@ -28,3 +28,27 @@ def compute_policy_gradient_loss(logits, actions, advantages):
   cross_entropy = -torch.gather(log_probs, -1,
                                 actions.long()[..., None])[..., 0]
   return torch.sum(cross_entropy * advantages.detach())
+
+
+def compute_impact_surrogate_loss(log_ratio, advantages, epsilon: float):
+  """IMPACT's clipped-target surrogate (arXiv 1912.00167):
+  -sum over T, B of min(r * A, clip(r, 1-eps, 1+eps) * A), with
+  r = exp(log pi_theta(a|x) - log pi_target(a|x)) and the advantages
+  detached. At r == 1 (target == current params) the clip never binds
+  and the gradient is `compute_policy_gradient_loss`'s."""
+  advantages = advantages.detach()
+  ratio = torch.exp(log_ratio)
+  unclipped = ratio * advantages
+  clipped = torch.clamp(ratio, 1.0 - epsilon, 1.0 + epsilon) * advantages
+  return -torch.sum(torch.minimum(unclipped, clipped))
+
+
+def impact_clip_fraction(log_ratio, epsilon: float, denominator=None):
+  """The share of (t, b) elements whose ratio left the clip band: a mean
+  over T and B, or the count over `denominator` (a process group's
+  global T*B, so the ranks' values sum to the global share)."""
+  ratio = torch.exp(log_ratio.detach())
+  outside = (torch.abs(ratio - 1.0) > epsilon).float()
+  if denominator is None:
+    return torch.mean(outside)
+  return torch.sum(outside) / denominator

@@ -141,8 +141,8 @@ def extract_episodes(batch) -> List[Tuple[int, float, int]]:
 class EpisodeStats:
   """Per-level episode summaries of the learner loop: every finished
   episode writes `<level>/episode_return` and `<level>/episode_frames`.
-  Single-task: the suites' human-normalised scores (DMLab-30, Atari-57)
-  are ROADMAP A7, and the factory refuses the suites' level names."""
+  A suite's levels (DMLab-30, Atari-57) each write their own; the
+  suites' human-normalised scores are ROADMAP A7.1."""
 
   def __init__(self, level_names: List[str],
                writer: Optional[SummaryWriter] = None):

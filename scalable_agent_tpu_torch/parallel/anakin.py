@@ -29,8 +29,11 @@ the JAX module, whose fused step builds its train step without the mesh,
 the train step runs the sharded V-trace kernel (K1b) on each rank's
 columns: the same function, since each column is its own recursion.
 
-The JAX module's vectorized population and hybrid filler are later
-slices, as are its other env cores (ROADMAP.md).
+The learner extensions pass through as in the JAX module: PopArt with
+one task (the batch's task ids are zeros), pixel control on the core's
+frames, the instruction encoder on its all-pad ids. The JAX module's
+vectorized population and hybrid filler are later slices, as are its
+other env cores (ROADMAP A6).
 """
 
 import dataclasses
@@ -49,6 +52,7 @@ from scalable_agent_tpu_torch import observability
 from scalable_agent_tpu_torch.config import Config
 from scalable_agent_tpu_torch.models import init_params
 from scalable_agent_tpu_torch.models.agent import make_step_fn
+from scalable_agent_tpu_torch.models.instruction import MAX_INSTRUCTION_LEN
 from scalable_agent_tpu_torch.parallel import distributed
 from scalable_agent_tpu_torch.parallel import train_parallel
 from scalable_agent_tpu_torch.parallel.sharding import (DATA_AXIS,
@@ -58,7 +62,6 @@ from scalable_agent_tpu_torch.structs import (ActorOutput, AgentOutput,
                                               StepOutput, StepOutputInfo,
                                               map_structure)
 
-MAX_INSTRUCTION_LEN = 16  # the JAX package's instruction length
 
 
 class EnvCoreState(NamedTuple):

@@ -220,12 +220,19 @@ class ShardingRegistry:
         trace=None if opt_state.trace is None else dict(param_specs))
 
   def state_specs(self, state):
-    """A TrainState of specs: params by the rules, the optimizer state
-    by `opt_specs`, the step counter replicated."""
+    """A TrainState of specs: params by the rules, IMPACT's target
+    network as the params (the JAX rule: the anchor shards exactly like
+    them), the optimizer state by `opt_specs`, the step counter and the
+    PopArt statistics replicated."""
     pspecs = self.param_specs(state.params)
-    return type(state)(params=pspecs,
-                       opt_state=self.opt_specs(state.opt_state, pspecs),
-                       update_steps=REPLICATED)
+    replicated = lambda p: (None if p is None else  # noqa: E731
+                            type(p)(*(REPLICATED for _ in p)))
+    return type(state)(
+        params=pspecs, opt_state=self.opt_specs(state.opt_state, pspecs),
+        update_steps=REPLICATED, popart=replicated(state.popart),
+        target_params=(None if state.target_params is None
+                       else dict(pspecs)),
+        target_popart=replicated(state.target_popart))
 
   def describe(self, params, mesh=None) -> Dict[str, str]:
     """{JAX path: spec string}: the manifest a checkpoint records. With a

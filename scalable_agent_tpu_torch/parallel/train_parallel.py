@@ -77,25 +77,30 @@ def _tensor_parallel(config: Config, mesh) -> bool:
 
 
 @torch.no_grad()
-def make_sharded_train_state(agent, config: Config, mesh,
-                             registry=None) -> learner.TrainState:
+def make_sharded_train_state(agent, config: Config, mesh, registry=None,
+                             num_popart_tasks=None) -> learner.TrainState:
   """Rank 0's parameters on every rank (one broadcast of a flat buffer),
   then the train state on them. Without tensor parallelism the state
   holds the agent's own parameters, replicated. With it (a model axis
   wider than 1 and model_parallelism > 1) it holds this rank's blocks by
   the registry's rules, copies apart from the agent's (whose full
-  tensors the gathered step computes with), and RMSProp's moments
-  follow the blocks."""
+  tensors the gathered step computes with), and RMSProp's moments and
+  IMPACT's target network follow the blocks, as JAX pins the target
+  like the params; the PopArt statistics are whole on every rank."""
   params = list(agent.parameters())
   flat = mesh.broadcast_(torch.cat([p.reshape(-1) for p in params]))
   for p, part in zip(params, torch.split(flat, [p.numel() for p in params])):
     p.copy_(part.view_as(p))
+  state = learner.make_train_state(agent, config, num_popart_tasks)
   if not _tensor_parallel(config, mesh):
-    return learner.make_train_state(agent, config)
+    return state
   layout = param_layout(agent, config, mesh, registry)
   blocks = {k: layout.local(k, p.detach()).clone().requires_grad_(True)
             for k, p in agent.named_parameters()}
-  return learner.TrainState(blocks, learner.rmsprop_init(blocks, config), 0)
+  return learner.with_target(
+      state._replace(params=blocks,
+                     opt_state=learner.rmsprop_init(blocks, config)),
+      config)
 
 
 def _batch_axis(config: Config):
@@ -162,29 +167,36 @@ def make_sharded_train_step(agent, config: Config, mesh, example_batch,
     with torch.no_grad():
       for k, full in layout.gather_tree(state.params).items():
         full_params[k].copy_(full)
-    total_loss, metrics = learner.loss_fn(
-        agent, batch, config, mesh=mesh,
-        vtrace_axis=_batch_axis(config))
+    target = (None if state.target_params is None
+              else layout.gather_tree(state.target_params))
+    total_loss, metrics, aux = learner.loss_fn(
+        agent, batch, config, mesh=mesh, vtrace_axis=_batch_axis(config),
+        popart_state=state.popart, target_params=target,
+        target_popart=state.target_popart)
     grads = dict(zip(full_params, torch.autograd.grad(
         total_loss, list(full_params.values()))))
     with torch.no_grad():
-      grads, metrics = learner._all_reduce_sum(
-          mesh, grads, metrics, axis=None if over_model else 'data')
+      grads, metrics, moments = learner._all_reduce_sum(
+          mesh, grads, metrics, axis=None if over_model else 'data',
+          moments=learner.popart_moments(state, aux))
       g_norm = learner.global_norm(grads)
       return learner.apply_gradients(state, layout.local_tree(grads),
                                      metrics, config, schedule,
-                                     g_norm=g_norm)
+                                     g_norm=g_norm, moments=moments)
 
   def sharded_step(state, batch):
     rows = gather_rows(mesh, batch) if over_model else batch
     params = state.params
-    total_loss, metrics = learner.loss_fn(
+    total_loss, metrics, aux = learner.loss_fn(
         agent, rows, config, mesh=mesh, params=params, tp=tp,
-        vtrace_axis=sharding.DATA_AXIS)
+        vtrace_axis=sharding.DATA_AXIS, popart_state=state.popart,
+        target_params=state.target_params,
+        target_popart=state.target_popart)
     grads = dict(zip(params, torch.autograd.grad(total_loss,
                                                  list(params.values()))))
     with torch.no_grad():
-      grads, metrics = learner._all_reduce_sum(mesh, grads, metrics)
+      grads, metrics, moments = learner._all_reduce_sum(
+          mesh, grads, metrics, moments=learner.popart_moments(state, aux))
       # The global norm: the blocks' squares summed over the model
       # group, the whole tensors' once.
       zero = torch.zeros((), device=mesh.device)
@@ -195,7 +207,8 @@ def make_sharded_train_step(agent, config: Config, mesh, example_batch,
       mesh.all_reduce_sum_(cut_sq, axis=sharding.MODEL_AXIS)
       g_norm = torch.sqrt(cut_sq[0] + whole_sq)
       return learner.apply_gradients(state, grads, metrics, config,
-                                     schedule, g_norm=g_norm)
+                                     schedule, g_norm=g_norm,
+                                     moments=moments)
 
   step = gathered_step if mode == 'gathered' else sharded_step
   step.tp_compute = mode
@@ -224,15 +237,16 @@ def gather_rows(mesh, batch):
 def gather_state(state: learner.TrainState, layout: sharding.ParamLayout
                  ) -> learner.TrainState:
   """The full TrainState from every rank's blocks (a collective over
-  the model group): params and RMSProp's moments joined, the count and
-  step as they are."""
+  the model group): params, RMSProp's moments and the target network
+  joined, the count, step and PopArt statistics as they are."""
   opt = state.opt_state
-  return learner.TrainState(
+  return state._replace(
       params=layout.gather_tree(state.params),
       opt_state=learner.RMSPropState(
           count=opt.count, nu=layout.gather_tree(opt.nu),
           trace=None if opt.trace is None else layout.gather_tree(opt.trace)),
-      update_steps=state.update_steps)
+      target_params=(None if state.target_params is None
+                     else layout.gather_tree(state.target_params)))
 
 
 # --- the SDC sentinel ----------------------------------------------------

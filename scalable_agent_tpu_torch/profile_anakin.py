@@ -1,11 +1,13 @@
 """Where the time of one fused Anakin step goes, on one NVIDIA card.
 
   python -m scalable_agent_tpu_torch.profile_anakin \
-      [--compute_dtype=bfloat16]
+      [--compute_dtype=bfloat16] [--extensions]
 
 Runs the chip_smoke.py slice configuration (deep torso, 72x96 frames,
 T=100, B=32, 9 actions, fused V-trace; `--compute_dtype` float32, the
-default, with TF32 off, or bfloat16) and prints:
+default, with TF32 off, or bfloat16; `--extensions` adds the learner
+extensions of the full-feature config: PopArt, pixel control at 0.01
+and the instruction encoder) and prints:
 
 - host wall time per fused step, split into acting (T policy steps and
   env steps) and learning (the train step), each ended by a
@@ -35,6 +37,9 @@ SLICE = dict(env_backend='bandit', torso='deep', height=72, width=96,
              batch_size=32, unroll_length=100, num_actions=9,
              use_pallas_vtrace=True, use_instruction=False, seed=0)
 STEPS = 3  # timed steps, then as many profiled ones
+# The learner extensions of the full-feature config (parallel/fit.py).
+EXTENSIONS = dict(use_popart=True, pixel_control_cost=0.01,
+                  use_instruction=True)
 
 
 def _device_us(event):
@@ -50,11 +55,13 @@ def main(argv=None):
       prog='python -m scalable_agent_tpu_torch.profile_anakin')
   parser.add_argument('--compute_dtype', default='float32',
                       choices=('float32', 'bfloat16'))
+  parser.add_argument('--extensions', action='store_true')
   args = parser.parse_args(argv)
   driver.resolve_device('cuda')
   torch.backends.cudnn.allow_tf32 = False
   torch.backends.cuda.matmul.allow_tf32 = False
-  config = Config(**SLICE, compute_dtype=args.compute_dtype)
+  config = Config(**dict(SLICE, compute_dtype=args.compute_dtype,
+                         **(EXTENSIONS if args.extensions else {})))
   env_core = anakin.make_env_core(config)
   agent = driver.build_agent(config, env_core.num_actions)
   train = learner.make_train_step_fn(agent, config)
@@ -109,7 +116,9 @@ def main(argv=None):
   carry, metrics = step(carry)
   torch.cuda.synchronize()
   peak_gib = torch.cuda.max_memory_allocated() / 2**30
-  print(f'{card}, {config.compute_dtype}: fused step {step_ms:.1f} ms = '
+  print(f'{card}, {config.compute_dtype}'
+        f'{" with the extensions" if args.extensions else ""}: fused step '
+        f'{step_ms:.1f} ms = '
         f'acting {step_ms - learn_ms:.1f} ms + learning {learn_ms:.1f} ms '
         f'({config.frames_per_step / step_ms * 1e3:.0f} env-frames/s)')
   print(f'profiled window: {STEPS} steps in {window_s * 1e3:.1f} ms, '
@@ -123,6 +132,7 @@ def main(argv=None):
   print(f'peak {peak_gib:.3f} GiB allocated over one fused step')
   print(json.dumps({
       'card': card, 'compute_dtype': config.compute_dtype,
+      'extensions': args.extensions,
       'peak_gib': peak_gib, 'step_ms': step_ms,
       'acting_ms': step_ms - learn_ms, 'learning_ms': learn_ms,
       'env_frames_per_sec': config.frames_per_step / step_ms * 1e3,

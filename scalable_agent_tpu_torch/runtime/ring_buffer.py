@@ -16,26 +16,171 @@ ported from the JAX package's runtime/ring_buffer.py (batch staging).
   device arena, so the copies trickle in while the learner trains
   instead of bursting at the step boundary, and the host stack of the
   frames disappears.
-
-The JAX module's replay tier (IMPACT sample reuse, ROADMAP A2) is not
-ported: `Config` refuses its settings.
+- `ReplayTier` (IMPACT sample reuse, arXiv 1912.00167): a circular arena
+  of consumed unrolls behind the TrajectoryBuffer. `get_unrolls`
+  composes each batch fresh first, then a replay_ratio share of replayed
+  unrolls, and the prefetcher serves every staged batch `replay_k` times
+  before it frees the slot (the staged device batch is handed over
+  unchanged: no re-stage, no second copy). Episode stats and fresh-frame
+  counts take only the fresh slots of a batch's first serve.
 """
 
 import collections
 import contextlib
+import logging
 import threading
 import time
-from typing import Callable, List, Optional
+from typing import Callable, List, Optional, Tuple
 
 import numpy as np
 import torch
 
+from scalable_agent_tpu_torch import integrity
 from scalable_agent_tpu_torch.runtime.actor import batch_unrolls
 from scalable_agent_tpu_torch.structs import ActorOutput, map_structure
+
+log = logging.getLogger('scalable_agent_tpu_torch')
 
 
 class Closed(Exception):
   """The buffer was closed while blocking."""
+
+
+class ReplayTier:
+  """Circular replay arena of completed unrolls (the JAX class).
+
+  Consumed unrolls are retained by reference (host numpy, immutable once
+  an actor enqueued them) with the param version current at retention.
+  `sample(n)` hands out up to n unrolls from a circular read cursor
+  (IMPACT reads its buffer sequentially), evicting in passing:
+
+  - by AGE: a full ring's oldest entry is overwritten by a new unroll
+    (`evictions_age`): capacity is the age bound;
+  - by VERSION: an entry more than `max_staleness` published param
+    versions behind the current one (`evictions_version`); 0 = no bound;
+  - by CONTENT (`verify_crc`): each entry keeps the CRC of its bytes at
+    insert and is re-verified at every serve; a mismatch evicts instead
+    of serving (`evictions_crc`).
+
+  Thread-safe (its own lock; it never calls back into the buffer).
+  """
+
+  def __init__(self, capacity_unrolls: int, max_staleness: int = 0,
+               verify_crc: bool = True):
+    if capacity_unrolls < 1:
+      raise ValueError('replay capacity must be >= 1')
+    self._capacity = capacity_unrolls
+    self._max_staleness = max_staleness
+    self._verify_crc = bool(verify_crc)
+    self._entries = collections.deque()  # (unroll, version, crc or None)
+    self._cursor = 0
+    self._lock = threading.Lock()
+    self._version = 0
+    self.evictions_age = 0
+    self.evictions_version = 0
+    self.evictions_crc = 0
+    self.reused_unrolls = 0
+    self._staleness_sum = 0
+    self._staleness_samples = 0
+    self._last_sample = (0, 0)  # (count, staleness sum): unsample_last
+
+  def note_param_version(self, version: int):
+    """Advance the current published param version: the clock of the
+    staleness accounting and of the version eviction."""
+    with self._lock:
+      self._version = max(self._version, int(version))
+
+  def add(self, unroll: ActorOutput):
+    # The insert-time CRC is computed outside the lock.
+    crc = integrity.tree_digest(unroll) if self._verify_crc else None
+    with self._lock:
+      if len(self._entries) >= self._capacity:
+        self._entries.popleft()
+        self.evictions_age += 1
+        if self._cursor > 0:
+          self._cursor -= 1  # the cursor stays on the same entry
+      self._entries.append((unroll, self._version, crc))
+
+  def sample(self, n: int) -> List[ActorOutput]:
+    """Up to `n` unrolls from the circular cursor, at most one lap per
+    call (fewer when the tier is short, or when version or CRC eviction
+    thins the pick). Each delivered serve counts toward `reused_unrolls`
+    and the mean staleness. The CRC verification runs outside the lock;
+    a rotted entry is evicted by identity and shrinks this call's pick."""
+    picked: List[Tuple] = []  # (entry, staleness), CRC pending
+    with self._lock:
+      budget = len(self._entries)
+      while len(picked) < n and self._entries and budget > 0:
+        budget -= 1
+        if self._cursor >= len(self._entries):
+          self._cursor = 0
+        entry = self._entries[self._cursor]
+        staleness = self._version - entry[1]
+        if self._max_staleness and staleness > self._max_staleness:
+          del self._entries[self._cursor]
+          self.evictions_version += 1
+          continue
+        picked.append((entry, staleness))
+        self._cursor += 1
+    verified, rotten = [], []
+    for entry, staleness in picked:
+      unroll, _, crc = entry
+      if crc is not None and integrity.tree_digest(unroll) != crc:
+        rotten.append(entry)
+      else:
+        verified.append((entry, staleness))
+    with self._lock:
+      for entry in rotten:
+        for idx, cand in enumerate(self._entries):
+          if cand is entry:
+            del self._entries[idx]
+            if idx < self._cursor:
+              self._cursor -= 1
+            self.evictions_crc += 1
+            break
+      sample_staleness = 0
+      for _, staleness in verified:
+        self.reused_unrolls += 1
+        self._staleness_sum += staleness
+        self._staleness_samples += 1
+        sample_staleness += staleness
+      self._last_sample = (len(verified), sample_staleness)
+    return [entry[0] for entry, _ in verified]
+
+  def unsample_last(self):
+    """Undo the accounting of the most recent sample(), whose batch was
+    not delivered (the fresh side timed out or closed): the cursor steps
+    back so the same entries serve next, and the reuse and staleness
+    counters forget them. Version evictions stand. A repeated call is a
+    no-op."""
+    with self._lock:
+      n, staleness_sum = self._last_sample
+      self._last_sample = (0, 0)
+      if n == 0:
+        return
+      if self._entries:
+        self._cursor = (self._cursor - n) % len(self._entries)
+      self.reused_unrolls -= n
+      self._staleness_sum -= staleness_sum
+      self._staleness_samples -= n
+
+  def __len__(self):
+    with self._lock:
+      return len(self._entries)
+
+  def stats(self):
+    with self._lock:
+      mean_staleness = (self._staleness_sum / self._staleness_samples
+                        if self._staleness_samples else 0.0)
+      return {
+          'replay_occupancy': len(self._entries),
+          'replay_capacity': self._capacity,
+          'replay_evictions_age': self.evictions_age,
+          'replay_evictions_version': self.evictions_version,
+          'replay_evictions_crc': self.evictions_crc,
+          'replay_reused_unrolls': self.reused_unrolls,
+          'replay_mean_staleness': round(mean_staleness, 3),
+      }
 
 
 def _wait_until(cond: threading.Condition, predicate,
@@ -50,12 +195,26 @@ def _wait_until(cond: threading.Condition, predicate,
 
 
 class TrajectoryBuffer:
-  """Bounded FIFO of unrolls with blocking put/get and backpressure."""
+  """Bounded FIFO of unrolls with blocking put/get and backpressure.
 
-  def __init__(self, capacity_unrolls: int):
+  With a `ReplayTier` every fresh unroll dequeued is retained into the
+  tier on its way out, and `get_unrolls` composes each batch fresh
+  first, then replayed, per `replay_ratio`. The FIFO's semantics
+  (backpressure, order, push-back on timeout or close) are unchanged.
+  """
+
+  def __init__(self, capacity_unrolls: int,
+               replay: Optional[ReplayTier] = None,
+               replay_ratio: float = 0.0):
     if capacity_unrolls < 1:
       raise ValueError('capacity must be >= 1')
+    if not 0.0 <= replay_ratio < 1.0:
+      raise ValueError('replay_ratio must be in [0, 1)')
+    if replay_ratio > 0 and replay is None:
+      raise ValueError('replay_ratio > 0 needs a ReplayTier')
     self._capacity = capacity_unrolls
+    self._replay = replay
+    self._replay_ratio = replay_ratio
     self._deque = collections.deque()
     self._lock = threading.Lock()
     self._not_full = threading.Condition(self._lock)
@@ -64,7 +223,20 @@ class TrajectoryBuffer:
     self._high_water = 0
     self._put_waits = 0
     self._put_wait_secs = 0.0
+    # Unrolls that left the FIFO toward the learner. It runs ahead of
+    # training by the prefetch lookahead: frame budgets read the
+    # prefetcher's serve-time fresh_slots_served instead.
     self._fresh_unrolls = 0
+
+  @property
+  def replay(self) -> Optional[ReplayTier]:
+    return self._replay
+
+  def note_param_version(self, version: int):
+    """The publish cadence -> the replay tier's staleness clock (a no-op
+    without a tier)."""
+    if self._replay is not None:
+      self._replay.note_param_version(version)
 
   def put(self, unroll, timeout: Optional[float] = None):
     """Block while full (backpressure); raises Closed after close() and
@@ -87,21 +259,52 @@ class TrajectoryBuffer:
       self._high_water = max(self._high_water, len(self._deque))
       self._not_empty.notify()
 
-  def get_unrolls(self, batch_size: int,
-                  timeout: Optional[float] = None) -> List:
-    """Dequeue `batch_size` unrolls in FIFO order. Each dequeue frees a
-    producer slot at once; on timeout or close the partial batch goes
-    back to the front, so no trajectory is dropped."""
+  def get(self, timeout: Optional[float] = None):
+    """One fresh unroll (retained into the replay tier); blocks while
+    empty, raises Closed once closed and drained."""
+    deadline = None if timeout is None else time.monotonic() + timeout
+    with self._not_empty:
+      _wait_until(self._not_empty, lambda: self._deque or self._closed,
+                  deadline, 'TrajectoryBuffer.get')
+      if not self._deque:
+        raise Closed()
+      item = self._deque.popleft()
+      self._fresh_unrolls += 1
+      self._not_full.notify()
+    if self._replay is not None:
+      self._replay.add(item)
+    return item
+
+  def sample_replay(self, batch_size: int) -> List:
+    """The replayed part of one composed batch: up to
+    floor(batch_size * replay_ratio) unrolls from the tier, [] without
+    one. Sampled before the fresh fetch, so a batch never replays an
+    unroll it also consumes fresh."""
+    if self._replay is None or self._replay_ratio == 0:
+      return []
+    return self._replay.sample(int(batch_size * self._replay_ratio))
+
+  def get_unrolls(self, batch_size: int, timeout: Optional[float] = None
+                  ) -> Tuple[List, int]:
+    """One batch's unrolls and the count of fresh ones among them: the
+    fresh unrolls first (slots
+    [0, n_fresh)), then the replayed ones. Each dequeue frees a producer
+    slot at once; on timeout or close the partial fresh batch goes back
+    to the front, so no trajectory is dropped, and the replayed part's
+    accounting is given back to the tier. Every fresh dequeue is
+    retained into the tier."""
+    replayed = self.sample_replay(batch_size)
+    n_fresh = batch_size - len(replayed)
     deadline = None if timeout is None else time.monotonic() + timeout
     items: List = []
     with self._not_empty:
       try:
-        while len(items) < batch_size:
+        while len(items) < n_fresh:
           _wait_until(self._not_empty, lambda: self._deque or self._closed,
                       deadline, 'TrajectoryBuffer.get_unrolls')
           if not self._deque:
             raise Closed()
-          while self._deque and len(items) < batch_size:
+          while self._deque and len(items) < n_fresh:
             items.append(self._deque.popleft())
           self._not_full.notify_all()
       except (TimeoutError, Closed):
@@ -111,9 +314,14 @@ class TrajectoryBuffer:
         self._high_water = max(self._high_water, len(self._deque))
         if items:
           self._not_empty.notify_all()
+        if replayed:
+          self._replay.unsample_last()
         raise
       self._fresh_unrolls += len(items)
-    return items
+    if self._replay is not None:
+      for item in items:
+        self._replay.add(item)
+    return items + replayed, n_fresh
 
   def close(self):
     with self._lock:
@@ -123,11 +331,12 @@ class TrajectoryBuffer:
 
   def stats(self):
     """{'occupancy', 'capacity', 'high_water', 'put_waits',
-    'put_wait_secs', 'fresh_unrolls'}: high_water at capacity with
-    growing put_waits means the producers are throttled by backpressure
-    — the bound working, not a failure."""
+    'put_wait_secs', 'fresh_unrolls'}, and the replay tier's counters
+    when one is attached: high_water at capacity with growing put_waits
+    means the producers are throttled by backpressure — the bound
+    working, not a failure."""
     with self._lock:
-      return {
+      out = {
           'occupancy': len(self._deque),
           'capacity': self._capacity,
           'high_water': self._high_water,
@@ -135,6 +344,9 @@ class TrajectoryBuffer:
           'put_wait_secs': round(self._put_wait_secs, 4),
           'fresh_unrolls': self._fresh_unrolls,
       }
+    if self._replay is not None:
+      out.update(self._replay.stats())
+    return out
 
   def __len__(self):
     with self._lock:
@@ -221,11 +433,13 @@ class UnrollBatchStager:
   def _stream(self):
     return self._copy_stream or torch.cuda.current_stream(self._device)
 
-  def add(self, unroll):
-    """Stage one unroll into the next slot of the current batch."""
+  def add(self, unroll, peel_view: bool = True):
+    """Stage one unroll into the next slot of the current batch;
+    `peel_view=False` (a replayed unroll, whose episodes were recorded
+    at its first consumption) skips the host view."""
     if self._next_slot >= self._batch_size:
       raise RuntimeError('batch already full; call finish()')
-    if self._host_view_fn is not None:
+    if peel_view and self._host_view_fn is not None:
       self._views.append(self._host_view_fn(unroll))
     slot = self._next_slot
     with (torch.cuda.stream(self._stream()) if self._cuda
@@ -288,31 +502,48 @@ class UnrollBatchStager:
 class BatchPrefetcher:
   """Stages up to `depth` batches ahead of the learner.
 
-  The staging thread takes `batch_size` unrolls, stacks them with
-  `stack_fn` (actor.batch_unrolls by default) and hands the host batch to
-  `place_fn`, whose result `get()` returns in FIFO order. An exception in
-  the staging thread (place_fn's included) is raised by the next `get()`.
-  `stats()` counts the gets that found nothing staged and blocked, and
-  the seconds they waited: the share of the learner's time spent
-  starved.
+  The staging thread takes a batch's unrolls (`TrajectoryBuffer.
+  get_unrolls`), stacks them with `stack_fn` (actor.batch_unrolls by
+  default) and hands the host batch to `place_fn`, whose result `get()`
+  returns in FIFO order. An exception in the staging thread (place_fn's
+  included) is raised by the next `get()`. `stats()` counts the gets
+  that found nothing staged and blocked, and the seconds they waited:
+  the share of the learner's time spent starved.
 
   With a `stager` (UnrollBatchStager) each unroll is staged the moment
   it leaves the buffer and the stager assembles the batch; `place_fn`
   and `stack_fn` are then unused.
+
+  Sample reuse: each staged batch is served `replay_k` times before its
+  slot frees, the staged batch handed over unchanged; serves after the
+  first go through `reserve_fn` (when given), so the caller can blank
+  the host stats view (a re-serve consumes no new env frames). When the
+  buffer has a replay tier, `place_fn` is called as `place_fn(batch,
+  n_fresh)`, the composed batch's count of fresh slots (first), and in
+  unroll mode the replayed unrolls are staged without their host view.
+  `fresh_slots_served()` counts the fresh slots of first-served
+  batches: the serve-time env-frame clock, immune to the lookahead.
+  `set_replay_k` changes the count for batches staged after the call.
   """
 
   def __init__(self, buffer: TrajectoryBuffer, batch_size: int,
-               place_fn: Callable = lambda batch: batch, depth: int = 2,
-               stack_fn: Callable = batch_unrolls,
-               stager: Optional[UnrollBatchStager] = None):
+               place_fn: Callable = lambda batch, n_fresh=None: batch,
+               depth: int = 2, stack_fn: Callable = batch_unrolls,
+               stager: Optional[UnrollBatchStager] = None,
+               replay_k: int = 1, reserve_fn: Optional[Callable] = None):
     if depth < 1:
       raise ValueError('staging depth must be >= 1')
+    if replay_k < 1:
+      raise ValueError('replay_k must be >= 1')
     self._buffer = buffer
     self._batch_size = batch_size
     self._place_fn = place_fn
     self._stack_fn = stack_fn
     self._stager = stager
     self._depth = depth
+    self._replay_k = replay_k
+    self._reserve_fn = reserve_fn
+    self._fresh_aware = buffer.replay is not None
     self._out = collections.deque()
     self._lock = threading.Lock()
     self._ready = threading.Condition(self._lock)
@@ -323,28 +554,45 @@ class BatchPrefetcher:
     self._gets = 0
     self._blocked_gets = 0
     self._wait_secs = 0.0
+    self._serves = 0
+    self._reserves = 0
+    self._fresh_served = 0
     self._thread = threading.Thread(target=self._loop,
                                     name='batch-prefetcher', daemon=True)
     self._thread.start()
 
   def _stage_next(self):
+    """Stage one batch; returns (staged, n_fresh)."""
     if self._stager is None:
-      return self._place_fn(self._stack_fn(
-          self._buffer.get_unrolls(self._batch_size)))
-    for _ in range(self._batch_size):
-      self._stager.add(self._buffer.get_unrolls(1)[0])
-    return self._stager.finish()
+      items, n_fresh = self._buffer.get_unrolls(self._batch_size)
+      batch = self._stack_fn(items)
+      if self._fresh_aware:
+        return self._place_fn(batch, n_fresh), n_fresh
+      return self._place_fn(batch), n_fresh
+    # Each fresh unroll is staged the moment it leaves the buffer; the
+    # replayed ones, at hand at once, fill the tail of the batch.
+    replayed = self._buffer.sample_replay(self._batch_size)
+    n_fresh = self._batch_size - len(replayed)
+    for _ in range(n_fresh):
+      self._stager.add(self._buffer.get())
+    for unroll in replayed:
+      self._stager.add(unroll, peel_view=False)
+    return self._stager.finish(), n_fresh
 
   def _loop(self):
     try:
       while True:
-        staged = self._stage_next()
+        staged, n_fresh = self._stage_next()
         with self._space:
           while len(self._out) >= self._depth and not self._closed:
             self._space.wait()
           if self._closed:
             return
-          self._out.append(staged)
+          # [staged, serves left, n_fresh, the K it was staged under]:
+          # the entry frees its slot after its K-th serve; its fresh
+          # slots count at its first serve.
+          k = self._replay_k
+          self._out.append([staged, k, n_fresh, k])
           self._staged += 1
           self._ready.notify()
     except Closed:
@@ -362,8 +610,9 @@ class BatchPrefetcher:
         self._ready.notify_all()
 
   def get(self, timeout: Optional[float] = None):
-    """The next staged batch; raises the staging thread's error, Closed
-    once closed and drained, TimeoutError past `timeout` seconds."""
+    """The next staged batch (a batch is served replay_k times in a
+    row); raises the staging thread's error, Closed once closed and
+    drained, TimeoutError past `timeout` seconds."""
     deadline = None if timeout is None else time.monotonic() + timeout
     t0 = time.monotonic()
     with self._ready:
@@ -381,26 +630,64 @@ class BatchPrefetcher:
         raise self._error
       if not self._out:
         raise Closed()
-      item = self._out.popleft()
-      self._space.notify()
-      return item
+      entry = self._out[0]
+      item = entry[0]
+      first_serve = entry[1] == entry[3]
+      entry[1] -= 1
+      if entry[1] <= 0:
+        self._out.popleft()
+        self._space.notify()
+      self._serves += 1
+      if first_serve:
+        self._fresh_served += entry[2]
+      else:
+        self._reserves += 1
+    if not first_serve and self._reserve_fn is not None:
+      item = self._reserve_fn(item)
+    return item
+
+  @property
+  def replay_k(self) -> int:
+    with self._lock:
+      return self._replay_k
+
+  def set_replay_k(self, k: int):
+    """Change replay_k for the batches staged after this call; staged
+    entries finish the K they were staged under."""
+    k = int(k)
+    if k < 1:
+      raise ValueError('replay_k must be >= 1')
+    with self._lock:
+      if k != self._replay_k:
+        log.warning('prefetcher replay_k: %d -> %d', self._replay_k, k)
+      self._replay_k = k
+
+  def fresh_slots_served(self) -> int:
+    """Fresh unroll slots of first-served batches, cumulative."""
+    with self._lock:
+      return self._fresh_served
 
   def stats(self):
     """{'depth', 'mode', 'staged_batches', 'gets', 'blocked_gets',
-    'wait_secs', 'h2d_overlap_fraction'} and, in unroll mode, the
-    stager's counters: the overlap fraction is the share of gets that
-    found a batch already staged."""
+    'wait_secs', 'h2d_overlap_fraction', 'replay_k', 'serves',
+    'batch_reserves', 'fresh_slots_served'} and, in unroll mode, the
+    stager's counters. The overlap fraction is the share of first serves
+    that found a batch already staged (a re-serve never blocks)."""
     with self._lock:
-      gets = self._gets
+      first_gets = max(self._gets - self._reserves, 0)
       out = {
           'depth': self._depth,
           'mode': 'batch' if self._stager is None else 'unroll',
           'staged_batches': self._staged,
-          'gets': gets,
+          'gets': self._gets,
           'blocked_gets': self._blocked_gets,
           'wait_secs': round(self._wait_secs, 6),
-          'h2d_overlap_fraction': ((gets - self._blocked_gets) / gets
-                                   if gets else 0.0),
+          'h2d_overlap_fraction': ((first_gets - self._blocked_gets) /
+                                   first_gets if first_gets else 0.0),
+          'replay_k': self._replay_k,
+          'serves': self._serves,
+          'batch_reserves': self._reserves,
+          'fresh_slots_served': self._fresh_served,
       }
     if self._stager is not None:
       out.update(self._stager.stats())

@@ -21,8 +21,11 @@ def test_every_port_field_has_the_jax_default():
   differ = {k: (v, ref[k]) for k, v in port.items() if ref[k] != v}
   assert not differ
   # 63 until the checkpoint slice, 74 after it; the multi-process slice
-  # adds tp_compute, sharding_rules, sdc_check and sdc_allgather.
-  assert len(port) == 78
+  # adds tp_compute, sharding_rules, sdc_check and sdc_allgather; the
+  # learner extensions popart_beta, the five pixel_control_* knobs,
+  # impact_epsilon, target_update_interval, the three replay_* fields
+  # and max_unroll_staleness.
+  assert len(port) == 90
 
 
 def test_the_checkpoint_and_health_fields_reach_the_cli():

@@ -93,8 +93,17 @@ def test_unported_backends_raise(backend, item):
 
 @pytest.mark.parametrize('suite', ['dmlab30', 'atari57'])
 def test_suites_raise(suite):
+  """A suite name expands into its levels as in JAX (the fake backends
+  then run them); the real simulators of the suites still raise."""
+  kw = dict(level_name=suite, use_instruction=False)
+  assert factory.level_names(Config(**kw)) == jax_factory.level_names(
+      JaxConfig(**kw))
+  assert factory.test_level_names(Config(**kw)) == (
+      jax_factory.test_level_names(JaxConfig(**kw)))
+  backend = {'dmlab30': 'dmlab', 'atari57': 'atari'}[suite]
   with pytest.raises(NotImplementedError, match='ROADMAP A7'):
-    factory.level_names(Config(level_name=suite, use_instruction=False))
+    factory.make_env_spec(Config(env_backend=backend, **kw),
+                          factory.level_names(Config(**kw))[0], seed=1)
 
 
 def test_unknown_backend_is_a_value_error():

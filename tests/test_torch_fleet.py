@@ -198,7 +198,7 @@ def _fleet_batch(cfg, agent):
                              initial_state_fn=server.initial_core_state)
   actors.start()
   try:
-    return batch_unrolls(buf.get_unrolls(cfg.batch_size, timeout=60))
+    return batch_unrolls(buf.get_unrolls(cfg.batch_size, timeout=60)[0])
   finally:
     actors.stop(timeout=5)
     server.close()

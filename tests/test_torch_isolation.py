@@ -30,6 +30,11 @@ def _module_name(path):
 def test_importing_every_port_module_loads_no_jax():
   modules = [_module_name(p) for p in _port_sources()]
   assert 'scalable_agent_tpu_torch.parallel.anakin' in modules
+  # The learner extensions' modules are among them.
+  assert {f'scalable_agent_tpu_torch.{name}' for name in (
+      'popart', 'unreal', 'testing', 'models.instruction', 'models.lstm',
+      'parallel.fit', 'envs.suites', 'envs.dmlab30', 'envs.atari57',
+      'envs.anchors')} <= set(modules)
   script = ('import importlib, sys\n'
             f'for name in {modules!r}:\n'
             '  importlib.import_module(name)\n'
@@ -130,6 +135,44 @@ def test_the_multi_process_paths_load_no_jax():
       '  assert ckpt.save(state, force=True)\n'
       '  assert ckpt.read_sharding_manifest(0)["rule_set"] == "megatron"\n'
       'stager = ring_buffer.UnrollBatchStager(1)\n'
+      'bad = sorted(m for m in sys.modules if m.split(".")[0] in '
+      '("jax", "jaxlib", "flax", "optax", "scalable_agent_tpu"))\n'
+      'assert not bad, bad\n')
+  proc = subprocess.run([sys.executable, '-c', script], cwd=REPO,
+                        capture_output=True, text=True, timeout=120)
+  assert proc.returncode == 0, proc.stderr
+
+
+def test_the_extension_paths_load_no_jax():
+  """The learner extensions run (not only imported) in a fresh process:
+  the full-feature learner step with IMPACT, the replay tier with its
+  CRC, the suite's levels, and the memory fit's CPU count. No JAX
+  module loads."""
+  script = (
+      'import sys, numpy as np, torch\n'
+      'from scalable_agent_tpu_torch import driver, learner\n'
+      'from scalable_agent_tpu_torch.config import Config\n'
+      'from scalable_agent_tpu_torch.envs import factory\n'
+      'from scalable_agent_tpu_torch.parallel import fit\n'
+      'from scalable_agent_tpu_torch.runtime import ring_buffer\n'
+      'from scalable_agent_tpu_torch.testing import make_example_batch\n'
+      'config = Config(torso="shallow", height=24, width=32, batch_size=2,\n'
+      '                unroll_length=3, level_name="dmlab30",\n'
+      '                use_popart=True, pixel_control_cost=0.01,\n'
+      '                surrogate="impact", replay_k=2, replay_ratio=0.5)\n'
+      'levels = factory.level_names(config)\n'
+      'assert len(levels) == 30\n'
+      'agent = driver.build_agent(config, 5, len(levels))\n'
+      'state = learner.make_train_state(agent, config, len(levels))\n'
+      'batch = make_example_batch(4, 2, 24, 32, 5, 16, num_tasks=30)\n'
+      'state, m = learner.make_train_step_fn(agent, config)(state, batch)\n'
+      'assert {"popart_sigma_max", "pixel_control_loss",\n'
+      '        "impact_clip_fraction"} <= set(m)\n'
+      'tier = ring_buffer.ReplayTier(2)\n'
+      'tier.add(batch)\n'
+      'assert len(tier.sample(1)) == 1\n'
+      'assert fit.memory_fit("cpu", batch_size=2, unroll_length=3,\n'
+      '                      height=24, width=32, torso="shallow")\n'
       'bad = sorted(m for m in sys.modules if m.split(".")[0] in '
       '("jax", "jaxlib", "flax", "optax", "scalable_agent_tpu"))\n'
       'assert not bad, bad\n')

@@ -262,12 +262,15 @@ def test_watchdog_keeps_old_state_on_a_nan_batch():
 
 
 def test_unported_settings_raise():
-  for kw in ({'use_popart': True}, {'pixel_control_cost': 0.1},
-             {'surrogate': 'impact'}, {'replay_k': 2},
-             {'curriculum': 'regret'}, {'use_instruction': True},
-             {'level_name': 'dmlab30'}, {'torso': 'deep_fast'}):
+  for kw in ({'curriculum': 'regret'}, {'torso': 'deep_fast'}):
     with pytest.raises(NotImplementedError, match='not in the PyTorch'):
       Config(**kw)
+  # The learner extensions are ported: the config takes them.
+  for kw in ({'use_popart': True}, {'pixel_control_cost': 0.1},
+             {'surrogate': 'impact'}, {'replay_k': 2},
+             {'replay_ratio': 0.5}, {'use_instruction': True},
+             {'level_name': 'dmlab30'}):
+    Config(**kw)
   with pytest.raises(ValueError, match='mutually exclusive'):
     Config(use_pallas_vtrace=True, use_associative_scan=True)
   # The field names and defaults are the JAX package's.

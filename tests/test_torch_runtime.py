@@ -130,9 +130,9 @@ def test_buffer_is_fifo_with_backpressure():
   with pytest.raises(TimeoutError):
     buf.put('c', timeout=0.05)
   assert buf.stats()['put_waits'] == 1
-  assert buf.get_unrolls(1) == ['a']
+  assert buf.get_unrolls(1) == (['a'], 1)
   buf.put('c', timeout=1)
-  assert buf.get_unrolls(2) == ['b', 'c']
+  assert buf.get_unrolls(2) == (['b', 'c'], 2)
   stats = buf.stats()
   assert stats['high_water'] == 2 and stats['fresh_unrolls'] == 3
 
@@ -144,7 +144,7 @@ def test_buffer_get_unrolls_pushes_back_on_timeout():
   with pytest.raises(TimeoutError):
     buf.get_unrolls(3, timeout=0.05)
   assert len(buf) == 2
-  assert buf.get_unrolls(2) == [1, 2]
+  assert buf.get_unrolls(2) == ([1, 2], 2)
 
 
 def test_buffer_close_wakes_getters_and_putters():
@@ -174,9 +174,12 @@ def test_buffer_close_wakes_getters_and_putters():
 
 
 def test_buffer_replay_raises():
+  """Sample reuse is ported: the config takes it, and a buffer asked to
+  replay without a replay tier raises."""
   for kw in ({'replay_ratio': 0.5}, {'replay_k': 2}):
-    with pytest.raises(NotImplementedError, match='ROADMAP A2'):
-      Config(**kw)
+    assert Config(**kw).reuse_on
+  with pytest.raises(ValueError, match='ReplayTier'):
+    ring_buffer.TrajectoryBuffer(4, replay_ratio=0.5)
 
 
 def test_prefetcher_keeps_order_and_depth():
@@ -271,7 +274,7 @@ def test_fleet_respawns_a_failing_actor():
     stats = actors.stats()
     assert stats['respawns'] == 1 and stats['healthy'] == 1
     assert not actors.errors()
-    (unroll,) = buf.get_unrolls(1, timeout=5)
+    (unroll,), _ = buf.get_unrolls(1, timeout=5)
     assert unroll.env_outputs.reward.shape == (4,)
   finally:
     report = actors.stop(timeout=5)

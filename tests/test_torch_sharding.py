@@ -488,3 +488,93 @@ def test_param_fingerprint_widths_match_jax():
   halves = wide.view(np.uint32).astype(np.uint64).sum() % 2**32
   assert int(learner.param_fingerprint({'i64': torch.from_numpy(wide)})) == (
       int(halves))
+
+
+# --- the full-feature agent's leaves ----------------------------------------
+
+@functools.lru_cache(maxsize=None)
+def _jax_full_feature_params():
+  """The JAX agent with the instruction encoder, 30 PopArt columns and
+  the pixel-control head (shallow torso: the torso's leaves are covered
+  above)."""
+  import jax
+  from scalable_agent_tpu.models import ImpalaAgent as JaxAgent
+  from scalable_agent_tpu.models import init_params as jax_init_params
+  agent = JaxAgent(num_actions=A, torso='shallow', use_instruction=True,
+                   num_popart_tasks=30, use_pixel_control=True)
+  return jax.device_get(jax_init_params(
+      agent, jax.random.PRNGKey(0), {'frame': (H, W, 3), 'instr_len': 16}))
+
+
+@pytest.mark.parametrize('width', [None, 2])
+@pytest.mark.parametrize('rule_set', ['megatron', 'replicated'])
+def test_full_feature_leaves_take_the_jax_specs(rule_set, width):
+  """Every leaf of the full-feature agent takes the spec JAX gives it:
+  the megatron LSTM rule also cuts the instruction encoder's gates, and
+  the embedding, the PopArt head and the pixel-control layers fall to
+  the replicated catch-all. At width 2 each rank's blocks are JAX's
+  device shards, bit for bit, and the port specs put every cut on the
+  port's dim 0."""
+  import jax
+  from scalable_agent_tpu.parallel import sharding as jax_sharding
+  jax_params = _jax_full_feature_params()
+  port = {k: v for k, v in convert.params_from_jax(jax_params).items()
+          if not k.endswith('bias_ih')}
+  want_paths = {'/'.join(str(getattr(k, 'key', k)) for k in kp): v.shape
+                for kp, v in jax.tree_util.tree_flatten_with_path(
+                    jax_params)[0]}
+  assert convert.jax_view(port) == want_paths
+  jax_registry = jax_sharding.ShardingRegistry(
+      jax_sharding.RULE_SETS[rule_set], rule_set=rule_set)
+  registry = sharding.ShardingRegistry(sharding.RULE_SETS[rule_set],
+                                       rule_set=rule_set)
+  mesh = None if width is None else {'data': 1, 'model': width}
+  want = jax_registry.describe(jax_params,
+                               None if width is None else _jax_mesh(width))
+  assert registry.describe(port, mesh) == want
+  cut = {p for p, s in want.items() if 'model' in s}
+  if rule_set == 'megatron':
+    assert {p for p in cut if 'InstructionEncoder_0' in p} == {
+        p for p in want if 'OptimizedLSTMCell_0' in p and
+        'InstructionEncoder_0' in p}
+    assert not {p for p in cut if p.startswith(
+        ('params/pixel_control', 'params/baseline',
+         'params/InstructionEncoder_0/Embed_0'))}
+  else:
+    assert not cut
+  if width is None or rule_set == 'replicated':
+    return
+  specs = registry.bound_specs(port, mesh)
+  for name, spec in specs.items():
+    assert all(e is None for e in spec[1:]), name
+  placed = jax.tree_util.tree_map(
+      jax.device_put, jax_params,
+      jax_registry.param_shardings(jax_params, _jax_mesh(2)))
+  layout = sharding.ParamLayout(registry, port, mesh)
+  for m, device in enumerate(_jax_mesh(2).devices.flat):
+    local = jax.tree_util.tree_map(
+        lambda x: np.asarray(x.addressable_data(
+            [s.device for s in x.addressable_shards].index(device))),
+        placed)
+    layout.index = m
+    local_port = convert.params_from_jax(local)
+    for name, full in port.items():
+      np.testing.assert_array_equal(layout.local(name, full).numpy(),
+                                    local_port[name].numpy(),
+                                    err_msg=f'{name} at model index {m}')
+
+
+def test_state_specs_pin_the_target_like_the_params():
+  """IMPACT's target network takes the params' specs and the PopArt
+  statistics are replicated, as the JAX registry's state_specs says."""
+  jax_params = _jax_full_feature_params()
+  agent = ImpalaAgent(A, (H, W, 3), torso='shallow', use_instruction=True,
+                      num_popart_tasks=30, use_pixel_control=True)
+  agent.load_state_dict(convert.params_from_jax(jax_params))
+  config = Config(batch_size=8, model_parallelism=2, use_popart=True,
+                  surrogate='impact')
+  state = learner.make_train_state(agent, config)
+  specs = sharding.from_config(config).state_specs(state)
+  assert specs.target_params == specs.params
+  assert specs.popart == specs.target_popart == ((),) * 4
+  assert any(s for s in specs.params.values())
