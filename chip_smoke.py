@@ -13,7 +13,8 @@ Phases, each of which raises (exit code != 0) when it fails:
    launch_floor — the device time of a one-element `add_` (torch.profiler):
              the least a kernel launch takes on the card.
 3. kernels — the fused V-trace kernel against its plain twin on the card at
-             [100, 32] (the learner's shape), [7, 300], [6, 70, 3], [257, 45]
+             [100, 32] (the learner's shape), [100, 128] (the lockstep
+             population's 4 members), [7, 300], [6, 70, 3], [257, 45]
              and [1000, 32] (several time chunks and blocks), for three
              threshold pairs: bit-equal (torch.equal); its median time over
              200 launches (CUDA events: host work included), its device
@@ -184,6 +185,41 @@ Phases, each of which raises (exit code != 0) when it fails:
 29. fit — parallel/fit.py's memory fit at B=32 and B=16 per card: one
              full-feature bf16 step each, peak memory against 0.85 of the
              card's.
+30. procgen_anakin — the procgen core (8 levels, wall density 0.25, 5x5,
+             4 actions) with the regret curriculum at the slice's widths:
+             4 fused steps through `anakin.run`, one K1 launch each, the
+             curriculum's entropy and levels visited; then one unroll's
+             score update on the card against the CPU's on the same batch
+             and level ids (rtol 1e-6, visits exact).
+31. pbt_vectorized — the population's main path: 4 members in lockstep
+             (--pbt_vectorized) on procgen with the regret curriculum at
+             the slice's widths, through driver.train_population, 2 rounds
+             of 2 lockstep steps: K1 launched once per lockstep step (4,
+             not 16), the record (PBT_LOG.json, population_summaries.jsonl,
+             pbt_winner), each member's ladder at every round, peak memory.
+             Before it, members 0 and 1's lockstep train steps against the
+             serial member's train step (its member config) from the same
+             state on the same batch (slice_reference's bar); after it, the
+             CLI form as a subprocess.
+32. pbt_serial — the serial population over two suites (procgen and
+             gridworld, 2 members each) at T=20, B=8 for 3 rounds: every
+             exploit goes through train_anakin(initial_state=...), at least
+             one.
+33. curriculum_dp — the td curriculum through driver.train_anakin over 2
+             gloo ranks sharing the card, 3 full-width steps: K1b once per
+             step per rank, the ranks' score and visit tables bit-equal,
+             CURRICULUM_LEVELS.json and the curriculum summaries.
+34. filler_fleet — the hybrid filler on the fleet phase's run with the
+             host procgen env in the 32 actors' processes and IMPACT, 8
+             learner steps: the fleet's clocks as without the filler
+             (update_steps, frames, the RMSProp count, the LR per step),
+             filler updates > 0, K1 once per learner step and per filler
+             update.
+35. deep_fast — the slice with torso=deep_fast in float32 and bf16, 3
+             fused steps each; its train step card vs CPU on the small
+             fixed batch at slice_reference's bar.
+36. cores_anakin — the gridworld and cue-memory cores at the slice's widths
+             cut to T=20, 2 fused steps each.
 
 Every CLI phase checks that its process logged `float32 precision: tf32 off
 (cudnn, matmul)`: the port's entry points run float32 layers without TF32.
@@ -192,8 +228,10 @@ The forkserver that env processes fork from is started before the first
 CUDA call. Every kernel's launch count is set to 0 just before each path
 (the three slices, the fleet, the K2 entry point, resume_anakin's second
 call, rollback_fleet, unroll_fleet, full_feature, impact_fleet and
-extensions_anakin; the ranks of slice_dp, dp_fleet, tp and popart_dp
-count their own and report them)
+extensions_anakin, procgen_anakin, pbt_vectorized, pbt_serial,
+filler_fleet, deep_fast and cores_anakin; the ranks of slice_dp,
+dp_fleet, tp, popart_dp and curriculum_dp count their own and report
+them)
 and read just after; a kernel that its
 path did not launch fails the run. The second-to-last line of the output is the
 JSON `{"kernels": [...]}` record, the last `{"ok": true, "device": {...}}`.
@@ -229,6 +267,7 @@ from scalable_agent_tpu_torch import learner
 from scalable_agent_tpu_torch import popart as popart_lib
 from scalable_agent_tpu_torch.config import Config
 from scalable_agent_tpu_torch.models import init_params
+from scalable_agent_tpu_torch.models.agent import make_step_fn
 from scalable_agent_tpu_torch.models.torsos import max_pool_same, scaled_nchw
 from scalable_agent_tpu_torch.observability import cuda_median_ms
 from scalable_agent_tpu_torch.observability import profiled_device_us
@@ -263,7 +302,8 @@ SLICE_STEPS = 4
 
 CONV_POOL_SHAPES = [(3232, 72, 96), (32, 72, 96), (5, 21, 27), (7, 72, 96),
                     (3, 1, 1)]
-VTRACE_SHAPES = [(100, 32), (7, 300), (6, 70, 3), (257, 45), (1000, 32)]
+VTRACE_SHAPES = [(100, 32), (100, 128), (7, 300), (6, 70, 3), (257, 45),
+                 (1000, 32)]
 
 CLIPS = [(1.0, 1.0), (None, None), (3.7, 2.2)]
 # K1b: (global shape, ranks); timed at the slice's per-rank shape.
@@ -524,6 +564,7 @@ def phase_slice(compute_dtype='float32'):
   if not moved > 0:
     raise AssertionError('params did not change')
   step_ms = config.frames_per_step / fps * 1e3
+  MEASURED[f'slice_{compute_dtype}_step_ms'] = step_ms
   log(f'slice {compute_dtype}: {SLICE_STEPS} fused steps in {wall:.2f} s '
       f'(first one untimed); losses {losses}; mean_reward '
       f'{[h["mean_reward"] for h in history]}; max |param change| '
@@ -1470,7 +1511,7 @@ def _free_the_card(name):
   free, total = torch.cuda.mem_get_info()
   log(f'{name}: the parent released {released / 2**30:.2f} GiB of cache '
       f'and holds {torch.cuda.memory_allocated() / 2**30:.2f} GiB; the '
-      f'ranks start with {free / 2**30:.2f} of {total / 2**30:.2f} GiB '
+      f'phase starts with {free / 2**30:.2f} of {total / 2**30:.2f} GiB '
       'free')
 
 
@@ -2493,6 +2534,424 @@ def phase_fit():
     log(json.dumps(result, sort_keys=True))
 
 
+# The rest of the Anakin runtime: the procgen core with the regret
+# curriculum at the slice's widths (the JAX defaults: 8 levels, wall
+# density 0.25, a 5x5 grid, 4 actions).
+PROCGEN = dict(SLICE, env_backend='procgen', num_actions=4,
+               curriculum='regret')
+PROCGEN_STEPS = 4
+PBT_MEMBERS = 4
+PBT_ROUNDS = 2
+PBT_ROUND_STEPS = 2
+# The serial population: two suites, cut to T=20, B=8 (12 member runs
+# with their set-up in the smoke run's time), 2 members per suite so
+# that a suite has a donor.
+PBT_SERIAL = dict(SLICE, env_backend='procgen', num_actions=4,
+                  unroll_length=20, batch_size=8, pbt_population=4,
+                  pbt_suites='procgen,gridworld', runtime='anakin',
+                  summary_secs=0, checkpoint_secs=10**6)
+PBT_SERIAL_ROUNDS = 3
+CURRICULUM_DP = dict(PROCGEN, curriculum='td')
+CURRICULUM_DP_STEPS = 3
+FILLER_FLEET = dict(FLEET, env_backend='procgen', num_actions=4,
+                    anakin_filler=True, surrogate='impact')
+DEEP_FAST_STEPS = 3
+CORES = {'gridworld': dict(SLICE, env_backend='gridworld', unroll_length=20),
+         'cue_memory': dict(SLICE, env_backend='cue_memory', num_actions=3,
+                            unroll_length=20)}
+CORE_STEPS = 2
+
+
+def _run_summary(name, config, history, fps):
+  losses = [h['total_loss'] for h in history]
+  if not all(map(math.isfinite, losses)):
+    raise AssertionError(f'{name}: losses {losses}')
+  step_ms = config.frames_per_step / fps * 1e3
+  log(f'{name}: {fps:.1f} env-frames/s, {step_ms:.2f} ms per fused step '
+      f'({config.frames_per_step} frames, first step untimed); losses '
+      f'{losses}; peak allocated '
+      f'{torch.cuda.max_memory_allocated() / 2**30:.3f} GiB')
+  return step_ms
+
+
+def phase_procgen_anakin():
+  """The procgen core with the regret curriculum at the slice's widths:
+  4 fused steps through anakin.run, one K1 launch each, the curriculum's
+  metrics; then one more unroll's score update on the card against the
+  CPU's update_scores on the same batch and level ids (rtol 1e-6, visits
+  exact)."""
+  config = Config(**PROCGEN)
+  torch.cuda.reset_peak_memory_stats()
+  (carry, history, fps), counts = _drive('procgen_anakin', lambda: anakin.run(
+      config, PROCGEN_STEPS, device='cuda'))
+  if counts['vtrace'] != PROCGEN_STEPS or carry.train_state.update_steps != (
+      PROCGEN_STEPS):
+    raise AssertionError(f'procgen_anakin: launches {counts}, steps '
+                         f'{carry.train_state.update_steps}')
+  _run_summary('procgen_anakin', config, history, fps)
+  last = history[-1]
+  log(f'procgen_anakin: curriculum entropy {last["curriculum_entropy"]:.6f} '
+      f'(uniform {math.log(config.procgen_num_levels):.6f}), levels visited '
+      f'{last["curriculum_levels_visited"]:.0f} of '
+      f'{config.procgen_num_levels}, score max '
+      f'{last["curriculum_score_max"]:.6f}')
+  core = anakin.make_env_core(config)
+  agent = driver.build_agent(config, core.num_actions).to('cuda')
+  agent.load_state_dict(carry.train_state.params, strict=False)
+  batch, env, level_ids = anakin._act(make_step_fn(agent), core, carry,
+                                      config.unroll_length, True)
+  card, _ = anakin._curriculum_update(config, batch, env.env_state,
+                                      level_ids)
+  to_cpu = lambda x: x.cpu() if torch.is_tensor(x) else x  # noqa: E731
+  cpu, _ = anakin._curriculum_update(
+      config, map_structure(to_cpu, batch),
+      env.env_state._replace(level_scores=env.env_state.level_scores.cpu(),
+                             level_visits=env.env_state.level_visits.cpu()),
+      [x.cpu() for x in level_ids])
+  np.testing.assert_allclose(card.level_scores.cpu().numpy(),
+                             cpu.level_scores.numpy(), rtol=1e-6)
+  np.testing.assert_array_equal(card.level_visits.cpu().numpy(),
+                                cpu.level_visits.numpy())
+  log(f'procgen_anakin: score update card vs CPU max |diff| '
+      f'{float((card.level_scores.cpu() - cpu.level_scores).abs().max()):.3e}'
+      f'; scores {[round(v, 6) for v in card.level_scores.tolist()]}; '
+      f'visits {card.level_visits.tolist()}')
+  return counts
+
+
+def _pbt_config(logdir, **kw):
+  frames = Config(**PROCGEN).frames_per_step
+  return Config(**dict(PROCGEN, runtime='anakin', logdir=logdir,
+                       pbt_population=PBT_MEMBERS, pbt_vectorized=True,
+                       pbt_round_frames=PBT_ROUND_STEPS * frames,
+                       total_environment_frames=(PBT_ROUNDS *
+                                                 PBT_ROUND_STEPS * frames),
+                       summary_secs=0, checkpoint_secs=10**6, **kw))
+
+
+def phase_pbt_vectorized():
+  """The main path: the lockstep population of 4 members on procgen with
+  the regret curriculum at the slice's widths, through
+  driver.train_population, 2 rounds of 2 lockstep steps: one K1 launch
+  per lockstep step (not per member), the record (PBT_LOG.json
+  vectorized, population_summaries.jsonl, the pbt_winner incident), each
+  member's ladder at every round, peak memory. Beforehand, outside the
+  counts: members 0 and 1's first lockstep train steps against the train
+  step a serial member runs, from the same state on the same batch
+  (slice_reference's bar). Then the CLI form."""
+  _pbt_reference(_pbt_config('/unused'))
+  _free_the_card('pbt_vectorized')
+  torch.cuda.reset_peak_memory_stats()
+  with tempfile.TemporaryDirectory(prefix='chip_smoke_pbt_') as logdir:
+    config = _pbt_config(logdir)
+    t0 = time.perf_counter()
+    run, counts = _drive('pbt_vectorized', lambda: driver.train(
+        config, device='cuda'))
+    wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    steps = PBT_ROUNDS * PBT_ROUND_STEPS
+    with open(os.path.join(logdir, 'PBT_LOG.json')) as f:
+      pbt_log = json.load(f)
+    with open(os.path.join(logdir, 'population_summaries.jsonl')) as f:
+      rows = [json.loads(line) for line in f]
+    kinds = _incident_kinds(logdir, 0)
+    ladders = [checkpoint_lib.Checkpointer(os.path.join(
+        logdir, f'member_{k:02d}', 'checkpoints')).all_steps()
+               for k in range(PBT_MEMBERS)]
+  if counts['vtrace'] != steps:
+    raise AssertionError(f'pbt_vectorized: K1 launched {counts["vtrace"]} '
+                         f'times in {steps} lockstep steps of {PBT_MEMBERS} '
+                         'members')
+  if (not pbt_log['vectorized'] or len(pbt_log['rounds']) != PBT_ROUNDS or
+      len(rows) != PBT_ROUNDS * PBT_MEMBERS or 'pbt_winner' not in kinds or
+      any(ladder[-1] != steps for ladder in ladders) or
+      any(c.train_state.update_steps != steps for c in run.members)):
+    raise AssertionError(f'pbt_vectorized: log {pbt_log}, {len(rows)} rows, '
+                         f'incidents {kinds}, ladders {ladders}')
+  exploits = kinds.count('pbt_exploit')
+  log(f'pbt_vectorized: {PBT_MEMBERS} members x {steps} lockstep steps in '
+      f'{wall:.2f} s (set-up included); K1 launches {counts["vtrace"]}; '
+      f'{exploits} exploit(s); returns by round '
+      f'{[r["returns"] for r in pbt_log["rounds"]]}; winner member '
+      f'{pbt_log["winner"]["member"]}; ladders {ladders}; peak allocated '
+      f'{peak:.3f} GiB ({peak / PBT_MEMBERS:.3f} per member)')
+  del run
+  _pbt_cli()
+  return counts
+
+
+def _pbt_reference(config):
+  """One lockstep step of the population's members on the card, timed,
+  and members 0 (the configured hypers) and 1 (explored) against the
+  train step a serial population member runs (its own agent, its member
+  config) from the same state on the same batch: loss rtol 1e-4, params
+  rtol 1e-3 / atol 1e-5."""
+  core = anakin.make_env_core(config)
+  members = [driver._member_config(config, m) for m in driver._initial_members(
+      config, np.random.default_rng(config.seed), [config.env_backend])]
+  agents, carries = anakin.init_members(
+      members[0], core, [c.seed for c in members], 'cuda')
+  checked = (0, 1)
+  before = [learner.state_to_payload(carries[k].train_state) for k in checked]
+  hypers = {name: torch.tensor([getattr(c, name) for c in members],
+                               device='cuda')
+            for name in ('learning_rate', 'entropy_cost')}
+  vstep = anakin.make_vectorized_anakin_step(agents, core, members[0],
+                                             return_batch=True)
+  torch.cuda.synchronize()
+  t0 = time.perf_counter()
+  carries, metrics = vstep(carries, hypers)
+  losses = [float(metrics['total_loss'][k]) for k in checked]
+  lockstep_ms = 1e3 * (time.perf_counter() - t0)
+  batches = [metrics['batch'][k] for k in checked]
+  got = [_param_snapshot(carries[k].train_state.params) for k in checked]
+  del agents, carries, metrics
+  report = []
+  for i, k in enumerate(checked):
+    agent = driver.build_agent(members[k], core.num_actions).to('cuda')
+    state = learner.load_state_(
+        learner.make_train_state(agent, members[k]), before[i])
+    state, want = learner.make_train_step_fn(agent, members[k])(
+        state, batches[i])
+    np.testing.assert_allclose(losses[i], float(want['total_loss']),
+                               rtol=1e-4)
+    err = 0.0
+    for name, p in state.params.items():
+      np.testing.assert_allclose(got[i][name].numpy(),
+                                 p.detach().cpu().numpy(), rtol=1e-3,
+                                 atol=1e-5, err_msg=f'member {k}: {name}')
+      err = max(err, float((got[i][name] - p.detach().cpu()).abs().max()))
+    report.append(f'member {k} (lr {members[k].learning_rate:.6g}, '
+                  f'entropy {members[k].entropy_cost:.6g}): loss '
+                  f'{losses[i]} / {float(want["total_loss"])}, max |param '
+                  f'diff| {err:.3e}')
+    del agent, state
+  log(f'pbt_vectorized reference: one lockstep step of {len(members)} '
+      f'members {lockstep_ms:.1f} ms (first, with set-up work); against '
+      f'the serial member\'s train step: {"; ".join(report)}')
+
+
+def _pbt_cli():
+  """The CLI form: --mode=train --runtime=anakin --env_backend=procgen
+  --curriculum=regret --pbt_population=4 --pbt_vectorized=true, 2
+  rounds of one lockstep step, as a subprocess."""
+  frames = Config(**PROCGEN).frames_per_step
+  with tempfile.TemporaryDirectory(prefix='chip_smoke_pbt_cli_') as logdir:
+    cmd = [sys.executable, '-m', 'scalable_agent_tpu_torch.experiment',
+           '--mode=train', '--runtime=anakin', f'--logdir={logdir}',
+           '--summary_secs=0', f'--pbt_population={PBT_MEMBERS}',
+           '--pbt_vectorized=true', f'--pbt_round_frames={frames}',
+           f'--total_environment_frames={2 * frames}']
+    cmd += [f'--{field}={value}' for field, value in PROCGEN.items()]
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, capture_output=True, text=True, timeout=600,
+                          cwd=os.path.dirname(os.path.abspath(__file__)))
+    if proc.returncode != 0:
+      raise RuntimeError(f'pbt CLI failed ({proc.returncode}):\n'
+                         f'{proc.stderr[-6000:]}')
+    _check_precision_line(proc.stderr, 'pbt_vectorized cli')
+    with open(os.path.join(logdir, 'PBT_LOG.json')) as f:
+      pbt_log = json.load(f)
+  if not pbt_log['vectorized'] or len(pbt_log['rounds']) != 2:
+    raise AssertionError(f'pbt CLI: {pbt_log}')
+  log(f'pbt_vectorized cli: {PBT_MEMBERS} members, 2 rounds in '
+      f'{time.perf_counter() - t0:.1f} s; returns '
+      f'{[r["returns"] for r in pbt_log["rounds"]]}')
+
+
+def phase_pbt_serial():
+  """The serial population over two suites (procgen, gridworld; 2
+  members each) at T=20, B=8, 3 rounds of one step per member: the
+  in-process exploits go through train_anakin(initial_state=...) (at
+  least one), each a pbt_exploit incident; the record's suites."""
+  inherited = []
+  train_anakin = driver.train_anakin
+
+  def spy(member_config, **kw):
+    if kw.get('initial_state') is not None:
+      inherited.append(member_config.logdir[-2:])
+    return train_anakin(member_config, **kw)
+
+  with tempfile.TemporaryDirectory(prefix='chip_smoke_pbt_serial_') as d:
+    frames = Config(**PBT_SERIAL).frames_per_step
+    config = Config(**PBT_SERIAL, logdir=d, pbt_round_frames=frames,
+                    total_environment_frames=PBT_SERIAL_ROUNDS * frames)
+    driver.train_anakin = spy
+    t0 = time.perf_counter()
+    try:
+      run, counts = _drive('pbt_serial', lambda: driver.train(
+          config, device='cuda'))
+    finally:
+      driver.train_anakin = train_anakin
+    wall = time.perf_counter() - t0
+    with open(os.path.join(d, 'PBT_LOG.json')) as f:
+      pbt_log = json.load(f)
+    kinds = _incident_kinds(d, 0)
+  runs = PBT_SERIAL_ROUNDS * config.pbt_population
+  if counts['vtrace'] != runs or run.state.update_steps != PBT_SERIAL_ROUNDS:
+    raise AssertionError(f'pbt_serial: launches {counts} in {runs} member '
+                         f'steps; winner at {run.state.update_steps}')
+  if not inherited or len(inherited) != kinds.count('pbt_exploit'):
+    raise AssertionError(f'pbt_serial: exploits {kinds.count("pbt_exploit")}'
+                         f', through initial_state {inherited}')
+  if pbt_log['vectorized'] or pbt_log['rounds'][0]['suites'] != [
+      'procgen', 'gridworld', 'procgen', 'gridworld']:
+    raise AssertionError(f'pbt_serial: {pbt_log}')
+  log(f'pbt_serial: {config.pbt_population} members x {PBT_SERIAL_ROUNDS} '
+      f'rounds in {wall:.2f} s; {len(inherited)} exploit(s) through '
+      f'initial_state (members {inherited}); returns by round '
+      f'{[r["returns"] for r in pbt_log["rounds"]]}; decisions '
+      f'{[r["decisions"] for r in pbt_log["rounds"]]}')
+  return counts
+
+
+def _curriculum_dp_rank(rank, world, port, outdir):
+  def body(group, device):
+    config = Config(**CURRICULUM_DP, **group, runtime='anakin',
+                    logdir=os.path.join(outdir, 'run'), summary_secs=0,
+                    checkpoint_secs=10**6)
+    mesh = mesh_lib.make_mesh(device)
+    _zero_counts()
+    run = driver.train_anakin(config, max_steps=CURRICULUM_DP_STEPS,
+                              device=device, mesh=mesh)
+    counts = _counts()
+    env = run.carry.env_state
+    return dict(counts=counts, update_steps=run.state.update_steps,
+                scores=env.level_scores.cpu(), visits=env.level_visits.cpu(),
+                level_ids=env.level_id.cpu())
+  _in_rank(rank, world, port, outdir, body)
+
+
+def phase_curriculum_dp():
+  """The td curriculum over 2 gloo ranks sharing the card, through
+  driver.train_anakin: K1b once per fused step per rank (K1 never), the
+  ranks' score and visit tables bit-equal, CURRICULUM_LEVELS.json and
+  the curriculum summaries on rank 0."""
+  with tempfile.TemporaryDirectory(prefix='chip_smoke_curr_dp_') as outdir:
+    ranks = _run_ranks('curriculum_dp', _curriculum_dp_rank, outdir)
+    with open(os.path.join(outdir, 'run', 'CURRICULUM_LEVELS.json')) as f:
+      levels = json.load(f)
+    with open(os.path.join(outdir, 'run', 'summaries.jsonl')) as f:
+      tags = {json.loads(line)['tag'] for line in f}
+  counts = {name: sum(r['counts'][name] for r in ranks) for name in COUNTERS}
+  for r in ranks:
+    if (r['counts']['vtrace_sharded'] != CURRICULUM_DP_STEPS or
+        r['counts']['vtrace'] or r['update_steps'] != CURRICULUM_DP_STEPS):
+      raise AssertionError(f'curriculum_dp: {r["counts"]}, steps '
+                           f'{r["update_steps"]}')
+  if not (torch.equal(ranks[0]['scores'], ranks[1]['scores']) and
+          torch.equal(ranks[0]['visits'], ranks[1]['visits'])):
+    raise AssertionError(f'curriculum_dp: the ranks\' tables differ: '
+                         f'{ranks[0]["scores"]} / {ranks[1]["scores"]}')
+  if levels['scores'] != ranks[0]['scores'].tolist() or (
+      'curriculum_entropy' not in tags):
+    raise AssertionError(f'curriculum_dp: CURRICULUM_LEVELS.json {levels}, '
+                         f'tags {sorted(tags)}')
+  total = CURRICULUM_DP_STEPS * (Config(**CURRICULUM_DP).unroll_length - 1) * (
+      Config(**CURRICULUM_DP).batch_size)
+  if sum(levels['visits']) != total:
+    raise AssertionError(f'curriculum_dp: {sum(levels["visits"])} visits, '
+                         f'{total} transitions')
+  log(f'curriculum_dp: kernel launches {counts} (by rank: '
+      f'{[r["counts"] for r in ranks]}); tables bit-equal across the '
+      f'ranks; scores {[round(v, 6) for v in levels["scores"]]}; visits '
+      f'{levels["visits"]}; probs {[round(v, 4) for v in levels["probs"]]}')
+  return counts
+
+
+def phase_filler_fleet():
+  """The hybrid filler on the fleet at the fleet phase's widths: 32
+  process-hosted actors on the host procgen env, IMPACT, 8 learner steps.
+  The fleet's clocks are those of a run without the filler (update_steps
+  8, its frame clock 8 x frames_per_step, the RMSProp count 8, the LR at
+  the fleet's count); filler updates > 0, counted apart; K1 once per
+  learner step plus once per filler update."""
+  with tempfile.TemporaryDirectory(prefix='chip_smoke_filler_') as logdir:
+    config = Config(**FILLER_FLEET, logdir=logdir)
+    t0 = time.perf_counter()
+    run, counts = _drive('filler_fleet', lambda: driver.train(
+        config, max_steps=FLEET_STEPS, device='cuda', stall_timeout_secs=300))
+    wall = time.perf_counter() - t0
+    with open(os.path.join(logdir, 'summaries.jsonl')) as f:
+      events = [json.loads(line) for line in f]
+  filler = run.stats['filler']
+  lr = [e['value'] for e in events if e['tag'] == 'learning_rate']
+  schedule = learner.make_schedule(config)
+  if (run.state.update_steps != FLEET_STEPS or
+      run.frames != FLEET_STEPS * config.frames_per_step or
+      int(run.state.opt_state.count) != FLEET_STEPS or
+      lr != [float(schedule(s)) for s in range(FLEET_STEPS)]):
+    raise AssertionError(f'filler_fleet: clocks steps '
+                         f'{run.state.update_steps} frames {run.frames} '
+                         f'count {int(run.state.opt_state.count)} lr {lr}')
+  if not filler['updates'] > 0 or filler['skipped']:
+    raise AssertionError(f'filler_fleet: filler {filler}')
+  if counts['vtrace'] != FLEET_STEPS + filler['updates']:
+    raise AssertionError(f'filler_fleet: K1 {counts["vtrace"]} for '
+                         f'{FLEET_STEPS} learner steps and '
+                         f'{filler["updates"]} filler updates')
+  log(f'filler_fleet: {FLEET_STEPS} learner steps in {wall:.2f} s (set-up '
+      f'included) with {filler["updates"]} filler updates ({filler["frames"]} '
+      f'filler frames, B={filler["batch_size"]}, T={filler["unroll_length"]}, '
+      f'{filler["updates"] / FLEET_STEPS:.3f} per learner step); fleet '
+      f'clocks: update_steps {run.state.update_steps}, frames {run.frames}, '
+      f'RMSProp count {int(run.state.opt_state.count)}; K1 launches '
+      f'{counts["vtrace"]}; prefetcher {run.stats["prefetcher"]}')
+  return counts
+
+
+def phase_deep_fast():
+  """The slice with torso=deep_fast in float32 and bf16, 3 fused steps
+  each (one K1 launch per step); then its train step on the small fixed
+  batch, card vs CPU, at slice_reference's bar."""
+  counts = {name: 0 for name in COUNTERS}
+  for dtype in ('float32', 'bfloat16'):
+    config = Config(**dict(SLICE, torso='deep_fast', compute_dtype=dtype))
+    torch.cuda.reset_peak_memory_stats()
+    (carry, history, fps), run_counts = _drive(
+        f'deep_fast {dtype}',
+        lambda c=config: anakin.run(c, DEEP_FAST_STEPS, device='cuda'))
+    if run_counts['vtrace'] != DEEP_FAST_STEPS:
+      raise AssertionError(f'deep_fast {dtype}: launches {run_counts}')
+    step_ms = _run_summary(f'deep_fast {dtype}', config, history, fps)
+    deep_ms = MEASURED.get(f'slice_{dtype}_step_ms')
+    if deep_ms:  # the slice phase ran earlier in this process
+      log(f'deep_fast {dtype}: {step_ms / deep_ms:.4f} x the deep slice\'s '
+          f'fused step ({deep_ms:.2f} ms) in this run')
+    counts = {k: counts[k] + run_counts[k] for k in counts}
+    del carry
+  config = Config(**dict(SLICE, torso='deep_fast', height=24, width=32,
+                         batch_size=3, unroll_length=5, num_action_repeats=1,
+                         total_environment_frames=100))
+  cpu_losses, _, cpu_params = _train_small_batch(config, 'cpu')
+  gpu_losses, _, gpu_params = _train_small_batch(config, 'cuda')
+  np.testing.assert_allclose(gpu_losses, cpu_losses, rtol=1e-4)
+  err = 0.0
+  for k in cpu_params:
+    np.testing.assert_allclose(gpu_params[k].numpy(), cpu_params[k].numpy(),
+                               rtol=1e-3, atol=1e-5, err_msg=k)
+    err = max(err, float((gpu_params[k] - cpu_params[k]).abs().max()))
+  log(f'deep_fast reference: losses card {gpu_losses.tolist()} cpu '
+      f'{cpu_losses.tolist()}; max |param diff| {err:.3e}')
+  return counts
+
+
+def phase_cores_anakin():
+  """The gridworld and cue-memory cores at the slice's widths cut to
+  T=20: 2 fused steps each through anakin.run, one K1 launch per step."""
+  counts = {name: 0 for name in COUNTERS}
+  for name, fields in CORES.items():
+    config = Config(**fields)
+    (carry, history, fps), run_counts = _drive(
+        f'cores_anakin {name}',
+        lambda c=config: anakin.run(c, CORE_STEPS, device='cuda'))
+    if run_counts['vtrace'] != CORE_STEPS:
+      raise AssertionError(f'cores_anakin {name}: launches {run_counts}')
+    _run_summary(f'cores_anakin {name}', config, history, fps)
+    counts = {k: counts[k] + run_counts[k] for k in counts}
+  return counts
+
+
 def main():
   # Before any CUDA call: the fleet's env processes fork from this
   # server, which has this script's imports loaded.
@@ -2552,6 +3011,13 @@ def run_phases():
                                      phase_extensions_anakin)
   paths['popart_dp'] = timed('popart_dp', phase_popart_dp)
   timed('fit', phase_fit)
+  paths['procgen_anakin'] = timed('procgen_anakin', phase_procgen_anakin)
+  paths['pbt_vectorized'] = timed('pbt_vectorized', phase_pbt_vectorized)
+  paths['pbt_serial'] = timed('pbt_serial', phase_pbt_serial)
+  paths['curriculum_dp'] = timed('curriculum_dp', phase_curriculum_dp)
+  paths['filler_fleet'] = timed('filler_fleet', phase_filler_fleet)
+  paths['deep_fast'] = timed('deep_fast', phase_deep_fast)
+  paths['cores_anakin'] = timed('cores_anakin', phase_cores_anakin)
   log('phases: ' + ', '.join(f'{n} {s:.1f} s' for n, s in phases))
   launches = {name: {path: counts[name] for path, counts in paths.items()}
               for name in COUNTERS}

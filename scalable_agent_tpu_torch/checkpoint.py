@@ -18,7 +18,8 @@ same damage means the same thing in both:
 
   <dir>/<step>/default/state.pt   one committed step; the payload holds
                                   plain dicts of CPU tensors
-                                  (learner.state_to_payload)
+                                  (learner.state_to_payload) and the
+                                  run's torso
   <dir>/DIGEST_<step>.json        the content-digest ledger of a
                                   verified save (a CRC per file)
   <dir>/LAST_GOOD                 the newest verified step, with its
@@ -220,13 +221,18 @@ class Checkpointer:
       sharding manifest.
     layout: the parameters' layout over the mesh's model axis
       (sharding.ParamLayout); the state's tensors are this rank's blocks.
+    torso: the run's --torso, written into each payload; a restore
+      refuses a step saved under another torso. deep and deep_fast share
+      one parameter tree, so the tree alone does not tell them apart.
   """
 
   def __init__(self, directory: str, max_to_keep: int = 3,
                save_interval_secs: float = 600.0,
                verify_digests: bool = True, mesh=None, registry=None,
-               layout: Optional[sharding.ParamLayout] = None):
+               layout: Optional[sharding.ParamLayout] = None,
+               torso: Optional[str] = None):
     self._directory = os.path.abspath(directory)
+    self._torso = torso
     self._group = mesh if mesh is not None and mesh.world_size > 1 else None
     self._mesh = mesh
     self._registry = registry
@@ -364,8 +370,11 @@ class Checkpointer:
     os.makedirs(item)
     path = os.path.join(item, PAYLOAD)
     try:
+      payload = learner_lib.state_to_payload(state)
+      if self._torso is not None:
+        payload['torso'] = self._torso
       with open(path, 'wb') as f:
-        torch.save(learner_lib.state_to_payload(state), f)
+        torch.save(payload, f)
         f.flush()
         os.fsync(f.fileno())
       _fsync_dir(item)
@@ -603,6 +612,7 @@ class Checkpointer:
           f'checkpoint step {step}: its payload could not be loaded '
           f'({type(e).__name__}); the file is damaged or partially '
           'written') from e
+    self._check_torso(payload.get('torso'))
     full_params = payload['params']
     if self._layout is not None:
       payload = self._localize(payload)
@@ -614,6 +624,18 @@ class Checkpointer:
           f'match ({len(diff)} difference(s); first: {"; ".join(diff[:3])})')
     self._warn_sharding_drift(step, full_params)
     return payload
+
+  def _check_torso(self, saved: Optional[str]) -> None:
+    """Refuse a step saved under another torso. A step without the
+    tag predates deep_fast, so it is no deep_fast step."""
+    if self._torso is None or saved == self._torso:
+      return
+    if saved is None and self._torso != 'deep_fast':
+      return
+    raise ValueError(
+        f'the restore target and the saved tree structures do not match: '
+        f'the step was saved under torso {saved or "(unrecorded)"!r}, the '
+        f'target is torso {self._torso!r}')
 
   def _localize(self, payload: Dict) -> Dict:
     """The payload with this rank's blocks of the params, their moments

@@ -55,10 +55,10 @@ class Config:
   momentum: float = 0.0
   epsilon: float = 0.1
 
-  env_backend: str = 'dmlab'              # the port's Anakin runs 'bandit'
+  env_backend: str = 'dmlab'
   num_actions: Optional[int] = None       # backend default when None
   episode_length: int = 100               # bandit episode length
-  torso: str = 'deep'                     # deep | shallow
+  torso: str = 'deep'                     # deep | deep_fast | shallow
   # Tensor parallelism (parallel/sharding.py, train_parallel.py): the
   # mesh's model-axis width; how the TP step computes (auto: gathered on
   # every device, where JAX takes sharded off the CPU; see
@@ -122,6 +122,19 @@ class Config:
   # published param versions; the replay window defers to it.
   max_unroll_staleness: int = 0
   runtime: str = 'fleet'                  # fleet | anakin
+  # The hybrid filler (fleet runtime; parallel/anakin.HybridFiller): when
+  # the prefetcher has no staged batch, the learner runs one fused Anakin
+  # self-play step on the live train state instead of waiting. Filler
+  # updates leave update_steps, the frame budget, the LR's count and the
+  # checkpoint numbering on the fleet's clock, and are counted apart.
+  anakin_filler: bool = False
+  # The filler's core: '' = env_backend when it is on-device, else
+  # 'bandit' (which takes any head width).
+  filler_backend: str = ''
+  # The filler's rollout (0 = auto: batch_size, and min(unroll_length,
+  # 16), so a staged batch waits for at most one short filler step).
+  filler_batch_size: int = 0
+  filler_unroll_length: int = 0
 
   # The fleet runtime (driver.train, runtime/). Host actors, one env
   # each, hosted in their own processes.
@@ -188,19 +201,34 @@ class Config:
   # the JAX package, where the gather is what lets a process read it.
   sdc_check: bool = True
   sdc_allgather: bool = True
-  curriculum: str = 'uniform'
+  # The population engine (population.py). The level curriculum over the
+  # procgen level set, inside the fused step (Anakin and the filler):
+  # 'uniform' keeps the plain draw; 'regret' EMAs the positive value loss
+  # per level, 'td' the |TD error|; new levels are drawn from an
+  # eps-smoothed softmax over the scores at `curriculum_temperature`.
+  curriculum: str = 'uniform'             # uniform | regret | td
+  curriculum_temperature: float = 1.0
+  curriculum_eps: float = 0.1             # the uniform mixing floor
+  curriculum_alpha: float = 0.3           # per-level score EMA step
+  curriculum_decay: float = 0.995         # unvisited levels' decay per step
+  # The procgen level set (envs/jittable.ProcgenCore), both runtimes.
+  procgen_num_levels: int = 8
+  procgen_wall_density: float = 0.25
+  # Minimal PBT over Anakin members (driver.train_population): 0 = off;
+  # >= 2 members in <logdir>/member_XX, suites round-robin from
+  # pbt_suites ('' = env_backend); every pbt_round_frames frames per
+  # member (0 = a quarter of the budget) the bottom pbt_quantile of each
+  # suite exploits a top-quantile donor and explores (learning_rate,
+  # entropy_cost) by pbt_perturb. pbt_vectorized advances every member in
+  # lockstep in one step (one suite only).
+  pbt_population: int = 0
+  pbt_round_frames: int = 0
+  pbt_suites: str = ''
+  pbt_quantile: float = 0.25
+  pbt_perturb: float = 1.2
+  pbt_vectorized: bool = False
 
   def __post_init__(self):
-    later = []
-    if self.curriculum != 'uniform':
-      later.append(f'curriculum={self.curriculum!r} (population: ROADMAP '
-                   'A6)')
-    if self.torso not in ('deep', 'shallow'):
-      later.append(f'torso={self.torso!r} (the port has deep and '
-                   'shallow; ROADMAP A6)')
-    if later:
-      raise NotImplementedError(
-          'not in the PyTorch port yet: ' + '; '.join(later))
     if self.compute_dtype not in COMPUTE_DTYPES:
       raise ValueError(f'compute_dtype must be one of '
                        f'{sorted(COMPUTE_DTYPES)}, got '
@@ -236,6 +264,44 @@ class Config:
     return self.replay_k > 1 or self.replay_ratio > 0
 
   @property
+  def resolved_filler_backend(self) -> str:
+    """The filler's core: the explicit knob, else env_backend when it is
+    on-device (the filler self-plays the run's own task), else 'bandit'
+    (which takes the main task's head width)."""
+    if self.filler_backend:
+      return self.filler_backend
+    if self.env_backend in JITTABLE_BACKENDS:
+      return self.env_backend
+    return 'bandit'
+
+  @property
+  def resolved_filler_batch_size(self) -> int:
+    return (self.filler_batch_size if self.filler_batch_size > 0
+            else self.batch_size)
+
+  @property
+  def resolved_filler_unroll_length(self) -> int:
+    """The filler's rollout length (0-auto: min(T, 16))."""
+    if self.filler_unroll_length > 0:
+      return self.filler_unroll_length
+    return min(self.unroll_length, 16)
+
+  @property
+  def resolved_pbt_suites(self) -> List[str]:
+    """The population's suites: the comma list, else env_backend."""
+    if self.pbt_suites:
+      return [s.strip() for s in self.pbt_suites.split(',') if s.strip()]
+    return [self.env_backend]
+
+  @property
+  def resolved_pbt_round_frames(self) -> int:
+    """Frames per member between PBT decisions (0-auto: a quarter of
+    the budget)."""
+    if self.pbt_round_frames > 0:
+      return self.pbt_round_frames
+    return max(self.total_environment_frames // 4, 1)
+
+  @property
   def resolved_use_instruction(self) -> bool:
     """`use_instruction` with the JAX package's None-auto rule: on for
     multi-task dmlab30 and language_*/psychlab_* levels."""
@@ -245,6 +311,10 @@ class Config:
       return True
     return self.level_name.startswith(('language_', 'psychlab_'))
 
+
+# The env backends with an on-device core (parallel/anakin.ENV_CORES):
+# the backends of --runtime=anakin, the filler and the population.
+JITTABLE_BACKENDS = ('bandit', 'cue_memory', 'gridworld', 'procgen')
 
 _INFERENCE_ADMISSIONS = ('block', 'shed', 'grow')
 _STAGING_MODES = ('batch', 'unroll')
@@ -428,6 +498,12 @@ def validate_distributed(config: Config,
         'full rank count, param publishes gather a full copy over the '
         'model group, and staging_mode=unroll falls back to batch'
         % config.model_parallelism)
+  if config.anakin_filler:
+    warnings.append(
+        'anakin_filler=True on a multi-process topology: the filler '
+        'mutates params OUTSIDE the collective train step, so hosts '
+        'with different idle patterns would diverge — the driver '
+        'disables it (supports_filler) and parks idle slices instead')
   return warnings
 
 
@@ -441,4 +517,200 @@ def validate_integrity(config: Config) -> List[str]:
         'fingerprint mismatches would be computed but never escalated '
         '(no monitor, no rollback ladder) — enable the watchdog or '
         'disable the SDC sentinel')
+  return warnings
+
+
+def validate_runtime(config: Config) -> List[str]:
+  """The JAX package's `validate_runtime`: the runtime axis and the
+  filler's knobs. Raises ValueError on a hard error; returns the
+  warnings. Its warning for the filler with the SLO engine off is not
+  here: the port has no SLO engine yet (ROADMAP A7.4)."""
+  warnings = []
+  if config.runtime not in ('fleet', 'anakin'):
+    raise ValueError(f'runtime must be fleet|anakin, got '
+                     f'{config.runtime!r}')
+  if config.filler_batch_size < 0:
+    raise ValueError(f'filler_batch_size must be >= 0, got '
+                     f'{config.filler_batch_size}')
+  if config.filler_unroll_length < 0:
+    raise ValueError(f'filler_unroll_length must be >= 0, got '
+                     f'{config.filler_unroll_length}')
+  if config.runtime == 'anakin':
+    if config.env_backend not in JITTABLE_BACKENDS:
+      raise ValueError(
+          f'--runtime=anakin needs a jittable env backend '
+          f'({", ".join(JITTABLE_BACKENDS)}), got '
+          f'{config.env_backend!r}; real simulators use the fleet '
+          'runtime')
+    if config.anakin_filler:
+      warnings.append(
+          'anakin_filler=True under runtime=anakin is a no-op: the '
+          'whole run IS the on-device loop (the filler is the fleet '
+          "runtime's idle-slice workload)")
+    return warnings
+  if not config.anakin_filler:
+    if config.filler_backend:
+      warnings.append(
+          'filler_backend=%r with anakin_filler=False: nothing will '
+          'run it' % config.filler_backend)
+    return warnings
+  if config.resolved_filler_backend not in JITTABLE_BACKENDS:
+    raise ValueError(
+        f'filler_backend must be jittable '
+        f'({", ".join(JITTABLE_BACKENDS)}), got '
+        f'{config.filler_backend!r}')
+  if config.surrogate == 'vtrace':
+    warnings.append(
+        'anakin_filler=True with surrogate=vtrace: filler updates are '
+        'off-cadence relative to the fleet stream and plain V-trace '
+        'has no clipped-target anchor against them (IMPACT, '
+        'arXiv 1912.00167) — consider --surrogate=impact')
+  return warnings
+
+
+def validate_population(config: Config) -> List[str]:
+  """The JAX package's `validate_population`: the curriculum, mixed
+  fleets and PBT. Raises ValueError on a hard error; returns the
+  warnings. (Mixed fleets stay refused by validate_fleet, ROADMAP
+  A7.2.)"""
+  warnings = []
+  if config.curriculum not in ('uniform', 'regret', 'td'):
+    raise ValueError(f'curriculum must be uniform|regret|td, got '
+                     f'{config.curriculum!r}')
+  if config.curriculum_temperature <= 0:
+    raise ValueError(f'curriculum_temperature must be > 0, got '
+                     f'{config.curriculum_temperature}')
+  if not 0.0 <= config.curriculum_eps <= 1.0:
+    raise ValueError(f'curriculum_eps must be in [0, 1], got '
+                     f'{config.curriculum_eps}')
+  if not 0.0 < config.curriculum_alpha <= 1.0:
+    raise ValueError(f'curriculum_alpha must be in (0, 1], got '
+                     f'{config.curriculum_alpha}')
+  if not 0.0 < config.curriculum_decay <= 1.0:
+    raise ValueError(f'curriculum_decay must be in (0, 1], got '
+                     f'{config.curriculum_decay}')
+  if config.procgen_num_levels < 1:
+    raise ValueError(f'procgen_num_levels must be >= 1, got '
+                     f'{config.procgen_num_levels}')
+  if not 0.0 <= config.procgen_wall_density < 1.0:
+    raise ValueError(f'procgen_wall_density must be in [0, 1), got '
+                     f'{config.procgen_wall_density}')
+  if config.curriculum != 'uniform':
+    curriculum_backends = {config.env_backend}
+    if config.anakin_filler:
+      curriculum_backends.add(config.resolved_filler_backend)
+    if 'procgen' not in curriculum_backends:
+      warnings.append(
+          'curriculum=%s with env_backend=%r: only the procgen core '
+          'has a finite level-id space to prioritize — the sampler '
+          'is inert for this run' %
+          (config.curriculum, config.env_backend))
+    if config.unroll_length < 2:
+      warnings.append(
+          'curriculum=%s with unroll_length=1: a TD error needs two '
+          'consecutive value estimates, so no per-level signal can '
+          'accumulate (scores only decay) — use unroll_length >= 2' %
+          config.curriculum)
+    if config.curriculum_eps == 0:
+      warnings.append(
+          'curriculum_eps=0: no uniform mixing floor — a level whose '
+          'score collapses early may never be revisited, so its stale '
+          'score cannot recover (the decay then has nothing to rescue)')
+  if config.fleet_tasks:
+    from scalable_agent_tpu_torch import population
+    tasks = population.parse_fleet_tasks(config.fleet_tasks)
+    if not tasks:
+      raise ValueError(f'fleet_tasks={config.fleet_tasks!r} names no '
+                       'tasks')
+    names = [name for name, _ in tasks]
+    for name in names:
+      if name not in JITTABLE_BACKENDS:
+        raise ValueError(
+            f'fleet_tasks names {name!r}: mixed fleets compose the '
+            f'jittable suites ({", ".join(JITTABLE_BACKENDS)}) — '
+            'real simulators keep their own single-task fleets')
+    if 'cue_memory' in names and any(n in ('gridworld', 'procgen')
+                                     for n in names):
+      raise ValueError(
+          'fleet_tasks mixes cue_memory (a fixed 3-action task) with '
+          'gridworld/procgen (>= 4 movement actions): one shared '
+          'policy head cannot satisfy both — drop one side or widen '
+          'with bandit (any head width)')
+    if config.runtime == 'anakin':
+      warnings.append(
+          'fleet_tasks is a fleet-runtime feature (per-actor task '
+          'assignment); runtime=anakin runs env_backend=%r only — '
+          'the spec is ignored' % config.env_backend)
+    elif len(tasks) > config.num_actors:
+      raise ValueError(
+          f'fleet_tasks names {len(tasks)} tasks but num_actors='
+          f'{config.num_actors} cannot cover them at >= 1 actor each')
+    if not config.use_popart and len(tasks) > 1:
+      warnings.append(
+          'fleet_tasks mixes %d suites with use_popart=False: reward '
+          'scales will compete in one value head — consider '
+          '--use_popart' % len(tasks))
+  if config.pbt_population < 0:
+    raise ValueError(f'pbt_population must be >= 0, got '
+                     f'{config.pbt_population}')
+  if config.pbt_round_frames < 0:
+    raise ValueError(f'pbt_round_frames must be >= 0, got '
+                     f'{config.pbt_round_frames}')
+  if not 0.0 < config.pbt_quantile <= 0.5:
+    raise ValueError(f'pbt_quantile must be in (0, 0.5] (bottom and '
+                     f'top slices must not overlap), got '
+                     f'{config.pbt_quantile}')
+  if config.pbt_perturb <= 1.0:
+    raise ValueError(f'pbt_perturb must be > 1 (the explore factor '
+                     f'multiplies OR divides), got {config.pbt_perturb}')
+  if config.pbt_population == 1:
+    warnings.append(
+        'pbt_population=1: a population of one has no donor to '
+        'exploit — PBT is off (use >= 2, ideally >= 2 per suite)')
+  if config.pbt_vectorized and config.pbt_population < 2:
+    warnings.append(
+        'pbt_vectorized without pbt_population >= 2: there is no '
+        'population to vectorize — the flag is inert')
+  if config.pbt_population >= 2:
+    if config.runtime != 'anakin':
+      raise ValueError(
+          'pbt_population >= 2 needs --runtime=anakin: population '
+          'members are fused-loop replicas (the fleet runtime owns '
+          'the host devices exclusively — replicas would contend)')
+    suites = config.resolved_pbt_suites
+    for suite in suites:
+      if suite not in JITTABLE_BACKENDS:
+        raise ValueError(
+            f'pbt_suites names {suite!r}: population members are '
+            f'anakin runs and need jittable backends '
+            f'({", ".join(JITTABLE_BACKENDS)})')
+    if 'cue_memory' in suites and any(s in ('gridworld', 'procgen')
+                                      for s in suites):
+      raise ValueError(
+          'pbt_suites mixes cue_memory (fixed 3-action) with '
+          'gridworld/procgen (>= 4 actions): members share one agent '
+          'architecture, so their policy heads must be one width')
+    if config.pbt_vectorized:
+      if len(set(suites)) > 1:
+        raise ValueError(
+            'pbt_vectorized: one vmapped program trains ONE suite '
+            '(member programs must be structurally identical), but '
+            f'pbt_suites names {sorted(set(suites))} — drop '
+            '--pbt_vectorized or train a single-suite population')
+      if config.model_parallelism > 1:
+        warnings.append(
+            'pbt_vectorized with model_parallelism=%d: vectorized '
+            'members are single-device programs — train_population '
+            'degrades to the serial member loop' %
+            config.model_parallelism)
+    if config.pbt_population < len(suites):
+      raise ValueError(
+          f'pbt_population={config.pbt_population} cannot cover '
+          f'{len(suites)} suites at >= 1 member each')
+    if config.pbt_population < 2 * len(suites):
+      warnings.append(
+          'pbt_population=%d over %d suite(s): some suites get a '
+          'single member, and exploit/explore only fires WITHIN a '
+          'suite — size the population at >= 2 per suite' %
+          (config.pbt_population, len(suites)))
   return warnings

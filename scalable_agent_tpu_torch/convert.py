@@ -78,7 +78,8 @@ def _torso_modules(deep: bool, num_sections: int, per_section: int
 
 
 def _torso(name: str, p: Mapping, out: Dict):
-  if name.startswith('DeepResNetTorso'):
+  # deep_fast's tree is deep's (its stride-2 convs hold the same params).
+  if name.startswith(('DeepResNetTorso', 'DeepFastTorso')):
     num_sections = sum(1 for k in p if k.startswith('Conv_'))
     blocks = sum(1 for k in p if k.startswith('ResidualBlock_'))
     modules = _torso_modules(True, num_sections, blocks // num_sections)

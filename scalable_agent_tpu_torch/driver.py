@@ -1,9 +1,11 @@
 """Experiment driver of the port, after the JAX package's driver.py:
 `build_agent`, `choose_mesh`, the device and float32-precision rules of
 the entry points, the fleet runtime's training loop (`make_fleet`,
-`train`) and the Anakin runtime's (`train_anakin`), each with checkpoint
-and resume, the health ladder and the preemption drain. Evaluation is a
-later slice (ROADMAP A7.1).
+`train`, with the hybrid filler) and the Anakin runtime's
+(`train_anakin`), each with checkpoint and resume, the health ladder and
+the preemption drain, and population-based training over Anakin members
+(`train_population`, serial or in lockstep). Evaluation is a later slice
+(ROADMAP A7.1).
 
 The reference's machinery maps as in the JAX driver:
 
@@ -23,6 +25,7 @@ import dataclasses
 import json
 import logging
 import os
+import shutil
 import sys
 import threading
 import time
@@ -36,10 +39,13 @@ from scalable_agent_tpu_torch import health as health_lib
 from scalable_agent_tpu_torch import learner as learner_lib
 from scalable_agent_tpu_torch import observability
 from scalable_agent_tpu_torch import popart as popart_lib
+from scalable_agent_tpu_torch import population as population_lib
 from scalable_agent_tpu_torch.config import (COMPUTE_DTYPES, Config,
                                              validate_fleet,
                                              validate_integrity,
-                                             validate_replay)
+                                             validate_population,
+                                             validate_replay,
+                                             validate_runtime)
 from scalable_agent_tpu_torch.envs import factory
 from scalable_agent_tpu_torch.models import ImpalaAgent, init_params
 from scalable_agent_tpu_torch.parallel import distributed
@@ -240,6 +246,7 @@ class TrainRun:
     self.health: Optional[health_lib.HealthMonitor] = None
     self.mesh = None
     self.carry = None
+    self.members = None
     self.stats: Dict[str, Dict] = {}
     self.step_log: List[Dict[str, float]] = []
     # Under sample reuse: the fresh env frames consumed so far, counted
@@ -395,7 +402,7 @@ def make_checkpointer(config: Config, mesh=None, registry=None,
       os.path.join(config.logdir, 'checkpoints'),
       save_interval_secs=config.checkpoint_secs,
       verify_digests=config.ckpt_digests, mesh=mesh, registry=registry,
-      layout=layout)
+      layout=layout, torso=config.torso)
 
 
 def restore_at_start(checkpointer, state):
@@ -445,7 +452,9 @@ def train(config: Config, max_steps: Optional[int] = None, device='cuda',
   """IMPALA training until total_environment_frames (or `max_steps` more
   learner steps).
 
-  `config.runtime == 'anakin'` runs `train_anakin`. The fleet runtime, in
+  `config.pbt_population >= 2` runs `train_population` (Anakin
+  members), and `config.runtime == 'anakin'` runs `train_anakin`. The
+  fleet runtime, in
   order: the env spec and the agent, the mesh (`choose_mesh`, under a
   process group) and the learner state, the restore of the newest
   restorable checkpoint under `<logdir>/checkpoints` (steps, frames and
@@ -497,17 +506,31 @@ def train(config: Config, max_steps: Optional[int] = None, device='cuda',
   the server. With >= 2 data replicas the SDC sentinel (sdc_check) runs
   with the health ladder. Every collective runs on this lockstep path.
 
+  The hybrid filler (anakin_filler, parallel/anakin.HybridFiller): when
+  the prefetcher has no staged batch (its ready() probe), the loop runs
+  one fused self-play step on the live train state instead of waiting,
+  and probes again. Filler updates leave update_steps, the frame budget,
+  the LR's count, the publish cadence and the checkpoint numbering on the
+  fleet's clock; `filler_updates`, `filler_frames` and
+  `filler_skipped_updates` are summarised apart, and the drain manifest
+  carries the filler's stats. Under a process group or a model axis the
+  filler parks with a warning (`supports_filler`); a filler core that
+  cannot take the task's head width raises at spin-up.
+
   `on_step(run, steps_done, metrics)` runs after each learner step
   (chip_smoke.py times and profiles with it). `device` defaults to CUDA
   and raises without it. Returns the TrainRun.
   """
+  if config.pbt_population >= 2:
+    # The population owns its members' Anakin runs end to end.
+    return train_population(config, max_steps=max_steps, device=device,
+                            drain_event=drain_event)
   if config.runtime == 'anakin':
     return train_anakin(config, max_steps=max_steps, device=device,
                         drain_event=drain_event)
-  if config.runtime != 'fleet':
-    raise ValueError(f'unknown runtime {config.runtime!r} (fleet | anakin)')
   validate_fleet(config)
-  for warning in validate_integrity(config) + validate_replay(config):
+  for warning in (validate_runtime(config) + validate_integrity(config) +
+                  validate_replay(config) + validate_population(config)):
     log.warning('%s', warning)
   device = resolve_device(device)
   set_float32_precision()
@@ -660,6 +683,7 @@ def train(config: Config, max_steps: Optional[int] = None, device='cuda',
 
   process_seed_base = rank * max(config.num_actors, 1000)
   buffer = server = fleet = prefetcher = writer = incidents = None
+  filler = None
   try:
     # The replay tier retains consumed unrolls behind the FIFO; their
     # staleness counts in published param versions.
@@ -704,6 +728,20 @@ def train(config: Config, max_steps: Optional[int] = None, device='cuda',
                 frames_per_unroll * scale)
 
       run.env_frames_fn = env_frames_fn
+    if config.anakin_filler:
+      from scalable_agent_tpu_torch.parallel import anakin as anakin_lib
+      filler_ok, filler_reason = anakin_lib.supports_filler(config, mesh)
+      if not filler_ok:
+        log.warning('anakin_filler disabled on this topology: %s',
+                    filler_reason)
+      else:
+        # A core that cannot take the task's head width raises here.
+        filler = anakin_lib.HybridFiller(agent, config, num_actions,
+                                         device, mesh=mesh)
+        log.info('hybrid filler armed: %r self-play (B=%d, T=%d) fills '
+                 'idle learner slices; fresh-frame clocks unchanged',
+                 filler.backend, filler.stats()['batch_size'],
+                 filler.stats()['unroll_length'])
     suffix = '' if rank == 0 else f'_p{rank}'
     writer = observability.SummaryWriter(
         config.logdir, filename=f'summaries{suffix}.jsonl')
@@ -737,6 +775,8 @@ def train(config: Config, max_steps: Optional[int] = None, device='cuda',
   draining = False
   drain_source = None
   drain_t0 = drain_deadline = 0.0
+  last_filler_check = time.monotonic()
+  last_filler_skipped = 0
 
   def stop_signals():
     """(the preempt_signal fault, the drain event): one fault event per
@@ -778,6 +818,24 @@ def train(config: Config, max_steps: Optional[int] = None, device='cuda',
         break
       if max_steps is not None and steps_done >= max_steps:
         break
+      if filler is not None and not draining and not prefetcher.ready():
+        # Nothing staged: one filler step on the live state, then probe
+        # again; a batch staged meanwhile waits for this one step.
+        run.state = filler.fill_one(run.state)
+        now = time.monotonic()
+        if now - last_filler_check > poll_secs:
+          # The starved branch's liveness duties, time-gated: a dead
+          # fleet still surfaces while the filler keeps the learner busy.
+          last_filler_check = now
+          errors = fleet.errors() or errors
+          fleet.check_health(stall_timeout_secs=stall_timeout_secs)
+          if (stall_timeout_secs is not None and
+              now - last_batch_time > max(3 * stall_timeout_secs, 30.0)):
+            raise errors[0] if errors else TimeoutError(
+                'no trajectory batch despite healthy actors (the hybrid '
+                'filler kept the learner busy; the env plane is the '
+                'incident)')
+        continue
       try:
         stats_view, action_counts, batch = prefetcher.get(
             timeout=0.5 if draining else poll_secs)
@@ -851,6 +909,9 @@ def train(config: Config, max_steps: Optional[int] = None, device='cuda',
             action_counts_acc, fleet, buffer, server, prefetcher,
             last_quarantined, stall_timeout_secs)
         ladder.write_summaries(writer, step_now)
+        last_filler_skipped = _write_filler_summaries(
+            writer, incidents, filler, step_now, last_filler_skipped,
+            run.health)
         action_counts_acc[:] = 0
       _periodic_save(config, checkpointer, ladder, state, steps_done,
                      grouped)
@@ -866,23 +927,48 @@ def train(config: Config, max_steps: Optional[int] = None, device='cuda',
                        server, prefetcher, last_quarantined,
                        stall_timeout_secs)
       ladder.write_summaries(writer, initial_steps + steps_done)
+      _write_filler_summaries(writer, incidents, filler,
+                              initial_steps + steps_done,
+                              last_filler_skipped, run.health)
     if draining:
       _finish_drain(config, run, ladder, checkpointer, incidents, writer,
                     initial_steps + steps_done, last_publish_step,
-                    drain_source, drain_t0, drain_deadline)
+                    drain_source, drain_t0, drain_deadline, filler)
     if run.state.popart is not None:
       log.info('PopArt statistics per task: %s', json.dumps(
           popart_lib.stats_summary(run.state.popart, levels)))
   finally:
     run.stats = _teardown(fleet, prefetcher, server, buffer, writer,
                           incidents)
+    if filler is not None:
+      run.stats['filler'] = filler.stats()
     _final_save(checkpointer, ladder, run.state, grouped)
   return run
 
 
+def _write_filler_summaries(writer, incidents, filler, step: int,
+                            last_skipped: int, health=None) -> int:
+  """The filler's own ledger (its updates, frames and the updates the
+  watchdog withheld: an incident, and a note in the health monitor's
+  bundle, when those grow); returns the skipped count."""
+  if filler is None:
+    return last_skipped
+  stats = filler.stats()
+  writer.scalars({'filler_updates': stats['updates'],
+                  'filler_frames': stats['frames'],
+                  'filler_skipped_updates': stats['skipped']}, step)
+  if stats['skipped'] > last_skipped:
+    incidents.event('filler_skipped_updates', step=step,
+                    total=stats['skipped'],
+                    delta=stats['skipped'] - last_skipped)
+    if health is not None:
+      health.note_external('filler_skipped_updates')
+  return stats['skipped']
+
+
 def _finish_drain(config, run, ladder, checkpointer, incidents, writer,
                   step_final, last_publish_step, drain_source, drain_t0,
-                  drain_deadline):
+                  drain_deadline, filler=None):
   """The drain's end: join the fleet (bounded), close the prefetcher
   (its partial batch's unrolls go back to the buffer), take a verified
   save (withheld mid-burst, as every save is) and write the manifest."""
@@ -911,8 +997,10 @@ def _finish_drain(config, run, ladder, checkpointer, incidents, writer,
       'unjoined_actors': quiesce['unjoined_actors'],
       'health': (ladder.monitor.drain_report()
                  if ladder.monitor is not None else None),
-      # Planes the port does not have yet (A7.4, A6).
-      'metrics': None, 'slo': None, 'controller': None, 'filler': None,
+      # The filler's ledger when one ran.
+      'filler': filler.stats() if filler is not None else None,
+      # Planes the port does not have yet (A7.4).
+      'metrics': None, 'slo': None, 'controller': None,
       'drain_source': drain_source,
       'drain_latency_secs': round(latency, 3),
       'wall_time': round(time.time(), 3),
@@ -932,7 +1020,7 @@ def _finish_drain(config, run, ladder, checkpointer, incidents, writer,
 
 def train_anakin(config: Config, max_steps: Optional[int] = None,
                  device='cuda', drain_event: Optional[threading.Event] = None,
-                 mesh=None) -> TrainRun:
+                 mesh=None, initial_state=None) -> TrainRun:
   """The Anakin runtime as a production run (`--mode=train
   --runtime=anakin`): fused act+learn steps (parallel/anakin.py) with the
   lifecycle the fleet gets — the restore of the newest restorable
@@ -945,24 +1033,44 @@ def train_anakin(config: Config, max_steps: Optional[int] = None,
   the tail save is the drain (no buffer to flush, no fleet to join).
   Writes config.json, summaries and incidents.
 
+  `initial_state` (the population's in-process exploit): a TrainState to
+  start from in place of the restore. It is copied into this run's own
+  tensors (the caller's are never aliased); the periodic and tail saves
+  then record it in this run's ladder.
+
+  With a curriculum on the procgen core the summaries hold the
+  `curriculum_*` scalars, and `<logdir>/CURRICULUM_LEVELS.json` the final
+  per-level scores, visits and sampling probabilities.
+
   Under `mesh` (a process group) every rank trains its columns; rank 0
   writes the logdir and the checkpoints; the save decision is rank 0's,
   checked every checkpoint_check_every_steps steps; the verdicts come
   from the all-reduced metrics, so every rank rolls back in the same
   step. The JAX runtime's SLO engine and profiler capture (ROADMAP A7.4)
-  and its population seam `initial_state` (A6) are not here. Returns a
-  TrainRun whose fleet, server and prefetcher are None."""
+  are not here. Returns a TrainRun whose fleet, server and prefetcher
+  are None."""
   from scalable_agent_tpu_torch.parallel import anakin as anakin_lib
+  for warning in validate_runtime(config) + validate_population(config):
+    log.warning('%s', warning)
   _, agent, step, carry = anakin_lib.build_run(config, device=device,
                                                mesh=mesh)
   primary = distributed.rank() == 0
   grouped = mesh is not None and mesh.size > 1
   checkpointer = make_checkpointer(config, mesh)
-  # A restore that raises (a config mismatch) ends the call here, before
-  # the tail save could write a fresh state next to the old steps.
-  carry = carry._replace(train_state=restore_at_start(
-      checkpointer, carry.train_state))
+  if initial_state is not None:
+    carry = carry._replace(train_state=learner_lib.load_state_(
+        carry.train_state, learner_lib.state_tree(initial_state)))
+    log.info('starting from a caller-provided state at step %d',
+             carry.train_state.update_steps)
+  else:
+    # A restore that raises (a config mismatch) ends the call here,
+    # before the tail save could write a fresh state next to the old
+    # steps.
+    carry = carry._replace(train_state=restore_at_start(
+        checkpointer, carry.train_state))
   initial_steps = carry.train_state.update_steps
+  curriculum = config.curriculum != 'uniform' and hasattr(
+      carry.env_state, 'level_scores')
   writer = incidents = None
   if primary:
     _consume_resume_manifest(config.logdir, initial_steps)
@@ -986,8 +1094,10 @@ def train_anakin(config: Config, max_steps: Optional[int] = None,
   def flush(step_now):
     if writer is None:
       return
-    writer.scalars({k: float(metrics[k]) for k in (
-        'total_loss', 'mean_reward', 'learning_rate')}, step_now)
+    keys = ['total_loss', 'mean_reward', 'learning_rate']
+    if curriculum:
+      keys += sorted(k for k in metrics if k.startswith('curriculum_'))
+    writer.scalars({k: float(metrics[k]) for k in keys}, step_now)
     writer.scalar('env_frames_per_sec', fps_meter.fps(), step_now)
     ladder.write_summaries(writer, step_now)
 
@@ -1038,12 +1148,430 @@ def train_anakin(config: Config, max_steps: Optional[int] = None,
   finally:
     try:
       _final_save(checkpointer, ladder, run.state, grouped)
+      if curriculum and primary:
+        _write_curriculum_levels(config, carry.env_state)
     finally:
       for stream in (writer, incidents):
         if stream is not None:
           stream.close()
   run.carry = carry
   return run
+
+
+def _write_curriculum_levels(config: Config, env_state) -> None:
+  """`<logdir>/CURRICULUM_LEVELS.json`: the final per-level scores,
+  visits and sampling distribution (which levels got the frames)."""
+  scores = env_state.level_scores.detach().cpu()
+  probs = population_lib.level_probs(scores, config.curriculum_temperature,
+                                     config.curriculum_eps)
+  with open(os.path.join(config.logdir, 'CURRICULUM_LEVELS.json'),
+            'w') as f:
+    json.dump({'curriculum': config.curriculum,
+               'temperature': config.curriculum_temperature,
+               'eps': config.curriculum_eps,
+               'scores': scores.tolist(),
+               'visits': env_state.level_visits.detach().cpu().tolist(),
+               'probs': probs.tolist()}, f, indent=2)
+
+
+def _member_return(member_dir: str, tag: str = 'mean_reward',
+                   tail: int = 5) -> float:
+  """A member's fitness: the mean of its last `tail` summary values of
+  `tag`, by step. Summaries append across rounds, so the tail is the
+  round just finished; a member with none scores 0.0."""
+  vals = []
+  try:
+    with open(os.path.join(member_dir, 'summaries.jsonl')) as f:
+      for line in f:
+        try:
+          rec = json.loads(line)
+        except ValueError:
+          continue
+        if rec.get('tag') == tag and 'value' in rec:
+          vals.append((int(rec.get('step', 0)), float(rec['value'])))
+  except OSError:
+    return 0.0
+  if not vals:
+    return 0.0
+  vals.sort(key=lambda sv: sv[0])
+  return float(np.mean([v for _, v in vals[-tail:]]))
+
+
+def _inherit_member_dir(donor_dir: str, loser_dir: str) -> None:
+  """Cross-process PBT inheritance: the loser's checkpoint ladder
+  becomes a copy of the donor's, by copy then swap, so a failed copy
+  leaves the loser's own ladder in place. The loser's next restore
+  verifies the donor's digests (a torn copy is refused)."""
+  tmp = loser_dir + '.inherit_tmp'
+  old = loser_dir + '.inherit_old'
+  for leftover in (tmp, old):
+    if os.path.isdir(leftover):
+      shutil.rmtree(leftover)
+  try:
+    shutil.copytree(donor_dir, tmp)
+  except BaseException:
+    # The loser's ladder was never touched; only the partial copy goes.
+    shutil.rmtree(tmp, ignore_errors=True)
+    raise
+  if os.path.isdir(loser_dir):
+    os.rename(loser_dir, old)
+  os.rename(tmp, loser_dir)
+  shutil.rmtree(old, ignore_errors=True)
+
+
+class _PopulationLog:
+  """The population's parent-logdir record, as the JAX driver writes
+  it: `population_summaries.jsonl` (one row per member per round),
+  `PBT_LOG.json` (every round's returns, hypers and decisions, then the
+  winner), the `population/*` summary scalars and the `pbt_exploit` /
+  `pbt_winner` incidents."""
+
+  def __init__(self, config: Config, suites, num_rounds: int,
+               vectorized: bool):
+    self._logdir = config.logdir
+    os.makedirs(config.logdir, exist_ok=True)
+    self.writer = observability.SummaryWriter(config.logdir)
+    self.incidents = observability.EventLog(config.logdir)
+    self.num_rounds = num_rounds
+    self.exploits = 0
+    self.log = {'population': config.pbt_population, 'suites': list(suites),
+                'round_frames': config.resolved_pbt_round_frames,
+                'num_rounds': num_rounds, 'quantile': config.pbt_quantile,
+                'perturb': config.pbt_perturb, 'vectorized': vectorized,
+                'rounds': [], 'winner': None}
+
+  def member_row(self, r: int, member, target: int, mean_return: float):
+    row = {'wall_time': round(time.time(), 3), 'round': r,
+           'member': member['member'], 'suite': member['suite'],
+           'frames': target, 'mean_return': mean_return}
+    row.update({f'hyper_{h}': float(v)
+                for h, v in sorted(member['hypers'].items())})
+    with open(os.path.join(self._logdir, 'population_summaries.jsonl'),
+              'a') as f:
+      f.write(json.dumps(row, sort_keys=True) + '\n')
+
+  def scored(self, target: int, returns, groups):
+    per_suite_best = {g: max(returns[i] for i in range(len(returns))
+                             if groups[i] == g) for g in set(groups)}
+    self.writer.scalars({
+        'population/task_return_min': min(per_suite_best.values()),
+        'population/best_return': max(returns)}, target)
+
+  def exploit(self, r: int, target: int, k: int, decision, members,
+              returns, how: str):
+    donor = decision['donor']
+    self.exploits += 1
+    self.incidents.event(
+        'pbt_exploit', step=target, round=r, member=k, donor=donor,
+        suite=members[k]['suite'], member_return=returns[k],
+        donor_return=returns[donor], hypers=decision['hypers'])
+    log.info('pbt round %d: member %d (return %.3f) exploits member %d '
+             '(return %.3f), new hypers %s [%s]', r, k, returns[k], donor,
+             returns[donor], decision['hypers'], how)
+
+  def end_round(self, round_rec, target: int):
+    self.writer.scalar('population/exploits_total', self.exploits, target)
+    self.log['rounds'].append(round_rec)
+    self.write()
+
+  def winner(self, k: int, member, mean_return: float, logdir: str):
+    self.log['winner'] = {'member': k, 'suite': member['suite'],
+                          'return': mean_return,
+                          'hypers': dict(member['hypers']),
+                          'logdir': logdir}
+    self.write()
+    self.incidents.event('pbt_winner', member=k, suite=member['suite'],
+                         final_return=mean_return, hypers=member['hypers'])
+    log.info('pbt winner: member %d (%s) return %.3f hypers %s', k,
+             member['suite'], mean_return, member['hypers'])
+
+  def write(self):
+    path = os.path.join(self._logdir, 'PBT_LOG.json')
+    tmp = path + '.tmp'
+    with open(tmp, 'w') as f:
+      json.dump(self.log, f, indent=2, sort_keys=True)
+    os.replace(tmp, path)
+
+  def close(self):
+    self.writer.close()
+    self.incidents.close()
+
+
+def _initial_members(config: Config, rng: np.random.Generator, suites):
+  """Member k's suite (round-robin) and hypers: member 0 keeps the
+  configured (learning_rate, entropy_cost), the others start explored."""
+  members = []
+  for k in range(config.pbt_population):
+    hypers = {'learning_rate': config.learning_rate,
+              'entropy_cost': config.entropy_cost}
+    if k:
+      hypers = population_lib.pbt_explore(hypers, rng, config.pbt_perturb)
+    members.append({'member': k, 'suite': suites[k % len(suites)],
+                    'hypers': hypers})
+  return members
+
+
+def _member_dir(config: Config, k: int) -> str:
+  return os.path.join(config.logdir, f'member_{k:02d}')
+
+
+def _num_rounds(config: Config) -> int:
+  return max(1, -(-config.total_environment_frames //
+                  config.resolved_pbt_round_frames))
+
+
+def _member_config(config: Config, member, **fields) -> Config:
+  """Member k's config: its logdir, seed, suite and hypers; a plain
+  Anakin run (no population, no task mix)."""
+  k = member['member']
+  return dataclasses.replace(
+      config, logdir=_member_dir(config, k),
+      seed=config.seed + 101 * k + 1, env_backend=member['suite'],
+      learning_rate=member['hypers']['learning_rate'],
+      entropy_cost=member['hypers']['entropy_cost'], pbt_population=0,
+      pbt_vectorized=False, fleet_tasks='', **fields)
+
+
+def _run_rounds(config: Config, members, record: _PopulationLog,
+                rng: np.random.Generator,
+                drain_event: Optional[threading.Event], advance, inherit,
+                settle=None) -> int:
+  """The rounds of either population form. Each extends every member's
+  frame budget by `resolved_pbt_round_frames`: `advance(target)` trains
+  the members toward it and returns the members it advanced (a drain may
+  stop it early). The advanced members are scored from their summaries;
+  then, unless another round would not train on the result, the
+  decisions rank members within each suite (np.random from config.seed:
+  JAX's decisions) and each bottom-quantile member k takes a donor's
+  state, `inherit(k, donor)` (returning how, for the log), and the
+  donor's explored hypers. `settle()`, when given, ends each round after
+  the exploits. Returns the winner: the best-scoring member that
+  trained."""
+  drained = lambda: drain_event is not None and drain_event.is_set()  # noqa: E731
+  returns = [0.0] * len(members)
+  trained = set()
+  for r in range(record.num_rounds):
+    if drained():
+      break
+    target = min((r + 1) * config.resolved_pbt_round_frames,
+                 config.total_environment_frames)
+    for k in advance(target):
+      returns[k] = _member_return(_member_dir(config, k))
+      record.member_row(r, members[k], target, returns[k])
+      trained.add(k)
+    groups = [m['suite'] for m in members]
+    record.scored(target, returns, groups)
+    round_rec = {'round': r, 'target_frames': target,
+                 'returns': list(returns), 'suites': list(groups),
+                 'hypers': [dict(m['hypers']) for m in members],
+                 'decisions': []}
+    if r < record.num_rounds - 1 and not drained():
+      decisions = population_lib.pbt_decide(
+          returns, groups, rng, quantile=config.pbt_quantile,
+          perturb=config.pbt_perturb, hypers=[m['hypers'] for m in members])
+      for k, decision in enumerate(decisions):
+        if decision is None:
+          continue
+        how = inherit(k, decision['donor'])
+        members[k]['hypers'] = dict(decision['hypers'])
+        record.exploit(r, target, k, decision, members, returns, how)
+        round_rec['decisions'].append(dict(decision, member=k))
+    if settle is not None:
+      settle()
+    record.end_round(round_rec, target)
+  if not trained:
+    raise RuntimeError('population run trained no member (drained before '
+                       'the first round?)')
+  winner = max(sorted(trained), key=lambda k: returns[k])
+  record.winner(winner, members[winner], returns[winner],
+                _member_dir(config, winner))
+  return winner
+
+
+def train_population(config: Config, max_steps: Optional[int] = None,
+                     device='cuda',
+                     drain_event: Optional[threading.Event] = None
+                     ) -> TrainRun:
+  """Population-based training over Anakin members (PBT, arXiv
+  1711.09846): `pbt_population` members, each a `train_anakin` run in
+  `<logdir>/member_XX` with its own checkpoint ladder and summaries,
+  suites round-robin from `resolved_pbt_suites`, (learning_rate,
+  entropy_cost) exploited and explored between rounds (`_run_rounds`).
+
+  Each round a member resumes from its own ladder. A bottom-quantile
+  member inherits its donor's state: in process through
+  `train_anakin(initial_state=...)`, copied into the loser's own
+  tensors; else by copying the donor's ladder (`_inherit_member_dir`).
+  Each exploit is a durable `pbt_exploit` incident. The parent logdir
+  holds _PopulationLog's record.
+
+  With pbt_vectorized (one suite) and model_parallelism 1 the members
+  advance in lockstep instead (`_train_population_fused`); with a model
+  axis the serial loop runs, with a warning (JAX's rule). `max_steps`
+  bounds each member run (the fused path: each round); `drain_event`
+  stops at the next member or round boundary. One process only. Returns
+  the winning member's TrainRun."""
+  for warning in validate_population(config):
+    log.warning('%s', warning)
+  if config.pbt_population < 2:
+    raise ValueError(f'train_population needs pbt_population >= 2, '
+                     f'got {config.pbt_population}')
+  if distributed.world_size() > 1:
+    raise ValueError('a population runs in one process: its members are '
+                     'one-device Anakin runs')
+  if config.pbt_vectorized:
+    if config.model_parallelism <= 1:
+      return _train_population_fused(config, max_steps=max_steps,
+                                     device=device, drain_event=drain_event)
+    log.warning('pbt_vectorized ignored (model_parallelism=%d): running '
+                'the serial member loop', config.model_parallelism)
+  suites = list(config.resolved_pbt_suites)
+  rng = np.random.default_rng(config.seed)
+  members = _initial_members(config, rng, suites)
+  runs: Dict[int, TrainRun] = {}
+  # An exploited loser's next run starts from the donor's state as it
+  # was at the decision (a member's later runs train new tensors, so the
+  # held state does not move); train_anakin copies it.
+  inherited: Dict[int, learner_lib.TrainState] = {}
+
+  def advance(target):
+    advanced = []
+    for m in members:
+      if drain_event is not None and drain_event.is_set():
+        break
+      k = m['member']
+      runs[k] = train_anakin(
+          _member_config(config, m, total_environment_frames=target),
+          max_steps=max_steps, device=device, drain_event=drain_event,
+          initial_state=inherited.pop(k, None))
+      advanced.append(k)
+    return advanced
+
+  def inherit(k, donor):
+    if donor in runs:
+      inherited[k] = runs[donor].state
+      return 'in process'
+    src = os.path.join(_member_dir(config, donor), 'checkpoints')
+    if os.path.isdir(src):
+      _inherit_member_dir(src, os.path.join(_member_dir(config, k),
+                                            'checkpoints'))
+    return 'through the ladder'
+
+  record = _PopulationLog(config, suites, _num_rounds(config),
+                          vectorized=False)
+  try:
+    return runs[_run_rounds(config, members, record, rng, drain_event,
+                            advance, inherit)]
+  finally:
+    record.close()
+
+
+def _train_population_fused(config: Config, max_steps: Optional[int] = None,
+                            device='cuda',
+                            drain_event: Optional[threading.Event] = None
+                            ) -> TrainRun:
+  """The vectorized population (pbt_vectorized): every member advances
+  in lockstep, one `make_vectorized_anakin_step` per step (one V-trace
+  launch over all members' columns), with (learning_rate, entropy_cost)
+  as per-member tensors, so an explore rebuilds nothing. The rounds and
+  decisions are the serial loop's (`_run_rounds`); an exploit copies the
+  donor's train state into the loser's tensors on the device (the loser
+  keeps its own env stream, as in the serial path). Each member owns a
+  ladder in `<logdir>/member_XX/checkpoints`, restored at start and
+  force-saved at each round boundary after the exploits, so its
+  directory resumes in either path, and its own summaries; the parent
+  logdir holds the population's record (PBT_LOG.json with
+  vectorized=true). One suite, one device. Returns the winner's
+  TrainRun."""
+  from scalable_agent_tpu_torch.parallel import anakin as anakin_lib
+  device = resolve_device(device)
+  set_float32_precision()
+  suites = list(config.resolved_pbt_suites)[:1]
+  n = config.pbt_population
+  rng = np.random.default_rng(config.seed)
+  members = _initial_members(config, rng, suites)
+  member_configs = [_member_config(config, m) for m in members]
+  base = member_configs[0]
+  env_core = anakin_lib.make_env_core(base)
+  agents, carries = anakin_lib.init_members(
+      base, env_core, [c.seed for c in member_configs], device)
+  vstep = anakin_lib.make_vectorized_anakin_step(agents, env_core, base)
+  checkpointers = [make_checkpointer(c) for c in member_configs]
+  for k in range(n):
+    carries[k] = carries[k]._replace(train_state=restore_at_start(
+        checkpointers[k], carries[k].train_state))
+  record = _PopulationLog(config, suites, _num_rounds(config),
+                          vectorized=True)
+  member_writers = []
+  try:
+    for c in member_configs:
+      with open(os.path.join(c.logdir, 'config.json'), 'w') as f:
+        json.dump(dataclasses.asdict(c), f, indent=2, sort_keys=True)
+      member_writers.append(observability.SummaryWriter(c.logdir))
+    with open(os.path.join(config.logdir, 'config.json'), 'w') as f:
+      json.dump(dataclasses.asdict(config), f, indent=2, sort_keys=True)
+    initial_steps = max(c.train_state.update_steps for c in carries)
+    fps_meter = observability.FpsMeter()
+    steps_done = 0
+    last_summary = time.monotonic()
+    metrics = None
+
+    def flush_members(step_now):
+      values = {key: v.tolist() for key, v in metrics.items()}
+      for k, writer in enumerate(member_writers):
+        writer.scalars({key: v[k] for key, v in values.items()}, step_now)
+
+    def advance(target):
+      nonlocal carries, metrics, steps_done, last_summary
+      hypers = {name: torch.tensor([m['hypers'][name] for m in members],
+                                   dtype=torch.float32, device=device)
+                for name in population_lib.PBT_HYPERS}
+      round_steps = 0
+      while not (drain_event is not None and drain_event.is_set()):
+        step_now = initial_steps + steps_done
+        if step_now * config.frames_per_step >= target:
+          break
+        if max_steps is not None and round_steps >= max_steps:
+          break
+        carries, metrics = vstep(carries, hypers)
+        steps_done += 1
+        round_steps += 1
+        fps_meter.update(config.frames_per_step * n)
+        now = time.monotonic()
+        if now - last_summary >= config.summary_secs:
+          last_summary = now
+          flush_members(step_now + 1)
+          record.writer.scalar('env_frames_per_sec', fps_meter.fps(),
+                               step_now + 1)
+      if metrics is not None:
+        # This round's tail, so the scoring reads it.
+        flush_members(initial_steps + steps_done)
+      return range(n)
+
+    def inherit(k, donor):
+      carries[k] = carries[k]._replace(train_state=learner_lib.load_state_(
+          carries[k].train_state,
+          learner_lib.state_tree(carries[donor].train_state)))
+      return 'on device'
+
+    def settle():
+      # Every member's state, inherited weights included, lands in its
+      # own ladder.
+      for k in range(n):
+        checkpointers[k].save(carries[k].train_state, force=True)
+
+    winner = _run_rounds(config, members, record, rng, drain_event,
+                         advance, inherit, settle)
+    run = TrainRun(member_configs[winner], agents[winner],
+                   carries[winner].train_state)
+    run.checkpointer = checkpointers[winner]
+    run.carry = carries[winner]
+    run.members = carries
+    return run
+  finally:
+    for writer in member_writers:
+      writer.close()
+    record.close()
 
 
 class _NoEvents:

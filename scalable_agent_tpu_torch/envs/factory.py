@@ -1,10 +1,11 @@
 """Environment factory: config -> host environment instances, as in the
 JAX package's envs/factory.py, for the backends the port has: `fake`,
-`bandit` and `cue_memory` (envs/fake.py). A suite name (`dmlab30`,
-`atari57`, envs/suites.py) expands into its level list, as in JAX, so
-the fake backends run a suite's levels, one per actor slot. The real
-simulators (DMLab, Atari) and the gridworld/procgen host wrappers raise
-`NotImplementedError` naming the ROADMAP item that brings them.
+`bandit` and `cue_memory` (envs/fake.py), and `gridworld` and `procgen`
+(envs/jittable.py: the on-device cores at batch 1 on the CPU). A suite
+name (`dmlab30`, `atari57`, envs/suites.py) expands into its level list,
+as in JAX, so the fake backends run a suite's levels, one per actor
+slot. The real simulators (DMLab, Atari) raise `NotImplementedError`
+naming the ROADMAP item that brings them.
 
 With `use_py_process` each env is hosted in its own OS process
 (runtime/py_process.py), the GIL escape of the reference's PyProcess.
@@ -23,8 +24,6 @@ _FAKE_ENVS = {'bandit': fake.ContextualBanditEnv,
 _LATER_BACKENDS = {
     'dmlab': 'ROADMAP A7 (DMLab adapter)',
     'atari': 'ROADMAP A7 (Atari adapter)',
-    'gridworld': 'ROADMAP A6 (envs/jittable.py host wrappers)',
-    'procgen': 'ROADMAP A6 (envs/jittable.py host wrappers)',
 }
 
 class EnvSpec:
@@ -71,16 +70,27 @@ def make_env_spec(config: Config, level_name: str, seed: int,
   if backend in _LATER_BACKENDS:
     raise NotImplementedError(
         f'env backend {backend!r} is not in the PyTorch port yet '
-        f'({_LATER_BACKENDS[backend]}); the port has {sorted(_FAKE_ENVS)}')
-  if backend not in _FAKE_ENVS:
+        f'({_LATER_BACKENDS[backend]}); the port has '
+        f'{sorted(_FAKE_ENVS) + ["gridworld", "procgen"]}')
+  if backend in _FAKE_ENVS:
+    env_class = _FAKE_ENVS[backend]
+    num_actions = config.num_actions or (5 if backend == 'fake' else 3)
+  elif backend in ('gridworld', 'procgen'):
+    from scalable_agent_tpu_torch.envs import jittable
+    env_class = jittable.HOST_ENVS[backend]
+    num_actions = (config.num_actions or
+                   jittable.DEFAULT_NUM_ACTIONS[backend])
+  else:
     raise ValueError(f'unknown env backend: {backend!r}')
-  num_actions = config.num_actions or (5 if backend == 'fake' else 3)
   kwargs = dict(height=config.height, width=config.width,
                 num_actions=num_actions,
                 episode_length=config.episode_length,
                 seed=seed, level_name=level_name,
                 num_action_repeats=config.num_action_repeats)
-  return EnvSpec(_FAKE_ENVS[backend], kwargs, num_actions,
+  if backend == 'procgen':
+    kwargs.update(num_levels=config.procgen_num_levels,
+                  wall_density=config.procgen_wall_density)
+  return EnvSpec(env_class, kwargs, num_actions,
                  (config.height, config.width, 3))
 
 

@@ -14,6 +14,20 @@ The fused on-device Anakin trainer (`--mode=anakin`, or `--mode=train
       --use_pallas_vtrace=true --use_instruction=false \\
       --total_environment_frames=1000000 --logdir=/path/to/run
 
+Population-based training over Anakin members (`--pbt_population=P`
+with `--mode=train --runtime=anakin`; `--pbt_vectorized=true` advances
+the members in lockstep, one suite), here on procgen with the level
+curriculum:
+
+  python -m scalable_agent_tpu_torch.experiment --mode=train \\
+      --runtime=anakin --env_backend=procgen --curriculum=regret \\
+      --pbt_population=4 --pbt_vectorized=true --torso=deep \\
+      --batch_size=32 --use_pallas_vtrace=true --use_instruction=false \\
+      --total_environment_frames=1000000 --logdir=/path/to/run
+
+`--anakin_filler=true` on the fleet runtime fills its idle learner with
+Anakin self-play (best with `--surrogate=impact`).
+
 Data-parallel over N ranks of one host, one card each (NCCL), for
 either runtime (`--model_parallelism=M` cuts the fleet's model over M of
 them, tensor parallelism):
@@ -154,6 +168,16 @@ def main(argv: Optional[List[str]] = None):
 
 def _run(config: Config, device: str, drain_event: threading.Event):
   from scalable_agent_tpu_torch import driver
+  if config.mode == 'train' and config.pbt_population >= 2:
+    topology = distributed.declared_topology(config)
+    if topology is not None and topology.world_size > 1:
+      raise ValueError('a population runs in one process (its members are '
+                       'one-device Anakin runs); drop the process group')
+    run = driver.train_population(config, device=device,
+                                  drain_event=drain_event)
+    logging.info('population training done; the winner is %s',
+                 run.config.logdir)
+    return run.carry
   if config.mode == 'train' and config.runtime == 'fleet':
     return _train_fleet(config, device, drain_event)
   if config.mode not in ('train', 'anakin'):

@@ -52,6 +52,7 @@ at once. Momentum (optax's trace) applies after the learning rate, and an
 optional clip_by_global_norm comes first.
 """
 
+import dataclasses
 from typing import Any, Dict, NamedTuple, Optional
 
 import numpy as np
@@ -130,20 +131,21 @@ SUMMED_KEYS = ('total_loss', 'pg_loss', 'baseline_loss', 'entropy_loss',
                'pixel_control_loss', 'impact_clip_fraction')
 
 
-def loss_fn(agent, batch: ActorOutput, config: Config, mesh=None,
-            params=None, tp=None, vtrace_axis='data', popart_state=None,
-            target_params=None, target_popart=None):
-  """Total IMPALA loss for one batch: (loss, metrics, aux), aux holding
-  the V-trace targets `vs` and the task ids for the PopArt update.
+class LossForward(NamedTuple):
+  """The forward half of `loss_fn`, up to its V-trace call."""
+  outputs: Any            # the agent's forward: (AgentOutput, carry[, Q])
+  inputs: VTraceInputs    # aligned on the learner's (unnormalized) values
+  vtrace_src: VTraceInputs  # what V-trace runs on (IMPACT: the target's)
+  task_ids: Any
+  use_impact: bool
+  denominator: Any        # the mean-reduced terms' T*B under a mesh
 
-  With `mesh` the batch is this rank's shard and so are the loss and
-  metrics; its columns are the shard of the global batch over
-  `vtrace_axis` (an axis of the mesh or a tuple of them), and the
-  mean-reduced terms divide by the global T*B. `params` ({name:
-  tensor}) replace the agent's parameters for this call
-  (torch.func.functional_call), and `tp` (a models.TensorParallel) runs
-  the layers whose parameters are blocks as blocks. `popart_state`,
-  `target_params` and `target_popart` are the TrainState's."""
+
+def loss_forward(agent, batch: ActorOutput, config: Config, mesh=None,
+                 params=None, tp=None, popart_state=None,
+                 target_params=None, target_popart=None) -> LossForward:
+  """`loss_fn`'s forward: the agent over the batch (and IMPACT's target
+  network, without autograd) and the aligned V-trace inputs."""
   args = (batch.agent_outputs.action, batch.env_outputs, batch.agent_state)
   task_ids = (None if batch.level_name is None
               else torch.as_tensor(batch.level_name).long())
@@ -183,33 +185,51 @@ def loss_fn(agent, batch: ActorOutput, config: Config, mesh=None,
                                           task_ids))
     vtrace_src = align_batch(batch.env_outputs, batch.agent_outputs,
                              target_outputs, config)
-  vtrace_returns = vtrace.from_logits(
-      behaviour_policy_logits=vtrace_src.behaviour_logits,
-      target_policy_logits=vtrace_src.target_logits,
-      actions=vtrace_src.actions,
-      discounts=vtrace_src.discounts,
-      rewards=vtrace_src.rewards,
-      values=vtrace_src.values,
-      bootstrap_value=vtrace_src.bootstrap_value,
+  return LossForward(outputs, inputs, vtrace_src, task_ids, use_impact,
+                     denominator)
+
+
+def run_vtrace(src: VTraceInputs, config: Config, mesh=None,
+               vtrace_axis='data'):
+  """V-trace over `src`, in the form the config picks (the fused kernel
+  with use_pallas_vtrace; K1b on this rank's columns under a mesh)."""
+  return vtrace.from_logits(
+      behaviour_policy_logits=src.behaviour_logits,
+      target_policy_logits=src.target_logits,
+      actions=src.actions,
+      discounts=src.discounts,
+      rewards=src.rewards,
+      values=src.values,
+      bootstrap_value=src.bootstrap_value,
       use_associative_scan=config.use_associative_scan,
       use_pallas=config.use_pallas_vtrace, mesh=mesh, batch_axis=vtrace_axis,
       batch_size=config.batch_size if mesh is not None else None)
+
+
+def loss_from_vtrace(fwd: LossForward, vtrace_returns, batch: ActorOutput,
+                     config: Config, popart_state=None, entropy_cost=None):
+  """`loss_fn`'s second half: the losses from the forward and the
+  V-trace returns. `entropy_cost` (a float or a 0-d tensor: a population
+  member's) replaces config.entropy_cost."""
+  inputs, learner_outputs = fwd.inputs, fwd.outputs[0]
+  if entropy_cost is None:
+    entropy_cost = config.entropy_cost
   metrics = {}
-  if use_impact:
+  if fwd.use_impact:
     log_ratio = (vtrace.log_probs_from_logits_and_actions(
         inputs.target_logits, inputs.actions) -
         vtrace_returns.target_action_log_probs)
     pg_loss = losses_lib.compute_impact_surrogate_loss(
         log_ratio, vtrace_returns.pg_advantages, config.impact_epsilon)
     metrics['impact_clip_fraction'] = losses_lib.impact_clip_fraction(
-        log_ratio, config.impact_epsilon, denominator)
+        log_ratio, config.impact_epsilon, fwd.denominator)
   else:
     pg_loss = losses_lib.compute_policy_gradient_loss(
         inputs.target_logits, inputs.actions, vtrace_returns.pg_advantages)
   if popart_state is not None:
     # The normalized head regresses toward the normalized targets.
     norm_targets = popart_lib.normalize(popart_state, vtrace_returns.vs,
-                                        task_ids)
+                                        fwd.task_ids)
     baseline_loss = losses_lib.compute_baseline_loss(
         norm_targets.detach() - learner_outputs.baseline[:-1])
   else:
@@ -217,8 +237,8 @@ def loss_fn(agent, batch: ActorOutput, config: Config, mesh=None,
         vtrace_returns.vs - inputs.values)
   entropy_loss = losses_lib.compute_entropy_loss(inputs.target_logits)
   total_loss = (pg_loss + config.baseline_cost * baseline_loss +
-                config.entropy_cost * entropy_loss)
-  if use_pc:
+                entropy_cost * entropy_loss)
+  if config.pixel_control_cost > 0:
     # Pseudo-rewards from frame deltas; the action of transition t ->
     # t+1 is agent_outputs[t+1] (inputs.actions, the [1:] slice).
     frames = batch.env_outputs.observation[0]
@@ -227,8 +247,9 @@ def loss_fn(agent, batch: ActorOutput, config: Config, mesh=None,
     pc_rewards = unreal.pixel_control_rewards(
         frames, config.pixel_control_cell_size, integer_path=use_int)
     pc_loss = unreal.pixel_control_loss(
-        outputs[2], inputs.actions, pc_rewards, batch.env_outputs.done[1:],
-        discount=config.pixel_control_discount, denominator=denominator)
+        fwd.outputs[2], inputs.actions, pc_rewards,
+        batch.env_outputs.done[1:], discount=config.pixel_control_discount,
+        denominator=fwd.denominator)
     total_loss = total_loss + config.pixel_control_cost * pc_loss
     metrics['pixel_control_loss'] = pc_loss.detach()
   metrics.update({
@@ -237,8 +258,32 @@ def loss_fn(agent, batch: ActorOutput, config: Config, mesh=None,
       'baseline_loss': baseline_loss.detach(),
       'entropy_loss': entropy_loss.detach(),
   })
-  aux = {'vs': vtrace_returns.vs, 'task_ids': task_ids}
+  aux = {'vs': vtrace_returns.vs, 'task_ids': fwd.task_ids}
   return total_loss, metrics, aux
+
+
+def loss_fn(agent, batch: ActorOutput, config: Config, mesh=None,
+            params=None, tp=None, vtrace_axis='data', popart_state=None,
+            target_params=None, target_popart=None):
+  """Total IMPALA loss for one batch: (loss, metrics, aux), aux holding
+  the V-trace targets `vs` and the task ids for the PopArt update:
+  `loss_forward`, `run_vtrace`, `loss_from_vtrace`.
+
+  With `mesh` the batch is this rank's shard and so are the loss and
+  metrics; its columns are the shard of the global batch over
+  `vtrace_axis` (an axis of the mesh or a tuple of them), and the
+  mean-reduced terms divide by the global T*B. `params` ({name:
+  tensor}) replace the agent's parameters for this call
+  (torch.func.functional_call), and `tp` (a models.TensorParallel) runs
+  the layers whose parameters are blocks as blocks. `popart_state`,
+  `target_params` and `target_popart` are the TrainState's."""
+  fwd = loss_forward(agent, batch, config, mesh=mesh, params=params, tp=tp,
+                     popart_state=popart_state, target_params=target_params,
+                     target_popart=target_popart)
+  vtrace_returns = run_vtrace(fwd.vtrace_src, config, mesh=mesh,
+                              vtrace_axis=vtrace_axis)
+  return loss_from_vtrace(fwd, vtrace_returns, batch, config,
+                          popart_state=popart_state)
 
 
 def make_schedule(config: Config):
@@ -343,21 +388,14 @@ def state_to_payload(state: TrainState) -> Dict[str, Any]:
   and, as in JAX's TrainState tree, 'popart' ({'mu', 'nu', 'sigma_min',
   'sigma_max'}), 'target_params' and 'target_popart' when the state has
   them (absent when None)."""
-  host = lambda tree: {k: v.detach().to('cpu', copy=True)  # noqa: E731
-                       for k, v in tree.items()}
-  opt = state.opt_state
-  payload = {'params': host(state.params),
-             'opt_state': {'count': opt.count.detach().to('cpu', copy=True),
-                           'nu': host(opt.nu),
-                           'trace': None if opt.trace is None
-                           else host(opt.trace)},
-             'update_steps': int(state.update_steps)}
-  for name in ('popart', 'target_popart'):
-    if getattr(state, name) is not None:
-      payload[name] = host(getattr(state, name)._asdict())
-  if state.target_params is not None:
-    payload['target_params'] = host(state.target_params)
-  return payload
+  def host(tree):
+    if isinstance(tree, torch.Tensor):
+      return tree.detach().to('cpu', copy=True)
+    if isinstance(tree, dict):
+      return {k: host(v) for k, v in tree.items()}
+    return tree
+
+  return host(state_tree(state))
 
 
 @torch.no_grad()
@@ -499,6 +537,12 @@ def apply_gradients(state: TrainState, grads, metrics, config: Config,
   return new_state, metrics
 
 
+def _member_schedule(unit_schedule, learning_rate):
+  """A population member's schedule: its learning rate (a 0-d tensor)
+  times the unit-rate schedule's decay."""
+  return lambda count: learning_rate * unit_schedule(count)
+
+
 def make_train_step_fn(agent, config: Config, mesh=None):
   """The train step: (TrainState, batch) -> (TrainState, metrics).
 
@@ -531,6 +575,84 @@ def make_train_step_fn(agent, config: Config, mesh=None):
                              moments=moments)
 
   return train_step
+
+
+def _split_columns(returns, sizes):
+  """A V-trace result over stacked columns, back to one per member."""
+  parts = [torch.split(x, sizes, dim=1) for x in returns]
+  return [type(returns)(*(p[k] for p in parts)) for k in range(len(sizes))]
+
+
+def make_vectorized_train_step_fn(agents, config: Config):
+  """One train step of a population's members in lockstep (JAX vmaps its
+  traced-hypers step over a member axis): (states, batches, hypers) ->
+  (states, metrics list), hypers {'learning_rate', 'entropy_cost'} of
+  [P] float32 tensors.
+
+  Every member's forward runs first; then V-trace runs once over the
+  members' columns stacked to [T, P*B] (one launch of the fused kernel:
+  each column is its own recursion, so this is each member's V-trace);
+  then each member's losses, one backward over their sum (the members'
+  parameters are disjoint, so each gets its own gradient), and each
+  member's RMSProp at its own rate. A member whose loss or gradient is
+  not finite skips its own update alone. Member k's result is that of
+  `make_train_step_fn(agents[k], config_k)` on its state and batch,
+  config_k holding member k's hypers (the step a serial population
+  member runs)."""
+  unit = make_schedule(dataclasses.replace(config, learning_rate=1.0))
+
+  def train_step(states, batches, hypers):
+    fwds = [loss_forward(agent, batch, config, popart_state=state.popart,
+                         target_params=state.target_params,
+                         target_popart=state.target_popart)
+            for agent, state, batch in zip(agents, states, batches)]
+    srcs = [f.vtrace_src for f in fwds]
+    stacked = VTraceInputs(*(
+        torch.cat([getattr(s, name) for s in srcs],
+                  dim=0 if name == 'bootstrap_value' else 1)
+        for name in VTraceInputs._fields))
+    returns = _split_columns(run_vtrace(stacked, config),
+                             [s.actions.shape[1] for s in srcs])
+    totals, metrics, auxes = [], [], []
+    for k, (fwd, state, batch) in enumerate(zip(fwds, states, batches)):
+      total, m, aux = loss_from_vtrace(
+          fwd, returns[k], batch, config, popart_state=state.popart,
+          entropy_cost=hypers['entropy_cost'][k])
+      totals.append(total)
+      metrics.append(m)
+      auxes.append(aux)
+    flat = [p for state in states for p in state.params.values()]
+    flat_grads = iter(torch.autograd.grad(sum(totals), flat))
+    out_states, out_metrics = [], []
+    with torch.no_grad():
+      for k, state in enumerate(states):
+        grads = {name: next(flat_grads) for name in state.params}
+        new_state, m = apply_gradients(
+            state, grads, metrics[k], config,
+            _member_schedule(unit, hypers['learning_rate'][k]),
+            moments=popart_moments(state, auxes[k]))
+        out_states.append(new_state)
+        out_metrics.append(m)
+    return out_states, out_metrics
+
+  return train_step
+
+
+def state_tree(state: TrainState) -> Dict[str, Any]:
+  """The TrainState as `state_to_payload`'s dicts, of its own tensors (no
+  copy): what `load_state_` copies from, on device."""
+  opt = state.opt_state
+  tree = {'params': dict(state.params),
+          'opt_state': {'count': opt.count, 'nu': dict(opt.nu),
+                        'trace': None if opt.trace is None
+                        else dict(opt.trace)},
+          'update_steps': int(state.update_steps)}
+  for name in ('popart', 'target_popart'):
+    if getattr(state, name) is not None:
+      tree[name] = getattr(state, name)._asdict()
+  if state.target_params is not None:
+    tree['target_params'] = dict(state.target_params)
+  return tree
 
 
 def pinned_empty(shape, dtype) -> np.ndarray:

@@ -1,4 +1,5 @@
-"""Visual torsos: the IMPALA deep ResNet and the paper's shallow CNN.
+"""Visual torsos: the IMPALA deep ResNet, its `deep_fast` variant and the
+paper's shallow CNN.
 
 The port of scalable_agent_tpu/models/torsos.py. The public layout stays
 the reference's: uint8 frames [N, H, W, C] in, features [N, 256] out. Inside,
@@ -9,6 +10,10 @@ to match Flax exactly:
   (0, 1) at an even size, (1, 1) at an odd one. `max_pool2d(padding=1)`
   would pad (1, 1) always, so the pads are computed from the shape.
 - The 3x3 stride-1 SAME conv pads (1, 1): symmetric, so `padding=1`.
+  `deep_fast`'s 3x3 stride-2 SAME conv pads like the pool, the smaller
+  half first ((0, 1) at an even size, (1, 1) at an odd one), where
+  `padding=1` would shift every output by a pixel; the zero pads are
+  computed from the shape.
 - Flax flattens NHWC before the Dense layer, so the port permutes back to
   NHWC before its flatten; converted Dense weights then need no row
   permutation.
@@ -183,17 +188,32 @@ class ResidualBlock(nn.Module):
     return x + y
 
 
+def conv_same_stride2(conv, x, tp=None):
+  """Flax `nn.Conv(..., (3, 3), strides=(2, 2), padding='SAME')` on an
+  NCHW tensor, `conv` built with padding 0: zero pads from the shape."""
+  top, bottom = same_pads(x.shape[2], 3, 2)
+  left, right = same_pads(x.shape[3], 3, 2)
+  return conv(F.pad(x, (left, right, top, bottom)), tp)
+
+
 class _Section(nn.Module):
+  """Conv3x3 -> 3x3/2 max-pool -> residual blocks; with `fast`
+  (deep_fast) one stride-2 conv3x3 in place of the conv and the pool."""
 
   def __init__(self, in_channels: int, channels: int, num_blocks: int,
-               dtype: torch.dtype = torch.float32):
+               dtype: torch.dtype = torch.float32, fast: bool = False):
     super().__init__()
-    self.conv = Conv(in_channels, channels, 3, padding=1, compute_dtype=dtype)
+    self.fast = fast
+    self.conv = Conv(in_channels, channels, 3, stride=2 if fast else 1,
+                     padding=0 if fast else 1, compute_dtype=dtype)
     self.blocks = nn.ModuleList(
         ResidualBlock(channels, dtype) for _ in range(num_blocks))
 
   def forward(self, x, tp=None):
-    x = max_pool_same(self.conv(x, tp))
+    if self.fast:
+      x = conv_same_stride2(self.conv, x, tp)
+    else:
+      x = max_pool_same(self.conv(x, tp))
     for block in self.blocks:
       x = block(x, tp)
     return x
@@ -202,6 +222,8 @@ class _Section(nn.Module):
 class DeepResNetTorso(nn.Module):
   """IMPALA deep torso: per section Conv3x3 -> 3x3/2 max-pool -> residual
   blocks; then relu -> flatten -> Linear(256) -> relu."""
+
+  FAST = False
 
   def __init__(self, frame_shape: Tuple[int, int, int],
                sections: Sequence[Tuple[int, int]] = ((16, 2), (32, 2),
@@ -213,7 +235,7 @@ class DeepResNetTorso(nn.Module):
     self.sections = nn.ModuleList()
     for channels, num_blocks in sections:
       self.sections.append(_Section(in_channels, channels, num_blocks,
-                                    dtype))
+                                    dtype, fast=self.FAST))
       in_channels = channels
       height, width = -(-height // 2), -(-width // 2)
     self.linear = Dense(height * width * in_channels, output_size,
@@ -225,6 +247,16 @@ class DeepResNetTorso(nn.Module):
       x = section(x, tp)
     x = _flatten_nhwc(F.relu(x))
     return F.relu(self.linear(x, tp))
+
+
+class DeepFastTorso(DeepResNetTorso):
+  """`deep_fast`: the deep ResNet with each section's conv3x3 + 3x3/2
+  max-pool replaced by one stride-2 conv3x3. The same parameters as
+  `deep` (names and shapes), so its converted weights, sharding rules
+  and blocked TP form are deep's; not the same function (a smaller
+  receptive field per section and no max)."""
+
+  FAST = True
 
 
 class ShallowTorso(nn.Module):
@@ -255,5 +287,6 @@ class ShallowTorso(nn.Module):
 
 TORSOS = {
     'deep': DeepResNetTorso,
+    'deep_fast': DeepFastTorso,
     'shallow': ShallowTorso,
 }

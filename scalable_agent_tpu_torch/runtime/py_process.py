@@ -11,6 +11,9 @@ blocking calls over a pipe:
 - Classes declare the dtypes and shapes of their replies with
   `_tensor_specs(method_name, kwargs, constructor_kwargs)`; the parent
   checks each reply against them (`SpecMismatchError`).
+- A class may declare `_process_setup()`, which the child runs before
+  the constructor: process-wide settings for a process that hosts only
+  this object (the on-device cores' host envs run torch on one thread).
 - An exception raised in the constructor or a method is sent back with
   its traceback and raised at the call site (`RemoteError`); the worker
   keeps serving after a method error.
@@ -77,8 +80,12 @@ _CLOSE = '__process_close__'
 
 
 def _worker(conn, type_, constructor_kwargs):
-  """Worker loop: construct, then serve (method, args, kwargs) requests."""
+  """Worker loop: set up, construct, then serve (method, args, kwargs)
+  requests."""
   try:
+    setup = getattr(type_, '_process_setup', None)
+    if setup is not None:
+      setup()
     obj = type_(**constructor_kwargs)
   except Exception as e:  # reported on the first proxy call
     conn.send(('exception', _serialize_error(e)))

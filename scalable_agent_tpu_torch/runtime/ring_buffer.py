@@ -609,6 +609,14 @@ class BatchPrefetcher:
         self._closed = True
         self._ready.notify_all()
 
+  def ready(self) -> bool:
+    """Whether a `get()` now would not block: a batch is staged, or the
+    prefetcher is closed or failed (get() then raises at once). A probe:
+    it consumes nothing and counts in no wait statistic (the hybrid
+    filler's yield check)."""
+    with self._lock:
+      return bool(self._out) or self._closed
+
   def get(self, timeout: Optional[float] = None):
     """The next staged batch (a batch is served replay_k times in a
     row); raises the staging thread's error, Closed once closed and

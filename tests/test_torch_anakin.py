@@ -265,7 +265,31 @@ def test_entry_points_raise_without_cuda(tmp_path):
 
 
 def test_unported_env_cores_raise():
-  with pytest.raises(NotImplementedError, match='ROADMAP'):
-    anakin.make_env_core(Config(**_anakin_kw(env_backend='cue_memory')))
+  """A backend with no on-device core raises; cue_memory, refused before
+  its slice, builds (at its fixed 3 actions) and steps."""
+  core = anakin.make_env_core(Config(**_anakin_kw(env_backend='cue_memory')))
+  assert isinstance(core, anakin.CueMemoryCore) and core.num_actions == 3
+  state, out = core.init(torch.Generator().manual_seed(0), 4)
+  state, out = core.step(state, torch.zeros(4, dtype=torch.int64))
+  assert out.reward.tolist() == [2.0] * 4 and not out.done.any()
+  with pytest.raises(ValueError, match='3-action'):
+    anakin.make_env_core(Config(**_anakin_kw(env_backend='cue_memory',
+                                             num_actions=9)))
   with pytest.raises(ValueError, match='on-device env core'):
     anakin.make_env_core(Config(**_anakin_kw(env_backend='dmlab')))
+
+
+@pytest.mark.parametrize('backend, extra', [
+    ('cue_memory', dict(episode_length=2)), ('gridworld', {}),
+    ('procgen', dict(curriculum='td'))])
+def test_the_other_cores_train(backend, extra):
+  """Three fused steps of each other core through anakin.run: finite
+  losses, and on procgen the curriculum's metrics."""
+  carry, history, _ = anakin.run(
+      Config(**_anakin_kw(env_backend=backend, **extra)), 3, device='cpu')
+  assert carry.train_state.update_steps == 3
+  assert all(np.isfinite(h['total_loss']) for h in history)
+  curriculum = {k for k in history[-1] if k.startswith('curriculum_')}
+  assert curriculum == ({'curriculum_entropy', 'curriculum_score_mean',
+                         'curriculum_score_max', 'curriculum_levels_visited'}
+                        if backend == 'procgen' else set())

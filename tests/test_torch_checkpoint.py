@@ -201,6 +201,28 @@ def test_structure_mismatch_names_the_flag(tmp_path):
   assert all(torch.equal(v, before[k]) for k, v in deep.params.items())
 
 
+@pytest.mark.parametrize('saved,target', [('deep_fast', 'deep'),
+                                           ('deep', 'deep_fast')])
+def test_a_torso_mismatch_of_one_tree_names_the_flag(saved, target,
+                                                     tmp_path):
+  """deep and deep_fast share a parameter tree, so the payload carries
+  the torso: a step saved under one refuses to restore under the other
+  (as JAX's differently named trees do), and restores under its own."""
+  _, _, state = _state(0, torso=saved)
+  Checkpointer(str(tmp_path), torso=saved).save(state, step=1, force=True)
+  _, _, other = _state(1, torso=target)
+  before = {k: v.clone() for k, v in other.params.items()}
+  with pytest.raises(ckpt_lib.CheckpointStructureError,
+                     match='--torso') as exc_info:
+    Checkpointer(str(tmp_path), torso=target).restore_latest(other)
+  assert f"torso {saved!r}" in str(exc_info.value)
+  assert all(torch.equal(v, before[k]) for k, v in other.params.items())
+  _, _, same = _state(1, torso=saved)
+  restored = Checkpointer(str(tmp_path), torso=saved).restore_latest(same)
+  assert all(torch.equal(v, state.params[k])
+             for k, v in restored.params.items())
+
+
 def test_wrap_error_sniffs_structure_vs_corruption():
   structural = [
       ValueError('User-provided restore item and on-disk value '

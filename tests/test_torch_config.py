@@ -24,8 +24,10 @@ def test_every_port_field_has_the_jax_default():
   # adds tp_compute, sharding_rules, sdc_check and sdc_allgather; the
   # learner extensions popart_beta, the five pixel_control_* knobs,
   # impact_epsilon, target_update_interval, the three replay_* fields
-  # and max_unroll_staleness.
-  assert len(port) == 90
+  # and max_unroll_staleness; the Anakin runtime's rest (A6) the four
+  # filler fields, the four curriculum_* knobs, procgen_num_levels,
+  # procgen_wall_density and the six pbt_* fields.
+  assert len(port) == 106
 
 
 def test_the_checkpoint_and_health_fields_reach_the_cli():

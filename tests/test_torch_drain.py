@@ -77,9 +77,13 @@ def _frame_steps(logdir):
           if e.get('tag') == 'env_frames_per_sec']
 
 
-@pytest.mark.parametrize('runtime', ['fleet', 'anakin'])
+@pytest.mark.parametrize('runtime', ['fleet', 'anakin', 'fleet_filler'])
 def test_drain_resume_parity_vs_uninterrupted(runtime, tmp_path):
+  filler = runtime == 'fleet_filler'
+  runtime = 'fleet' if filler else runtime
   kw = dict(runtime=runtime, batch_size=2 if runtime == 'fleet' else 4)
+  if filler:
+    kw.update(anakin_filler=True, surrogate='impact')
   budget = TOTAL_STEPS * Config(**kw).batch_size * 5
   plain = _config(tmp_path / 'plain', total_environment_frames=budget, **kw)
   run_a = driver.train(plain, device='cpu', stall_timeout_secs=60)
@@ -97,7 +101,9 @@ def test_drain_resume_parity_vs_uninterrupted(runtime, tmp_path):
   ckpt = Checkpointer(str(tmp_path / 'drained' / 'checkpoints'))
   assert ckpt.last_good_step() == steps_b1
   if runtime == 'fleet':
-    assert 3 <= steps_b1 <= TOTAL_STEPS  # drained at or after the fault
+    # Drained at or after the fault's event 3: a loop iteration, which
+    # with the filler may be a filler step, not a learner step.
+    assert (1 if filler else 3) <= steps_b1 <= TOTAL_STEPS
     manifest = driver.read_resume_manifest(drained.logdir)
     assert manifest['update_steps'] == steps_b1
     assert manifest['frames'] == steps_b1 * drained.frames_per_step
@@ -107,6 +113,15 @@ def test_drain_resume_parity_vs_uninterrupted(runtime, tmp_path):
     assert manifest['drain_source'] == 'fault'
     assert manifest['health']['consecutive_bad'] == 0
     assert {'metrics', 'slo', 'controller', 'filler'} <= set(manifest)
+    if filler:
+      # The filler's ledger at the drain: its own updates and frames.
+      assert manifest['filler']['updates'] >= 1
+      assert manifest['filler']['frames'] == (
+          manifest['filler']['updates'] * manifest['filler']['batch_size'] *
+          manifest['filler']['unroll_length'])
+      assert manifest['filler']['backend'] == 'bandit'
+    else:
+      assert manifest['filler'] is None
     assert 'preempt_drain_start' in kinds
     complete = [e for e in incidents
                 if e['kind'] == 'preempt_drain_complete']

@@ -83,12 +83,31 @@ def test_make_env_spec_matches_jax(backend, num_actions):
       JaxConfig(**kw))
 
 
-@pytest.mark.parametrize('backend, item', [
-    ('dmlab', 'A7'), ('atari', 'A7'), ('gridworld', 'A6'),
-    ('procgen', 'A6')])
+@pytest.mark.parametrize('backend, item', [('dmlab', 'A7'), ('atari', 'A7')])
 def test_unported_backends_raise(backend, item):
   with pytest.raises(NotImplementedError, match=f'ROADMAP {item}'):
     factory.make_env_spec(Config(env_backend=backend), 'lvl', seed=1)
+
+
+@pytest.mark.parametrize('backend', ['gridworld', 'procgen'])
+def test_a6_backends_build_and_step(backend):
+  """The gridworld and procgen host envs (envs/jittable.py), refused
+  before their slice: the factory builds them as JAX's does, in a
+  process too, and they step."""
+  kw = dict(env_backend=backend, height=16, width=20, episode_length=6,
+            use_instruction=False)
+  spec = factory.make_env_spec(Config(**kw), 'lvl', seed=1)
+  ref = jax_factory.make_env_spec(JaxConfig(**kw), 'lvl', seed=1)
+  assert spec.constructor_kwargs == ref.constructor_kwargs
+  env, process = factory.build_environment(spec, use_py_process=True)
+  try:
+    frame, _ = env.initial()
+    assert frame.shape == (16, 20, 3) and frame.dtype == np.uint8
+    for action in range(spec.num_actions):
+      reward, done, (frame, _) = env.step(action)
+      assert reward in (0.0, 1.0) and frame.shape == (16, 20, 3)
+  finally:
+    process.close()
 
 
 @pytest.mark.parametrize('suite', ['dmlab30', 'atari57'])

@@ -25,7 +25,7 @@ from scalable_agent_tpu.models import agent as jax_agent
 from scalable_agent_tpu.models import init_params as jax_init_params
 from scalable_agent_tpu_torch import convert
 from scalable_agent_tpu_torch import learner
-from scalable_agent_tpu_torch.config import Config
+from scalable_agent_tpu_torch.config import Config, validate_fleet
 from scalable_agent_tpu_torch.models import ImpalaAgent
 from scalable_agent_tpu_torch.structs import (ActorOutput, AgentOutput,
                                               StepOutput, StepOutputInfo)
@@ -262,9 +262,20 @@ def test_watchdog_keeps_old_state_on_a_nan_batch():
 
 
 def test_unported_settings_raise():
+  # Mixed fleets are not ported yet (ROADMAP A7.2).
+  with pytest.raises(NotImplementedError, match='fleet_tasks'):
+    validate_fleet(Config(fleet_tasks='bandit,gridworld'))
+  # The curriculum and deep_fast are ported: the config takes them and a
+  # train step runs with them.
   for kw in ({'curriculum': 'regret'}, {'torso': 'deep_fast'}):
-    with pytest.raises(NotImplementedError, match='not in the PyTorch'):
-      Config(**kw)
+    config = Config(**dict(kw, height=H, width=W, batch_size=B,
+                           unroll_length=T, use_instruction=False))
+    agent = ImpalaAgent(A, (H, W, 3), torso=config.torso)
+    state = learner.make_train_state(agent, config)
+    state, metrics = learner.make_train_step_fn(agent, config)(
+        state, _torch_batch(_fixed_batch(seed=1)))
+    assert np.isfinite(float(metrics['total_loss'])) and (
+        state.update_steps == 1)
   # The learner extensions are ported: the config takes them.
   for kw in ({'use_popart': True}, {'pixel_control_cost': 0.1},
              {'surrogate': 'impact'}, {'replay_k': 2},

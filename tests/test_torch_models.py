@@ -63,6 +63,52 @@ def test_torso_matches_flax(torso, size):
                              atol=1e-6)
 
 
+@pytest.mark.parametrize('size', [(72, 96), (21, 27)], ids=str)
+def test_deep_fast_torso_matches_flax(size):
+  """deep_fast's stride-2 SAME convs: (0, 1) padding at 72x96 (every
+  stage even), (1, 1) at 21x27; N=2, atol 1e-5 against Flax's
+  DeepFastTorso on the converted weights."""
+  height, width = size
+  _, params = _jax_agent('deep_fast', height, width, seed=4)
+  assert 'DeepFastTorso_0' in params['params']
+  agent = _port_agent('deep_fast', height, width, params)
+  frames = np.random.RandomState(2).randint(
+      0, 256, size=(2, height, width, 3)).astype(np.uint8)
+  ref = jax_torsos.DeepFastTorso().apply(
+      {'params': params['params']['DeepFastTorso_0']}, jnp.asarray(frames))
+  with torch.no_grad():
+    out = agent.torso(torch.from_numpy(frames))
+  np.testing.assert_allclose(out.numpy(), np.asarray(ref), atol=1e-5)
+  assert torsos.same_pads(72, 3, 2) == (0, 1)
+  assert torsos.same_pads(21, 3, 2) == (1, 1)
+
+
+def test_deep_fast_has_the_deep_param_tree():
+  """deep_fast's parameters are deep's, by name and shape, in both
+  packages, so params_from_jax, the sharding rules and the blocked TP
+  layers apply unchanged: the megatron registry gives each of its leaves
+  JAX's spec. (The port's manifest names the torso DeepResNetTorso_0 for
+  both: a port parameter name does not say which of the two it is.)"""
+  from scalable_agent_tpu.parallel import sharding as jax_sharding
+  from scalable_agent_tpu_torch.parallel import sharding
+  _, fast = _jax_agent('deep_fast', 24, 32)
+  _, deep = _jax_agent('deep', 24, 32)
+  shapes = lambda tree: jax.tree_util.tree_map(np.shape, tree)  # noqa: E731
+  assert shapes(fast['params']['DeepFastTorso_0']) == shapes(
+      deep['params']['DeepResNetTorso_0'])
+  port_fast = _port_agent('deep_fast', 24, 32, fast)
+  port_deep = ImpalaAgent(NUM_ACTIONS, (24, 32, 3), torso='deep')
+  assert {k: v.shape for k, v in port_fast.named_parameters()} == {
+      k: v.shape for k, v in port_deep.named_parameters()}
+  rules = jax_sharding.RULE_SETS['megatron']
+  want = jax_sharding.ShardingRegistry(rules, 'megatron').describe(fast)
+  got = sharding.ShardingRegistry(sharding.RULE_SETS['megatron'],
+                                  'megatron').describe(
+                                      dict(port_fast.named_parameters()))
+  assert got == {k.replace('DeepFastTorso_0', 'DeepResNetTorso_0'): v
+                 for k, v in want.items()}
+
+
 def test_same_pool_pads_like_xla():
   assert torsos.same_pads(72, 3, 2) == (0, 1)
   assert torsos.same_pads(9, 3, 2) == (1, 1)
@@ -184,3 +230,23 @@ def test_step_fn_samples_with_a_generator():
   # Sampled, not argmax: near-uniform logits spread the actions.
   assert len(torch.unique(out1.action)) > 3
   assert not out1.policy_logits.requires_grad
+
+
+@pytest.mark.parametrize('runtime, dtype', [('anakin', 'float32'),
+                                            ('fleet', 'bfloat16')])
+def test_deep_fast_trains_in_both_runtimes(tmp_path, runtime, dtype):
+  """torso=deep_fast through driver.train: the Anakin runtime in float32
+  and the fleet in bf16, 2 steps each, finite losses."""
+  from scalable_agent_tpu_torch import driver
+  from scalable_agent_tpu_torch.config import Config
+  config = Config(runtime=runtime, env_backend='bandit', torso='deep_fast',
+                  compute_dtype=dtype, height=24, width=32, batch_size=2,
+                  unroll_length=3, num_action_repeats=1, num_actors=2,
+                  use_py_process=False, use_instruction=False,
+                  total_environment_frames=10**6, summary_secs=0,
+                  logdir=str(tmp_path))
+  run = driver.train(config, max_steps=2, device='cpu',
+                     stall_timeout_secs=60)
+  assert run.state.update_steps == 2
+  assert isinstance(run.agent.torso, torsos.DeepFastTorso)
+  assert all(torch.isfinite(p).all() for p in run.state.params.values())

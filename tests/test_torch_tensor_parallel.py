@@ -38,7 +38,7 @@ from scalable_agent_tpu_torch import checkpoint as checkpoint_lib
 from scalable_agent_tpu_torch import convert
 from scalable_agent_tpu_torch import learner
 from scalable_agent_tpu_torch.config import Config
-from scalable_agent_tpu_torch.models import ImpalaAgent
+from scalable_agent_tpu_torch.models import ImpalaAgent, init_params
 from scalable_agent_tpu_torch.parallel import distributed
 from scalable_agent_tpu_torch.parallel import mesh as mesh_lib
 from scalable_agent_tpu_torch.parallel import sharding
@@ -421,3 +421,52 @@ def test_restore_resharded_strict_refusal_and_escape(tmp_path):
       {'data': 1, 'model': 2})
   assert layout.cuts['torso.linear.weight'] == sharding.Cut(0, 1, 2)
   assert layout.cuts['torso.linear.bias'] is None
+
+
+def _deep_fast_rank(rank, world, port, outdir, weights, batch):
+  """One rank of a {data 1, model 2} group training the deep_fast agent
+  in `gathered` compute."""
+  torch.set_num_threads(1)
+  config = Config(**dict(_KW, torso='deep_fast'), model_parallelism=2,
+                  tp_compute='gathered',
+                  coordinator_address=f'localhost:{port}',
+                  num_processes=world, process_id=rank)
+  device = distributed.maybe_initialize(config, backend='gloo', device='cpu',
+                                        timeout_secs=GROUP_TIMEOUT_SECS)
+  mesh = mesh_lib.make_mesh(device, model_parallelism=2)
+  agent = ImpalaAgent(A, (H, W, 3), torso='deep_fast')
+  agent.load_state_dict({k: torch.from_numpy(v) for k, v in weights.items()},
+                        strict=False)  # core.bias_ih: a zero buffer
+  host_batch = map_structure(torch.from_numpy, batch)
+  state = train_parallel.make_sharded_train_state(agent, config, mesh)
+  step, place = train_parallel.make_sharded_train_step(agent, config, mesh,
+                                                       host_batch)
+  state, metrics = step(state, place(host_batch))
+  full = train_parallel.gather_state(state, step.layout)
+  torch.save({'loss': float(metrics['total_loss']),
+              'cut': sum(c is not None for c in step.layout.cuts.values()),
+              'params': _numpy(full.params)},
+             os.path.join(outdir, f'rank{rank}.pt'))
+  distributed.shutdown()
+
+
+def test_deep_fast_gathered_tp_step_matches_one_rank(tmp_path):
+  """deep_fast's parameters are deep's, so the megatron rules cut them as
+  deep's and its blocked layers run under TP: a gathered step over 2
+  ranks against the one-rank step (the bar of the deep tests above)."""
+  agent = ImpalaAgent(A, (H, W, 3), torso='deep_fast')
+  init_params(agent, torch.Generator().manual_seed(3))
+  weights = _numpy(dict(agent.named_parameters()))
+  batch = _fixed_batch(seed=1)
+  config = Config(**dict(_KW, torso='deep_fast'))
+  state, m1 = learner.make_train_step_fn(agent, config)(
+      learner.make_train_state(agent, config),
+      map_structure(torch.from_numpy, batch))
+  _spawn(_deep_fast_rank, 2, str(tmp_path), weights, batch)
+  for r in range(2):
+    got = torch.load(tmp_path / f'rank{r}.pt', weights_only=False)
+    assert got['cut'] > 0
+    np.testing.assert_allclose(got['loss'], float(m1['total_loss']),
+                               rtol=1e-5)
+    _close(got['params'], _numpy(state.params), 1e-5, 1e-7,
+           f'deep_fast rank {r}')
