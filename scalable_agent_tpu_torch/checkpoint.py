@@ -51,8 +51,12 @@ and the table's digest), which the driver's elastic restore gate reads
 (a drift warning). `restore_resharded` is the strict cross-topology
 restore.
 
-Not here yet: `restore_latest_params` for evaluation (A7.1) and the
-telemetry gauges (A7.4).
+Evaluation restores the params and the step only
+(`restore_latest_params`): the step's file is memory-mapped
+(`torch.load(mmap=True)`), so the RMSProp moments, PopArt statistics and
+target network it also holds are never read into memory, and only the
+params' tensors are copied to the device. Not here yet: the telemetry
+gauges (A7.4).
 """
 
 import json
@@ -662,17 +666,21 @@ class Checkpointer:
     self.verify_step_digests(step)
     return learner_lib.load_state_(target, self._load(step, target))
 
-  def _restore_ladder(self, steps: List[int], target: TrainState
-                      ) -> Tuple[TrainState, int]:
-    """Restore down the given steps (newest first): a step whose digests
-    fail or whose payload does not load is logged and the next is tried;
+  def _restore_ladder(self, steps: List[int], target: TrainState,
+                      restore_one=None) -> Tuple[TrainState, int]:
+    """Restore down the given steps (newest first) with
+    `restore_one(step)` (default: the whole state into `target`): a step
+    whose digests fail or whose payload does not load is logged and the
+    next is tried;
     a structure mismatch raises at once with the flag guidance; when
     every step fails, raises with the corruption guidance for the
     first failure."""
+    if restore_one is None:
+      restore_one = lambda step: self._restore_one(step, target)  # noqa: E731
     last_err: Optional[Tuple[int, BaseException]] = None
     for tried, step in enumerate(steps):
       try:
-        restored = self._restore_one(step, target)
+        restored = restore_one(step)
       except Exception as e:
         if isinstance(e, CheckpointCorruption):
           self.digest_fallbacks += 1
@@ -730,6 +738,60 @@ class Checkpointer:
     if restored is not None:
       self.last_restore_secs = time.perf_counter() - t0
     return restored
+
+  @torch.no_grad()
+  def _restore_params_one(self, step: int, params: Dict[str, torch.Tensor]
+                          ) -> Tuple[Dict[str, torch.Tensor], int]:
+    """One step's params and update_steps into `params`' tensors. The
+    file is memory-mapped: of the payload, only 'params',
+    'update_steps' and 'torso' are read."""
+    self.verify_step_digests(step)
+    path = os.path.join(self._directory, str(int(step)), ITEM, PAYLOAD)
+    try:
+      payload = torch.load(path, map_location='cpu', weights_only=True,
+                           mmap=True)
+      saved = payload['params']
+      saved_specs = {f'params/{k}': (tuple(v.shape), v.dtype)
+                     for k, v in saved.items()}
+      update_steps = int(payload['update_steps'])
+    except Exception as e:
+      raise _UnreadableStep(
+          f'checkpoint step {step}: its payload could not be loaded '
+          f'({type(e).__name__}); the file is damaged or partially '
+          'written') from e
+    self._check_torso(payload.get('torso'))
+    if self._layout is not None:
+      saved = {k: self._layout.local(k, v) if k in self._layout.cuts
+               else v for k, v in saved.items()}
+      saved_specs = {f'params/{k}': (tuple(v.shape), v.dtype)
+                     for k, v in saved.items()}
+    diff = _structure_diff({f'params/{k}': (tuple(v.shape), v.dtype)
+                            for k, v in params.items()}, saved_specs)
+    if diff:
+      raise ValueError(
+          f'the restore target and the saved tree structures do not '
+          f'match ({len(diff)} difference(s); first: {"; ".join(diff[:3])})')
+    for k, v in params.items():
+      v.copy_(saved[k])
+    return params, update_steps
+
+  def restore_latest_params(self, params: Dict[str, torch.Tensor]
+                            ) -> Optional[Tuple[Dict[str, torch.Tensor], int]]:
+    """Restore only the params and the step counter of the newest
+    restorable step, through the same ladder as `restore_latest` (a
+    damaged newest step falls back to the previous one): (params,
+    update_steps), the params copied into `params`' own tensors on their
+    device, or None when there is no step. The optimizer moments are
+    never read: evaluation needs the policy weights only. Each process
+    restores on its own (no group broadcast)."""
+    t0 = time.perf_counter()
+    steps = sorted(self.all_steps(), reverse=True)
+    if not steps:
+      return None
+    (params, update_steps), _ = self._restore_ladder(
+        steps, None, lambda step: self._restore_params_one(step, params))
+    self.last_restore_secs = time.perf_counter() - t0
+    return params, update_steps
 
   def restore_last_good(self, target: TrainState) -> Optional[TrainState]:
     """The health ladder's rollback: the step LAST_GOOD names first,

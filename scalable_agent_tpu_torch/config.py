@@ -22,6 +22,7 @@ class Config:
   # Experiment / run control.
   logdir: str = '/tmp/agent'
   mode: str = 'train'                     # train | test | anakin
+  test_num_episodes: int = 10             # per level, --mode=test
 
   # Process group (parallel/distributed.py). 'host:port' of rank 0; empty
   # = no group, or one joined by the caller or by torch.distributed.run.
@@ -45,6 +46,9 @@ class Config:
   reward_clipping: str = 'abs_one'        # abs_one | soft_asymmetric | none
 
   # Environment.
+  dataset_path: str = ''                  # DMLab's datasetPath
+  level_cache_dir: str = ''               # DMLab compiled-map cache
+                                          # ('' = the adapter's default)
   level_name: str = 'explore_goal_locations_small'
   width: int = 96
   height: int = 72
@@ -57,6 +61,9 @@ class Config:
 
   env_backend: str = 'dmlab'
   num_actions: Optional[int] = None       # backend default when None
+  # Atari: per-frame probability that the previous executed action
+  # repeats (0.25 is Machado et al.'s evaluation protocol).
+  sticky_action_prob: float = 0.0
   episode_length: int = 100               # bandit episode length
   torso: str = 'deep'                     # deep | deep_fast | shallow
   # Tensor parallelism (parallel/sharding.py, train_parallel.py): the
@@ -155,18 +162,33 @@ class Config:
   inference_timeout_ms: int = 100
   # Merged batches dispatched but not completed at once.
   inference_pipeline_depth: int = 2
-  inference_state_cache: bool = False     # True: ROADMAP A7
-  inference_admission: str = 'block'      # block (shed | grow: A7)
+  # The device-resident state arena (runtime/inference.py): each actor
+  # owns a slot of [slots, hidden] carries on the device, and only its
+  # slot id rides each call. Slots 0 = auto: 2x the fleet, at least 8.
+  inference_state_cache: bool = False
+  inference_state_slots: int = 0
+  # Slot admission when the arena is full: block (park on a priority
+  # waitlist until a slot frees or the deadline passes), shed (the same,
+  # with the deadline's rejection counted as a shed), grow (double the
+  # arena).
+  inference_admission: str = 'block'      # block | shed | grow
+  inference_admission_timeout_secs: float = 10.0
   # Fleet health: consecutive respawns without a completed unroll before
-  # a slot is quarantined (0 = never); the probation cool-down of a
-  # quarantined slot, read by the elastic fleet's actuators (ROADMAP A7).
+  # a slot is quarantined (0 = never); the cool-down before
+  # set_target_size may rehabilitate a quarantined slot on probation.
   fleet_quarantine_after: int = 5
   fleet_probation_secs: float = 30.0
-  # Fields of paths the port does not have yet: validate_fleet raises
-  # when one leaves its default.
-  fleet_tasks: str = ''                   # mixed fleets: ROADMAP A7
-  publish_codec: str = 'bf16'             # int8: ROADMAP A7
-  serving_resident_versions: int = 1      # serving_*: ROADMAP A7
+  # Mixed fleets: 'suite:weight,...' (population.parse_fleet_tasks);
+  # actors are apportioned by weight, one PopArt slot per task.
+  fleet_tasks: str = ''
+  # The serving version table (runtime/inference.py): resident versions
+  # (LRU eviction of unpinned, non-live entries), an optional byte
+  # budget, the A/B and shadow shares of merged calls, int8-resident
+  # entries (publish_codec='int8', runtime/codec.py) and the warm
+  # forward per warmed bucket of a new parameter structure at publish
+  # (serving_aot). serving_replicas is routed serving (ROADMAP A7.3).
+  publish_codec: str = 'bf16'             # bf16 | f32 | int8
+  serving_resident_versions: int = 1
   serving_hbm_budget_mb: float = 0.0
   serving_ab_fraction: float = 0.0
   serving_shadow_fraction: float = 0.0
@@ -318,16 +340,13 @@ JITTABLE_BACKENDS = ('bandit', 'cue_memory', 'gridworld', 'procgen')
 
 _INFERENCE_ADMISSIONS = ('block', 'shed', 'grow')
 _STAGING_MODES = ('batch', 'unroll')
-_SERVING_DEFAULTS = dict(serving_resident_versions=1,
-                         serving_hbm_budget_mb=0.0, serving_ab_fraction=0.0,
-                         serving_shadow_fraction=0.0, serving_aot=False,
-                         serving_replicas='')
 
 
 def validate_fleet(config: Config) -> None:
   """The fleet runtime's knob group: the JAX package's hard checks on
   these fields (ValueError), and NotImplementedError, naming the ROADMAP
-  item, for a setting that picks a path the port does not have yet."""
+  item, for a setting that picks a path the port does not have yet
+  (routed serving, `serving_replicas`: A7.3)."""
   if config.num_actors < 0:
     raise ValueError(f'num_actors must be >= 0, got {config.num_actors}')
   for name in ('publish_params_every', 'queue_capacity_batches',
@@ -351,23 +370,42 @@ def validate_fleet(config: Config) -> None:
   if config.publish_codec not in ('bf16', 'f32', 'int8'):
     raise ValueError(f"publish_codec must be 'bf16', 'f32' or 'int8', "
                      f'got {config.publish_codec!r}')
-  later = []
-  if config.inference_state_cache:
-    later.append('inference_state_cache=True (ROADMAP A7)')
-  if config.inference_admission != 'block':
-    later.append(f'inference_admission={config.inference_admission!r} '
-                 '(ROADMAP A7)')
-  if config.publish_codec == 'int8':
-    later.append("publish_codec='int8' (ROADMAP A7)")
-  changed = sorted(k for k, v in _SERVING_DEFAULTS.items()
-                   if getattr(config, k) != v)
-  if changed:
-    later.append(f'{", ".join(changed)} (the serving plane: ROADMAP A7)')
-  if config.fleet_tasks:
-    later.append('fleet_tasks (mixed fleets: ROADMAP A7)')
-  if later:
+  if config.inference_state_slots < 0:
+    raise ValueError(f'inference_state_slots must be >= 0, got '
+                     f'{config.inference_state_slots}')
+  if config.inference_admission_timeout_secs < 0:
+    raise ValueError(f'inference_admission_timeout_secs must be >= 0, got '
+                     f'{config.inference_admission_timeout_secs}')
+  validate_serving(config)
+  if config.serving_replicas:
     raise NotImplementedError(
-        'not in the PyTorch port\'s fleet runtime yet: ' + '; '.join(later))
+        'serving_replicas (routed inference replicas, which need a '
+        'learner_address) is not in the PyTorch port yet (ROADMAP A7.3)')
+
+
+def validate_serving(config: Config) -> List[str]:
+  """The JAX package's `validate_serving`: the serving version table's
+  knob group. Raises ValueError on a hard error; returns the warnings."""
+  warnings = []
+  if config.serving_resident_versions < 1:
+    raise ValueError(f'serving_resident_versions must be >= 1, got '
+                     f'{config.serving_resident_versions}')
+  if config.serving_hbm_budget_mb < 0:
+    raise ValueError(f'serving_hbm_budget_mb must be >= 0, got '
+                     f'{config.serving_hbm_budget_mb}')
+  for name in ('serving_ab_fraction', 'serving_shadow_fraction'):
+    value = getattr(config, name)
+    if not 0.0 <= value <= 1.0:
+      raise ValueError(f'{name} must be in [0, 1], got {value}')
+  if (config.serving_resident_versions == 1
+      and (config.serving_ab_fraction > 0
+           or config.serving_shadow_fraction > 0)):
+    warnings.append(
+        'serving_ab_fraction/serving_shadow_fraction > 0 with '
+        'serving_resident_versions=1: there is never a non-live '
+        'resident candidate, so A/B and shadow traffic will not fire '
+        '— raise serving_resident_versions')
+  return warnings
 
 
 def validate_replay(config: Config) -> List[str]:
@@ -571,8 +609,7 @@ def validate_runtime(config: Config) -> List[str]:
 def validate_population(config: Config) -> List[str]:
   """The JAX package's `validate_population`: the curriculum, mixed
   fleets and PBT. Raises ValueError on a hard error; returns the
-  warnings. (Mixed fleets stay refused by validate_fleet, ROADMAP
-  A7.2.)"""
+  warnings."""
   warnings = []
   if config.curriculum not in ('uniform', 'regret', 'td'):
     raise ValueError(f'curriculum must be uniform|regret|td, got '

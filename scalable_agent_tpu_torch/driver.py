@@ -4,8 +4,8 @@ the entry points, the fleet runtime's training loop (`make_fleet`,
 `train`, with the hybrid filler) and the Anakin runtime's
 (`train_anakin`), each with checkpoint and resume, the health ladder and
 the preemption drain, and population-based training over Anakin members
-(`train_population`, serial or in lockstep). Evaluation is a later slice
-(ROADMAP A7.1).
+(`train_population`, serial or in lockstep), and evaluation
+(`evaluate`, every test level at once from the newest checkpoint).
 
 The reference's machinery maps as in the JAX driver:
 
@@ -21,6 +21,7 @@ The reference's machinery maps as in the JAX driver:
                                           fleet-owned processes
 """
 
+import collections
 import dataclasses
 import json
 import logging
@@ -45,14 +46,16 @@ from scalable_agent_tpu_torch.config import (COMPUTE_DTYPES, Config,
                                              validate_integrity,
                                              validate_population,
                                              validate_replay,
-                                             validate_runtime)
-from scalable_agent_tpu_torch.envs import factory
+                                             validate_runtime,
+                                             validate_serving)
+from scalable_agent_tpu_torch.envs import factory, suites
 from scalable_agent_tpu_torch.models import ImpalaAgent, init_params
 from scalable_agent_tpu_torch.parallel import distributed
 from scalable_agent_tpu_torch.parallel import mesh as mesh_lib
 from scalable_agent_tpu_torch.parallel import sharding
 from scalable_agent_tpu_torch.parallel import train_parallel
 from scalable_agent_tpu_torch.runtime import faults as faults_lib
+from scalable_agent_tpu_torch.runtime import inference as inference_lib
 from scalable_agent_tpu_torch.runtime import ring_buffer
 from scalable_agent_tpu_torch.runtime.actor import Actor, batch_unrolls
 from scalable_agent_tpu_torch.runtime.fleet import ActorFleet
@@ -194,34 +197,68 @@ def choose_mesh(config: Config, device):
 
 
 def make_fleet(config: Config, policy, buffer, levels: List[str],
-               initial_state_fn: Callable, seed_base: int = 0
-               ) -> ActorFleet:
-  """The env + actor + fleet construction: actor i plays
-  levels[i % len] with env seed `seed_base + i + 1`, its env in its own
-  process when config.use_py_process. Every (re)spawn builds a fresh env
-  and takes its carry from `initial_state_fn` (the server's
-  `initial_core_state`)."""
-  if config.fleet_tasks:
-    raise NotImplementedError('fleet_tasks (mixed fleets) is not in the '
-                              'PyTorch port yet (ROADMAP A7)')
+               initial_state_fn: Callable, seed_base: int = 0,
+               level_offset: int = 0, is_test: bool = False,
+               num_actors: Optional[int] = None,
+               tasks: Optional[List] = None) -> ActorFleet:
+  """The env + actor + fleet construction of train() and evaluate():
+  actor i plays levels[(level_offset + i) % len] with env seed
+  `seed_base + i + 1`, its env in its own process when
+  config.use_py_process. Every (re)spawn builds a fresh env and takes its
+  policy state from `initial_state_fn` (the server's
+  `initial_core_state`), admitted at PRIORITY_LIVE at a slot's first
+  spawn and PRIORITY_RESPAWN after.
+
+  Mixed fleets: `tasks` is population.parse_fleet_tasks's (name, weight)
+  list and `levels` its task names (train() passes both). Actor i's task
+  comes from the weighted largest-remainder plan
+  (population.plan_actor_assignment), its env spec is built for that
+  task's backend, and its level id is the task index (one PopArt slot and
+  one EpisodeStats curve per task). The task follows the slot, so a
+  respawned actor rejoins its task. (JAX's make_fleet infers a mixed
+  fleet from `levels` equalling config.fleet_tasks' names; the port takes
+  the plan explicitly.)"""
+  n = config.num_actors if num_actors is None else num_actors
+  spawns = collections.Counter()
+  task_plan = None
+  if tasks:
+    if [name for name, _ in tasks] != list(levels):
+      raise ValueError(f'make_fleet: levels {list(levels)} are not the '
+                       f'task names of {tasks}')
+    task_plan = population_lib.plan_actor_assignment(tasks, n)
 
   def make_actor(i):
-    spec = factory.make_env_spec(config, levels[i % len(levels)],
-                                 seed=seed_base + i + 1)
+    idx = level_offset + i
+    if task_plan is not None:
+      idx = task_plan[idx % len(task_plan)]
+    level = levels[idx % len(levels)]
+    spec = factory.make_env_spec(
+        config, level, seed=seed_base + i + 1, is_test=is_test,
+        backend=level if task_plan is not None else None)
     env, process = factory.build_environment(
         spec, use_py_process=config.use_py_process)
+    state = None
     try:
-      actor = Actor(env, policy, initial_state_fn(),
+      state = initial_state_fn(priority=(
+          inference_lib.PRIORITY_RESPAWN if spawns[i]
+          else inference_lib.PRIORITY_LIVE))
+      spawns[i] += 1
+      actor = Actor(env, policy, state,
                     unroll_length=config.unroll_length,
                     num_action_repeats=config.num_action_repeats,
-                    level_name_id=i % len(levels))
+                    level_name_id=idx % len(levels))
     except BaseException:
+      # A denied admission must not leak the env just built, nor a
+      # failed actor its slot.
+      if hasattr(state, 'release'):
+        state.release()
       (process or env).close()
       raise
     return env, process, actor
 
-  return ActorFleet(make_actor, buffer, config.num_actors,
-                    quarantine_after=config.fleet_quarantine_after)
+  return ActorFleet(make_actor, buffer, n,
+                    quarantine_after=config.fleet_quarantine_after,
+                    probation_secs=config.fleet_probation_secs)
 
 
 class TrainRun:
@@ -506,6 +543,16 @@ def train(config: Config, max_steps: Optional[int] = None, device='cuda',
   the server. With >= 2 data replicas the SDC sentinel (sdc_check) runs
   with the health ladder. Every collective runs on this lockstep path.
 
+  The serving plane: the server is built from the config (the state
+  arena with its admission policy, the version table, the int8 codec),
+  the summaries carry its admission and version counters, and the fleet's
+  health is checked after every learner step (respawns, and the slots a
+  `set_target_size` unparked). With fleet_tasks the task list replaces
+  the level list: one PopArt column and one episode curve per task, the
+  actors apportioned by make_fleet's plan, and tasks whose action widths
+  differ raise. On a suite (dmlab30, atari57) EpisodeStats writes its
+  training scores.
+
   The hybrid filler (anakin_filler, parallel/anakin.HybridFiller): when
   the prefetcher has no staged batch (its ready() probe), the loop runs
   one fused self-play step on the live train state instead of waiting,
@@ -540,10 +587,26 @@ def train(config: Config, max_steps: Optional[int] = None, device='cuda',
                      f'process count {world}')
   local_batch_size = config.batch_size // world
   levels = factory.level_names(config)
-  spec0 = factory.make_env_spec(config, levels[0], seed=1)
+  fleet_tasks = population_lib.parse_fleet_tasks(config.fleet_tasks)
+  if fleet_tasks:
+    # A mixed fleet: the task list replaces the level list (one PopArt
+    # slot and one EpisodeStats curve per task; make_fleet applies the
+    # weighted actor plan). One policy head serves every task, so the
+    # tasks' action widths must agree.
+    levels = [name for name, _ in fleet_tasks]
+    specs = [factory.make_env_spec(config, name, seed=1, backend=name)
+             for name in levels]
+    widths = sorted({spec.num_actions for spec in specs})
+    if len(widths) > 1:
+      raise ValueError(
+          f'fleet_tasks suites disagree on action width {widths}: one '
+          'shared policy head needs one width — set --num_actions')
+    spec0 = specs[0]
+  else:
+    spec0 = factory.make_env_spec(config, levels[0], seed=1)
   num_actions = spec0.num_actions
   # PopArt: one value column per training level (a suite's 30 for
-  # dmlab30); actor i stamps its unrolls with level id i % len(levels).
+  # dmlab30) or task; actor i stamps its unrolls with its level id.
   num_tasks = len(levels)
   agent = build_agent(config, num_actions, num_tasks)
   init_params(agent, torch.Generator().manual_seed(config.seed))
@@ -708,7 +771,7 @@ def train(config: Config, max_steps: Optional[int] = None, device='cuda',
       server.warmup(spec0.obs_spec, max_size=config.num_actors)
     fleet = make_fleet(config, server.policy, buffer, levels,
                        server.initial_core_state,
-                       seed_base=process_seed_base)
+                       seed_base=process_seed_base, tasks=fleet_tasks)
     prefetcher = ring_buffer.BatchPrefetcher(
         buffer, local_batch_size, place_fn=stage,
         depth=config.staging_depth, stack_fn=stack, stager=stager,
@@ -760,7 +823,10 @@ def train(config: Config, max_steps: Optional[int] = None, device='cuda',
     raise
 
   ladder = _HealthLadder(config, run.health, checkpointer, incidents, sdc)
-  episodes = observability.EpisodeStats(levels, writer=writer)
+  episodes = observability.EpisodeStats(
+      levels, writer=writer,
+      benchmark=(config.level_name if config.level_name in suites.SUITES
+                 and not fleet_tasks else None))
   fps_meter = observability.FpsMeter()
   action_counts_acc = np.zeros((num_actions,), np.int64)
   steps_done = 0
@@ -915,6 +981,9 @@ def train(config: Config, max_steps: Optional[int] = None, device='cuda',
         action_counts_acc[:] = 0
       _periodic_save(config, checkpointer, ladder, state, steps_done,
                      grouped)
+      # Respawn dead or stalled actors, and spawn slots a resize
+      # unparked, once per step (as the JAX loop does).
+      fleet.check_health(stall_timeout_secs=stall_timeout_secs)
       run.step_log.append({'time': time.monotonic(),
                            'get_wait_secs':
                                prefetcher.stats()['wait_secs']})
@@ -1574,6 +1643,182 @@ def _train_population_fused(config: Config, max_steps: Optional[int] = None,
     record.close()
 
 
+def eval_partition(num_levels: int, world: int, rank: int):
+  """This rank's contiguous share of the test levels, as the JAX
+  evaluate splits them over processes: (start, count, counts per
+  rank)."""
+  base, rem = divmod(num_levels, world)
+  counts = [base + (i < rem) for i in range(world)]
+  return sum(counts[:rank]), counts[rank], counts
+
+
+def _gather_level_returns(level_returns, train_levels, my_ids, counts,
+                          episodes: int, device):
+  """Every rank's per-level returns, each level's row from its owner: a
+  dense [L, E] matrix (NaN where not played) all-gathered over the
+  group."""
+  import torch.distributed as dist
+  mat = torch.full((len(train_levels), episodes), float('nan'),
+                   dtype=torch.float32)
+  for lid in my_ids:
+    returns = level_returns[train_levels[lid]][:episodes]
+    mat[lid, :len(returns)] = torch.tensor(returns, dtype=torch.float32)
+  on = device if dist.get_backend() == 'nccl' else torch.device('cpu')
+  parts = [torch.empty_like(mat, device=on) for _ in counts]
+  dist.all_gather(parts, mat.to(on))
+  owner = np.repeat(np.arange(len(counts)), counts)
+  for lid, name in enumerate(train_levels):
+    row = parts[owner[lid]][lid].cpu().numpy()
+    level_returns[name] = [float(x) for x in row if not np.isnan(x)]
+
+
+def evaluate(config: Config, device='cuda',
+             stall_timeout_secs: Optional[float] = 300.0,
+             eval_drought_secs: float = 600.0) -> Dict[str, List[float]]:
+  """Play `test_num_episodes` episodes per test level from the newest
+  checkpoint under `<logdir>/checkpoints` (params and step only,
+  `Checkpointer.restore_latest_params`; FileNotFoundError when there is
+  none). Returns {train_level_name: [episode returns]} on every rank.
+
+  Every test level plays at once: one env and actor per level, all
+  feeding one inference server (`pad_batch_to` the level count, so one
+  bucket serves every merged call, and no auto merge floor: levels
+  retire as their episodes finish). The actors take state-arena slots in
+  the PRIORITY_EVAL admission class. Under a process group the test
+  levels split in contiguous parts over the ranks (`eval_partition`),
+  level ids and env seeds stay global (`level_offset`, `seed_base`), and
+  the per-level returns are all-gathered, each level's row from its
+  owner rank. Rank 0 alone writes `<logdir>/eval_summaries.jsonl`: a
+  `<test_level>/test_episode_return` row per level (the mean) at the
+  restored step, and for a suite (dmlab30, atari57) its human-normalised
+  test scores. A dead or wedged actor is respawned; no unroll for
+  `eval_drought_secs` raises the last actor error (or TimeoutError).
+  `device` defaults to CUDA and raises without it."""
+  validate_fleet(config)
+  for warning in (validate_runtime(config) + validate_integrity(config) +
+                  validate_replay(config) + validate_serving(config) +
+                  validate_population(config)):
+    log.warning('%s', warning)
+  device = resolve_device(device)
+  set_float32_precision()
+  world, rank = distributed.world_size(), distributed.rank()
+  train_levels = factory.level_names(config)
+  test_levels = factory.test_level_names(config)
+  start, my_count, counts = eval_partition(len(test_levels), world, rank)
+  my_ids = list(range(start, start + my_count))
+  if world > 1:
+    log.info('eval rank %d/%d plays levels [%d, %d) of %d', rank, world,
+             start, start + my_count, len(test_levels))
+  spec0 = factory.make_env_spec(config, test_levels[0], seed=1,
+                                is_test=True)
+  agent = build_agent(config, spec0.num_actions, len(train_levels))
+  init_params(agent, torch.Generator().manual_seed(config.seed))
+  agent.to(device)
+  params = dict(agent.named_parameters())
+  restored = make_checkpointer(config).restore_latest_params(params)
+  if restored is None:
+    raise FileNotFoundError(
+        f'no checkpoint under {config.logdir}/checkpoints')
+  params, restored_steps = restored
+  log.info('eval restored the params of checkpoint step %d', restored_steps)
+  level_returns: Dict[str, List[float]] = {name: [] for name in train_levels}
+
+  def stats_view(unroll):
+    """One unroll as a [T+1, 1] batch view."""
+    expand = lambda x: np.asarray(x)[:, None]  # noqa: E731
+    return ActorOutput(
+        level_name=np.asarray([unroll.level_name]), agent_state=None,
+        env_outputs=StepOutput(
+            reward=None, info=map_structure(expand, unroll.env_outputs.info),
+            done=expand(unroll.env_outputs.done), observation=None),
+        agent_outputs=None)
+
+  if my_count > 0:
+    server = fleet = None
+    try:
+      server = InferenceServer(agent, params, config,
+                               seed=config.seed + 2000, device=device,
+                               pad_batch_to=my_count)
+      server.warmup(spec0.obs_spec, max_size=my_count)
+      buffer = ring_buffer.TrajectoryBuffer(max(2 * my_count, 2))
+      fleet = make_fleet(
+          config, server.policy, buffer, test_levels,
+          initial_state_fn=lambda priority=None: server.initial_core_state(
+              priority=inference_lib.PRIORITY_EVAL),
+          seed_base=config.seed - 1 + start, level_offset=start,
+          is_test=True, num_actors=my_count)
+    except BaseException:
+      if server is not None:
+        server.close()
+      raise
+    t0 = time.monotonic()
+    try:
+      fleet.start()
+      last_unroll_time = time.monotonic()
+      errors: List[BaseException] = []
+      while any(len(level_returns[train_levels[i]])
+                < config.test_num_episodes for i in my_ids):
+        try:
+          unroll = buffer.get(timeout=10)
+        except TimeoutError:
+          # Read the errors before check_health, whose respawn clears
+          # them.
+          errors = fleet.errors() or errors
+          fleet.check_health(stall_timeout_secs=stall_timeout_secs)
+          if time.monotonic() - last_unroll_time > eval_drought_secs:
+            raise errors[0] if errors else TimeoutError(
+                f'eval produced no unrolls for {eval_drought_secs}s')
+          continue
+        except ring_buffer.Closed:
+          errors = fleet.errors() or errors
+          raise errors[0] if errors else ring_buffer.Closed()
+        last_unroll_time = time.monotonic()
+        errors = []
+        for level_id, ep_return, _ in observability.extract_episodes(
+            stats_view(unroll)):
+          level_returns[train_levels[level_id]].append(ep_return)
+        fleet.check_health(stall_timeout_secs=stall_timeout_secs)
+    finally:
+      fleet.stop()
+      server.close()
+    stats = server.stats()
+    log.info('eval played %d level(s) in %.2f s: %d merged calls, mean '
+             'batch %.3f, latency p50 %s ms p99 %s ms', my_count,
+             time.monotonic() - t0, stats['calls'], stats['mean_batch'],
+             stats['latency_p50_ms'], stats['latency_p99_ms'])
+    if device.type == 'cuda':
+      log.info('eval peak device memory: %d bytes',
+               torch.cuda.max_memory_allocated(device))
+
+  if world > 1:
+    _gather_level_returns(level_returns, train_levels, my_ids, counts,
+                          config.test_num_episodes, device)
+  for name in train_levels:
+    level_returns[name] = level_returns[name][:config.test_num_episodes]
+  if rank != 0:
+    return level_returns
+
+  writer = observability.SummaryWriter(config.logdir,
+                                       filename='eval_summaries.jsonl')
+  try:
+    for train_name, test_name in zip(train_levels, test_levels):
+      returns = level_returns[train_name]
+      mean_return = float(np.mean(returns)) if returns else float('nan')
+      log.info('level %s: mean return %.2f over %d episodes', test_name,
+               mean_return, len(returns))
+      writer.scalar(f'{test_name}/test_episode_return', mean_return,
+                    restored_steps)
+    if config.level_name in suites.SUITES:
+      scores = suites.SUITES[config.level_name].eval_scores(level_returns)
+      log.info('%s human-normalized: %s', config.level_name,
+               ' '.join(f'{t.split("/")[-1]}={v:.1f}'
+                        for t, v in scores.items()))
+      writer.scalars(scores, restored_steps)
+  finally:
+    writer.close()
+  return level_returns
+
+
 class _NoEvents:
   """The incident stream of a rank that does not write the logdir."""
 
@@ -1609,6 +1854,14 @@ def _write_summaries(writer, incidents, step, metrics, fps_meter,
       'inference_mean_batch': server_stats['mean_batch'],
       'inference_latency_p50_ms': server_stats['latency_p50_ms'],
       'inference_latency_p99_ms': server_stats['latency_p99_ms'],
+      'inference_publishes_skipped': server_stats['publishes_skipped'],
+      # Admission: sheds are the serving plane's load-shedding answer,
+      # admission_waits how often an acquire parked.
+      'inference_sheds': server_stats['sheds'],
+      'inference_admission_waits': server_stats['admission_waits'],
+      'inference_arena_grows': server_stats['arena_grows'],
+      'inference_resident_versions': server_stats['resident_versions'],
+      'inference_shadow_divergence': server_stats['shadow_divergence'],
       'params_version': server_stats['params_version'],
       'staged_batches': prefetch_stats['staged_batches'],
       'h2d_overlap_fraction': prefetch_stats['h2d_overlap_fraction'],

@@ -1,11 +1,11 @@
 """Environment factory: config -> host environment instances, as in the
-JAX package's envs/factory.py, for the backends the port has: `fake`,
-`bandit` and `cue_memory` (envs/fake.py), and `gridworld` and `procgen`
-(envs/jittable.py: the on-device cores at batch 1 on the CPU). A suite
-name (`dmlab30`, `atari57`, envs/suites.py) expands into its level list,
-as in JAX, so the fake backends run a suite's levels, one per actor
-slot. The real simulators (DMLab, Atari) raise `NotImplementedError`
-naming the ROADMAP item that brings them.
+JAX package's envs/factory.py: `fake`, `bandit` and `cue_memory`
+(envs/fake.py), `gridworld` and `procgen` (envs/jittable.py: the
+on-device cores at batch 1 on the CPU), and the real simulators `dmlab`
+(envs/dmlab.py) and `atari` (envs/atari.py), which raise ImportError at
+construction when their emulator is not installed. A suite name
+(`dmlab30`, `atari57`, envs/suites.py) expands into its level list, as
+in JAX, so the fake backends run a suite's levels, one per actor slot.
 
 With `use_py_process` each env is hosted in its own OS process
 (runtime/py_process.py), the GIL escape of the reference's PyProcess.
@@ -20,11 +20,6 @@ from scalable_agent_tpu_torch.models.instruction import MAX_INSTRUCTION_LEN
 _FAKE_ENVS = {'bandit': fake.ContextualBanditEnv,
               'cue_memory': fake.CueMemoryEnv,
               'fake': fake.FakeEnv}
-# The JAX factory's other backends, by the ROADMAP item that ports them.
-_LATER_BACKENDS = {
-    'dmlab': 'ROADMAP A7 (DMLab adapter)',
-    'atari': 'ROADMAP A7 (Atari adapter)',
-}
 
 class EnvSpec:
   """What the driver needs to know about a backend before building it."""
@@ -64,14 +59,29 @@ def make_env_spec(config: Config, level_name: str, seed: int,
                   is_test: bool = False,
                   backend: Optional[str] = None) -> EnvSpec:
   """One environment spec for (backend, level, seed); `backend`
-  overrides config.env_backend."""
-  del is_test  # the fake envs have no held-out variants
+  overrides config.env_backend (a mixed fleet builds each actor's spec
+  for its task's backend). `is_test` picks DMLab's held-out levels; the
+  other backends have no held-out variants."""
   backend = backend or config.env_backend
-  if backend in _LATER_BACKENDS:
-    raise NotImplementedError(
-        f'env backend {backend!r} is not in the PyTorch port yet '
-        f'({_LATER_BACKENDS[backend]}); the port has '
-        f'{sorted(_FAKE_ENVS) + ["gridworld", "procgen"]}')
+  if backend == 'dmlab':
+    from scalable_agent_tpu_torch.envs import dmlab
+    return EnvSpec(dmlab.DmLabEnv, dmlab.constructor_kwargs(
+        level_name=level_name, seed=seed, is_test=is_test, config=config),
+                   len(dmlab.DEFAULT_ACTION_SET),
+                   (config.height, config.width, 3))
+  if backend == 'atari':
+    from scalable_agent_tpu_torch.envs import atari
+    num_actions = config.num_actions or atari.DEFAULT_NUM_ACTIONS
+    # A head smaller than the full 18-action set asks for the game's
+    # minimal set; the env checks the backend's set has num_actions.
+    kwargs = dict(game=level_name, seed=seed, height=config.height,
+                  width=config.width,
+                  num_action_repeats=config.num_action_repeats,
+                  is_test=is_test, num_actions=num_actions,
+                  sticky_action_prob=config.sticky_action_prob,
+                  full_action_set=num_actions == atari.DEFAULT_NUM_ACTIONS)
+    return EnvSpec(atari.AtariEnv, kwargs, num_actions,
+                   (config.height, config.width, 3))
   if backend in _FAKE_ENVS:
     env_class = _FAKE_ENVS[backend]
     num_actions = config.num_actions or (5 if backend == 'fake' else 3)

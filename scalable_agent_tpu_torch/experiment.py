@@ -48,8 +48,17 @@ one host (Anakin) or of every host (the fleet: each rank runs its own
 actors and feeds its rows). Its backend follows the device: NCCL for
 CUDA ranks, one card each, gloo for CPU ranks. Anakin stays on one host:
 a group across nodes raises, as in the JAX CLI, and so does
-`--model_parallelism` > 1 with it. `--mode=test` (evaluation, ROADMAP
-A7) raises.
+`--model_parallelism` > 1 with it.
+
+Evaluation (`--mode=test`, driver.evaluate) plays `--test_num_episodes`
+episodes on every test level at once from the newest checkpoint under
+`<logdir>/checkpoints` (params and step only) and writes
+`<logdir>/eval_summaries.jsonl` (per-level mean returns, and a suite's
+human-normalised scores); under a group the levels split over the ranks:
+
+  python -m scalable_agent_tpu_torch.experiment --mode=test \\
+      --level_name=dmlab30 --env_backend=dmlab --test_num_episodes=10 \\
+      --logdir=/path/to/run
 
 Both runtimes resume from `<logdir>/checkpoints` (the newest restorable
 step; the format is the port's own, `torch.save` files, not the JAX
@@ -180,10 +189,11 @@ def _run(config: Config, device: str, drain_event: threading.Event):
     return run.carry
   if config.mode == 'train' and config.runtime == 'fleet':
     return _train_fleet(config, device, drain_event)
+  if config.mode == 'test':
+    return _evaluate(config, device)
   if config.mode not in ('train', 'anakin'):
-    raise NotImplementedError(
-        f'--mode={config.mode} (evaluation) is not in the PyTorch port '
-        'yet (ROADMAP A7); use --mode=train or --mode=anakin')
+    raise ValueError(f'unknown --mode={config.mode!r} (train | test | '
+                     'anakin)')
   topology = distributed.declared_topology(config)
   if topology is not None and topology.num_nodes > 1:
     # A rank here is a JAX device, and the JAX CLI's Anakin spans the
@@ -217,6 +227,22 @@ def _run(config: Config, device: str, drain_event: threading.Event):
   return carry
 
 
+def _evaluate(config: Config, device: str):
+  from scalable_agent_tpu_torch import driver
+  backend = 'gloo' if torch.device(device).type == 'cpu' else 'nccl'
+  rank_device = distributed.maybe_initialize(config, backend=backend,
+                                             device=device)
+  if rank_device is None:
+    return driver.evaluate(config, device=device)
+  try:
+    returns = driver.evaluate(config, device=rank_device)
+  except BaseException:
+    distributed.shutdown(wait=False)
+    raise
+  distributed.shutdown()
+  return returns
+
+
 def _train_fleet(config: Config, device: str, drain_event: threading.Event):
   from scalable_agent_tpu_torch import driver
   backend = 'gloo' if torch.device(device).type == 'cpu' else 'nccl'
@@ -232,6 +258,9 @@ def _train_fleet(config: Config, device: str, drain_event: threading.Event):
       raise
     distributed.shutdown()
   logging.info('fleet training done at %d frames', run.frames)
+  if torch.device(device).type == 'cuda':
+    logging.info('peak device memory: %d bytes',
+                 torch.cuda.max_memory_allocated())
   return run
 
 

@@ -1,7 +1,7 @@
 """Summaries, incidents, episode stats and the frames/sec meter, copied
 from scalable_agent_tpu/observability.py (`SummaryWriter` with its
-histogram, `EventLog`, `FpsMeter`, `extract_episodes`, `EpisodeStats` for
-single-task runs) over one JSONL appender.
+histogram, `EventLog`, `FpsMeter`, `extract_episodes`, `EpisodeStats`
+with the suites' human-normalised scores) over one JSONL appender.
 
 Summaries are JSONL events, one object per line (wall_time, step, tag,
 value), in `<logdir>/summaries.jsonl`, and incidents in
@@ -24,6 +24,8 @@ from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
+
+from scalable_agent_tpu_torch.envs import suites
 
 
 class _JsonlAppender:
@@ -139,27 +141,59 @@ def extract_episodes(batch) -> List[Tuple[int, float, int]]:
 
 
 class EpisodeStats:
-  """Per-level episode summaries of the learner loop: every finished
-  episode writes `<level>/episode_return` and `<level>/episode_frames`.
-  A suite's levels (DMLab-30, Atari-57) each write their own; the
-  suites' human-normalised scores are ROADMAP A7.1."""
+  """Per-level episode summaries of the learner loop, and the suites'
+  periodic human-normalised training scores.
 
-  def __init__(self, level_names: List[str],
-               writer: Optional[SummaryWriter] = None):
+  Every finished episode writes `<level>/episode_return` and
+  `<level>/episode_frames`. With a `benchmark` (a suite of
+  envs/suites.py: 'dmlab30' or 'atari57'; `multi_task` is the JAX
+  package's alias for 'dmlab30'), once every level has a finished
+  episode the suite's training scores over the per-level returns are
+  written (`dmlab30/training_no_cap` and `dmlab30/training_cap_100`, or
+  `atari57/training_median` and `atari57/training_mean`), kept in
+  `last_scores`, and the accumulator restarts.
+  """
+
+  def __init__(self, level_names: List[str], multi_task: bool = False,
+               writer: Optional[SummaryWriter] = None,
+               benchmark: Optional[str] = None):
     self._level_names = list(level_names)
+    if benchmark is None and multi_task:
+      benchmark = 'dmlab30'
+    if benchmark is not None and benchmark not in suites.SUITES:
+      raise ValueError(f'unknown benchmark {benchmark!r} '
+                       f'(suites: {sorted(suites.SUITES)})')
+    self._suite = suites.SUITES[benchmark] if benchmark else None
     self._writer = writer
+    self._level_returns: Dict[str, List[float]] = {
+        name: [] for name in self._level_names}
+    self.last_scores: Optional[Dict[str, float]] = None
 
   def record_batch(self, batch, step: int) -> List[Tuple[str, float, int]]:
-    """Write the batch's finished episodes; returns [(level_name,
-    episode_return, episode_frames)]."""
+    """Write the batch's finished episodes, and the suite's scores when
+    every level has one; returns [(level_name, episode_return,
+    episode_frames)]."""
     episodes = []
     for level_id, ep_return, ep_frames in extract_episodes(batch):
       name = self._level_names[level_id]
       episodes.append((name, ep_return, ep_frames))
+      if self._suite is not None:
+        self._level_returns.setdefault(name, []).append(ep_return)
       if self._writer is not None:
         self._writer.scalar(f'{name}/episode_return', ep_return, step)
         self._writer.scalar(f'{name}/episode_frames', ep_frames, step)
+    if self._suite is not None:
+      self._maybe_score(step)
     return episodes
+
+  def _maybe_score(self, step: int):
+    if not all(self._level_returns.get(name)
+               for name in self._level_names):
+      return
+    self.last_scores = self._suite.training_scores(self._level_returns)
+    if self._writer is not None:
+      self._writer.scalars(self.last_scores, step)
+    self._level_returns = {name: [] for name in self._level_names}
 
 
 def cuda_median_ms(fn, repeats: int, warmup: int = 10) -> float:

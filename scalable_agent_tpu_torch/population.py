@@ -16,9 +16,8 @@ minimal PBT.
    'td' scores |delta|.
 
 2. FLEET COMPOSITION (host side, numpy): `parse_fleet_tasks`,
-   `plan_actor_assignment` and `padding_report`, copied unchanged. The
-   port's fleet refuses mixed fleets still (ROADMAP A7.2); the planners
-   are here with the module.
+   `plan_actor_assignment` and `padding_report`, copied unchanged;
+   driver.make_fleet plans a mixed fleet's actors with them.
 
 3. PBT (host side, numpy): `pbt_decide` ranks members within their
    comparability group (the suite), bottom-quantile members exploit a

@@ -1,5 +1,5 @@
 """Host-side actor: rolls an environment into learner-ready unrolls,
-ported from the JAX package's runtime/actor.py (the carry-passing path).
+ported from the JAX package's runtime/actor.py.
 
 Semantics kept from the reference:
 - persistent cross-unroll state (env output, agent output, LSTM carry);
@@ -12,7 +12,10 @@ Semantics kept from the reference:
   the carried state resets to zero.
 
 Everything here is host numpy; the policy (runtime/inference.py
-`InferenceServer.policy` in the fleet) is where the device comes in.
+`InferenceServer.policy` in the fleet) is where the device comes in. The
+policy state is the numeric carry, or in the server's state-cache mode
+an opaque slot handle (`snapshot`, `write`, `release`): the actor reads
+its carry once per unroll, at the start, and releases the slot on exit.
 """
 
 import time
@@ -52,7 +55,7 @@ class Actor:
     policy: `(prev_action i32[], env_output StepOutput of scalars,
       core_state) -> (AgentOutput of scalars, new_core_state)`.
     initial_core_state: zeroed LSTM carry (c, h) for one env, [1, hidden]
-      each.
+      each, or the server's state-arena slot handle.
     unroll_length: T (the output carries T+1 with the overlap frame).
     num_action_repeats: frames per env step, for episode_step accounting.
     level_name_id: int id of the level (strings do not enter
@@ -81,13 +84,19 @@ class Actor:
 
   def unroll(self) -> ActorOutput:
     """One ActorOutput of [T+1] time-major numpy arrays."""
-    initial_core_state = self._core_state
+    core0 = self._core_state
+    # A slot handle's carry lives on the device: read it once here (the
+    # learner's unroll-start state).
+    initial_core_state = (core0.snapshot() if hasattr(core0, 'snapshot')
+                          else core0)
     env_outputs = [self._env_output]
     if self._agent_output is None:
       # Prime lazily, so the first policy call tells num_actions; its new
-      # carry is discarded.
+      # carry is discarded (on the device: written back).
       out, _ = self._policy(np.int32(0), self._env_output,
                             self._core_state)
+      if hasattr(core0, 'write'):
+        core0.write(initial_core_state)
       self._agent_output = AgentOutput(
           action=np.int32(0),
           policy_logits=np.zeros_like(np.asarray(out.policy_logits)),
@@ -122,7 +131,17 @@ class Actor:
         env_outputs=_stack(env_outputs),
         agent_outputs=_stack(agent_outputs))
 
+  def release_policy_state(self):
+    """Return a state-arena slot to its server (a no-op for a numeric
+    carry). Idempotent: close() calls it, and the fleet's respawn too."""
+    if hasattr(self._core_state, 'release'):
+      try:
+        self._core_state.release()
+      except Exception:
+        pass
+
   def close(self):
+    self.release_policy_state()
     self._env.close()
 
 

@@ -27,6 +27,11 @@ The sites this port fires, each on the real code path:
   preempt_signal    the learner loops, one event per step: a fired fault
                     requests the preemption drain, SIGTERM made
                     deterministic.
+  slot_exhaustion   InferenceServer._acquire_slot: the acquire takes the
+                    contended path (park, or grow under 'grow'
+                    admission) even with slots free; a parked waiter
+                    re-checks the real free list on its next backoff
+                    tick, so the detour is bounded.
   replica_divergence  the fleet loop under data parallelism, one event
                     per health check with the SDC sentinel on: a fired
                     fault perturbs one replica's lane of the fingerprint
@@ -35,8 +40,8 @@ The sites this port fires, each on the real code path:
 
 `SITES` is the JAX package's full tuple, so a plan validates the same
 way in both packages; `install` refuses a plan that schedules a fault at
-a site the port does not fire yet (the env, transport and serving
-sites: ROADMAP A7.3), rather than accept it and never fire it.
+a site the port does not fire yet (the env and transport sites: ROADMAP
+A7.3), rather than accept it and never fire it.
 """
 
 import dataclasses
@@ -61,7 +66,7 @@ SITES = ('env_step', 'transport_send', 'checkpoint_save', 'nan_burst',
 
 # The sites this port fires (see the module docstring).
 PORTED_SITES = ('checkpoint_save', 'ckpt_bitrot', 'nan_burst',
-                'preempt_signal', 'replica_divergence')
+                'preempt_signal', 'replica_divergence', 'slot_exhaustion')
 
 PLAN_ENV_VAR = 'SA_FAULT_PLAN'
 

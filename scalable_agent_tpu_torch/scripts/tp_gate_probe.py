@@ -6,7 +6,9 @@
 From the repo's root, on the card only (chip_smoke.py raises without
 CUDA). Two gloo ranks share the card as chip_smoke's tp phase runs them:
 each mode's 3 TP steps from the seeded params, and on rank 0 the
-one-rank step from each TP step's gathered state before it. Every
+one-rank step from each TP step's gathered state before it, run twice
+(the second run says how far the one-rank step alone moves between runs
+on the same inputs). Every
 repetition runs with cuDNN free to pick any algorithm, then again with
 `torch.backends.cudnn.deterministic`. `--hold_gib` has the parent
 process hold that much of the card while the ranks run, as a parent
@@ -16,7 +18,8 @@ Prints the card's name and power limit, then one JSON line per TP step:
 the largest share of the phase's parameter gate (|TP - one rank| over
 5e-6 + 5e-4 |one rank|, above 1 fails), the tensor and element it was
 taken at, and the relative L2 distance of that tensor against its
-update.
+update; and `one_rank_again_share`, the same share of the second
+one-rank run against the first.
 """
 
 import argparse
@@ -55,6 +58,8 @@ def _rank(rank, world, port, outdir, reps, modes):
           if rank == 0:
             one = Config(**dict(cs.SLICE, **cut))
             result['one'] = cs._one_rank_steps(one, device, batch, states)
+            result['one_again'] = cs._one_rank_steps(one, device, batch,
+                                                     states)
           out.append(result)
     return out
 
@@ -106,13 +111,15 @@ def main():
   del held
   for run in ranks[0]:
     _, forced = run['one']
+    _, again = run['one_again']
     for i, (loss, _, after) in enumerate(forced):
       share, at = _worst(run['states'][i], after, run['states'][i + 1])
+      self_share, _ = _worst(run['states'][i], after, again[i][2])
       print(json.dumps(dict(
           hold_gib=args.hold_gib, deterministic=run['deterministic'],
           rep=run['rep'], mode=run['mode'], step=i + 1,
           loss=run['losses'][i], one_rank_loss=loss, gate_share=share,
-          at=at)), flush=True)
+          one_rank_again_share=self_share, at=at)), flush=True)
 
 
 if __name__ == '__main__':

@@ -210,8 +210,12 @@ def test_cli_trains_and_writes_summaries(tmp_path):
 
 @pytest.mark.parametrize('mode', ['test'])
 def test_cli_other_modes_name_their_slice(mode, tmp_path):
-  with pytest.raises(NotImplementedError, match='ROADMAP'):
+  """--mode=test is evaluation (A7.1): with no checkpoint in the logdir
+  it raises FileNotFoundError, as the JAX evaluate does."""
+  with pytest.raises(FileNotFoundError, match='no checkpoint'):
     experiment.main([f'--mode={mode}', '--device=cpu',
+                     '--env_backend=fake', '--torso=shallow',
+                     '--height=24', '--width=32', '--use_instruction=false',
                      f'--logdir={tmp_path}'])
 
 

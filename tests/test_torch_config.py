@@ -26,8 +26,11 @@ def test_every_port_field_has_the_jax_default():
   # impact_epsilon, target_update_interval, the three replay_* fields
   # and max_unroll_staleness; the Anakin runtime's rest (A6) the four
   # filler fields, the four curriculum_* knobs, procgen_num_levels,
-  # procgen_wall_density and the six pbt_* fields.
-  assert len(port) == 106
+  # procgen_wall_density and the six pbt_* fields; evaluation and the
+  # serving plane (A7.1, A7.2) test_num_episodes, dataset_path,
+  # level_cache_dir, sticky_action_prob, inference_state_slots and
+  # inference_admission_timeout_secs.
+  assert len(port) == 112
 
 
 def test_the_checkpoint_and_health_fields_reach_the_cli():
@@ -53,3 +56,34 @@ def test_the_tp_and_sdc_fields_reach_the_cli():
   assert (config.model_parallelism, config.tp_compute,
           config.sharding_rules, config.sdc_check,
           config.staging_mode) == (2, 'sharded', 'megatron', False, 'unroll')
+
+
+def test_the_serving_fields_validate_as_in_jax():
+  """validate_serving's hard errors and warning are JAX's; the one
+  fleet setting still refused is routed serving (serving_replicas,
+  ROADMAP A7.3)."""
+  import pytest
+
+  from scalable_agent_tpu.config import validate_serving as jax_validate
+  from scalable_agent_tpu_torch.config import (validate_fleet,
+                                               validate_serving)
+  for bad in (dict(serving_resident_versions=0),
+              dict(serving_hbm_budget_mb=-1.0),
+              dict(serving_ab_fraction=1.5),
+              dict(serving_shadow_fraction=-0.1)):
+    with pytest.raises(ValueError):
+      jax_validate(JaxConfig(**bad))
+    with pytest.raises(ValueError):
+      validate_serving(Config(**bad))
+  warn = dict(serving_shadow_fraction=0.5)
+  assert validate_serving(Config(**warn)) == jax_validate(JaxConfig(**warn))
+  assert len(validate_serving(Config(**warn))) == 1
+  for ported in (dict(inference_state_cache=True, inference_state_slots=4),
+                 dict(inference_admission='grow'), dict(publish_codec='int8'),
+                 dict(serving_resident_versions=3, serving_aot=True),
+                 dict(fleet_tasks='gridworld:2,procgen')):
+    validate_fleet(Config(**ported))
+  with pytest.raises(NotImplementedError, match='A7.3'):
+    validate_fleet(Config(serving_replicas='localhost:1'))
+  with pytest.raises(ValueError):
+    validate_fleet(Config(inference_state_slots=-1))

@@ -85,8 +85,18 @@ def test_make_env_spec_matches_jax(backend, num_actions):
 
 @pytest.mark.parametrize('backend, item', [('dmlab', 'A7'), ('atari', 'A7')])
 def test_unported_backends_raise(backend, item):
-  with pytest.raises(NotImplementedError, match=f'ROADMAP {item}'):
-    factory.make_env_spec(Config(env_backend=backend), 'lvl', seed=1)
+  """The real simulators, ported in A7.1 (envs/dmlab.py, envs/atari.py):
+  the factory builds their specs as JAX's does, and with no emulator
+  installed the env's construction raises ImportError (the import
+  guard)."""
+  del item
+  kw = dict(env_backend=backend)
+  spec = factory.make_env_spec(Config(**kw), 'lvl', seed=1)
+  ref = jax_factory.make_env_spec(JaxConfig(**kw), 'lvl', seed=1)
+  assert spec.constructor_kwargs == ref.constructor_kwargs
+  assert spec.num_actions == ref.num_actions
+  with pytest.raises(ImportError):
+    spec.build()
 
 
 @pytest.mark.parametrize('backend', ['gridworld', 'procgen'])
@@ -113,16 +123,22 @@ def test_a6_backends_build_and_step(backend):
 @pytest.mark.parametrize('suite', ['dmlab30', 'atari57'])
 def test_suites_raise(suite):
   """A suite name expands into its levels as in JAX (the fake backends
-  then run them); the real simulators of the suites still raise."""
+  then run them); the suites' real simulators build their specs as JAX's
+  does, and raise ImportError at construction with no emulator."""
   kw = dict(level_name=suite, use_instruction=False)
   assert factory.level_names(Config(**kw)) == jax_factory.level_names(
       JaxConfig(**kw))
   assert factory.test_level_names(Config(**kw)) == (
       jax_factory.test_level_names(JaxConfig(**kw)))
   backend = {'dmlab30': 'dmlab', 'atari57': 'atari'}[suite]
-  with pytest.raises(NotImplementedError, match='ROADMAP A7'):
-    factory.make_env_spec(Config(env_backend=backend, **kw),
-                          factory.level_names(Config(**kw))[0], seed=1)
+  level = factory.test_level_names(Config(**kw))[0]
+  spec = factory.make_env_spec(Config(env_backend=backend, **kw), level,
+                               seed=1, is_test=True)
+  ref = jax_factory.make_env_spec(JaxConfig(env_backend=backend, **kw),
+                                  level, seed=1, is_test=True)
+  assert spec.constructor_kwargs == ref.constructor_kwargs
+  with pytest.raises(ImportError):
+    spec.build()
 
 
 def test_unknown_backend_is_a_value_error():

@@ -288,16 +288,21 @@ def test_padded_buckets_answer_only_the_real_rows():
 @pytest.mark.parametrize('setting', [
     {'inference_state_cache': True}, {'inference_admission': 'shed'},
     {'publish_codec': 'int8'}, {'serving_resident_versions': 2},
-    {'serving_aot': True}, {'staging_mode': 'unroll'}])
+    {'serving_aot': True}, {'staging_mode': 'unroll'},
+    {'serving_replicas': 'localhost:1'}])
 def test_unported_server_settings_raise(setting):
-  """Each setting of a path the port does not have raises, naming its
-  ROADMAP item. staging_mode='unroll' is ported (ring_buffer's
-  UnrollBatchStager): the server accepts it."""
-  if setting == {'staging_mode': 'unroll'}:
-    _shallow_server(**setting)[2].close()
+  """The serving settings ported in A7.2 build a server; routed serving
+  (serving_replicas) still raises, naming its ROADMAP item (A7.3)."""
+  if setting == {'serving_replicas': 'localhost:1'}:
+    with pytest.raises(NotImplementedError, match='ROADMAP A7.3'):
+      _shallow_server(**setting)
     return
-  with pytest.raises(NotImplementedError, match='ROADMAP A'):
-    _shallow_server(**setting)
+  _, _, server = _shallow_server(**setting)
+  try:
+    assert server.stats()['state_cache'] == bool(
+        setting.get('inference_state_cache'))
+  finally:
+    server.close()
 
 
 def test_bad_server_settings_are_value_errors():

@@ -35,6 +35,9 @@ def test_importing_every_port_module_loads_no_jax():
       'popart', 'unreal', 'testing', 'models.instruction', 'models.lstm',
       'parallel.fit', 'envs.suites', 'envs.dmlab30', 'envs.atari57',
       'envs.anchors')} <= set(modules)
+  # And evaluation's and the serving plane's.
+  assert {f'scalable_agent_tpu_torch.{name}' for name in (
+      'runtime.codec', 'envs.dmlab', 'envs.atari')} <= set(modules)
   script = ('import importlib, sys\n'
             f'for name in {modules!r}:\n'
             '  importlib.import_module(name)\n'
@@ -173,6 +176,58 @@ def test_the_extension_paths_load_no_jax():
       'assert len(tier.sample(1)) == 1\n'
       'assert fit.memory_fit("cpu", batch_size=2, unroll_length=3,\n'
       '                      height=24, width=32, torso="shallow")\n'
+      'bad = sorted(m for m in sys.modules if m.split(".")[0] in '
+      '("jax", "jaxlib", "flax", "optax", "scalable_agent_tpu"))\n'
+      'assert not bad, bad\n')
+  proc = subprocess.run([sys.executable, '-c', script], cwd=REPO,
+                        capture_output=True, text=True, timeout=120)
+  assert proc.returncode == 0, proc.stderr
+
+
+def test_the_serving_and_eval_paths_load_no_jax():
+  """The state arena with shed admission and int8 resident versions
+  (A/B, shadow, the warm forward of serving_aot), the codec, the DMLab
+  and Atari adapters over scripted backends, and restore_latest_params,
+  run in a fresh process: no JAX module loads."""
+  script = (
+      'import sys, tempfile, threading, numpy as np, torch\n'
+      'from scalable_agent_tpu_torch import checkpoint, learner\n'
+      'from scalable_agent_tpu_torch.config import Config\n'
+      'from scalable_agent_tpu_torch.envs import atari, dmlab, factory\n'
+      'from scalable_agent_tpu_torch.models import ImpalaAgent\n'
+      'from scalable_agent_tpu_torch.runtime import codec\n'
+      'from scalable_agent_tpu_torch.runtime.inference import '
+      'InferenceServer\n'
+      'from scalable_agent_tpu_torch.structs import StepOutput, '
+      'StepOutputInfo\n'
+      'agent = ImpalaAgent(3, (24, 32, 3), torso="shallow")\n'
+      'params = dict(agent.named_parameters())\n'
+      'config = Config(use_instruction=False, inference_state_cache=True,\n'
+      '                inference_admission="shed", publish_codec="int8",\n'
+      '                serving_resident_versions=3, serving_aot=True,\n'
+      '                serving_ab_fraction=0.5, serving_shadow_fraction=0.5)\n'
+      'server = InferenceServer(agent, params, config, fleet_size=1)\n'
+      'server.warmup({"frame": (24, 32, 3), "instr_len": 16}, sizes=[1])\n'
+      'server.update_params(params, version=1)\n'
+      'server.update_params(params, version=2)\n'
+      'handle = server.initial_core_state()\n'
+      'env = StepOutput(np.float32(0), StepOutputInfo(np.float32(0), '
+      'np.int32(0)), np.bool_(True), (np.zeros((24, 32, 3), np.uint8), '
+      'np.zeros(16, np.int32)))\n'
+      'for _ in range(4):\n'
+      '  server.policy(np.int32(0), env, handle)\n'
+      'assert handle.snapshot()[0].shape == (1, 256)\n'
+      'assert server.stats()["aot_misses"] == 0\n'
+      'server.close()\n'
+      'assert codec.is_quantized(codec.quantize(params))\n'
+      'for backend in ("dmlab", "atari"):\n'
+      '  factory.make_env_spec(Config(env_backend=backend), "lvl", 1, '
+      'is_test=True)\n'
+      'state = learner.make_train_state(agent, Config())\n'
+      'with tempfile.TemporaryDirectory() as d:\n'
+      '  ckpt = checkpoint.Checkpointer(d)\n'
+      '  assert ckpt.save(state, force=True)\n'
+      '  assert ckpt.restore_latest_params(params)[1] == 0\n'
       'bad = sorted(m for m in sys.modules if m.split(".")[0] in '
       '("jax", "jaxlib", "flax", "optax", "scalable_agent_tpu"))\n'
       'assert not bad, bad\n')

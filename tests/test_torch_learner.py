@@ -262,9 +262,10 @@ def test_watchdog_keeps_old_state_on_a_nan_batch():
 
 
 def test_unported_settings_raise():
-  # Mixed fleets are not ported yet (ROADMAP A7.2).
-  with pytest.raises(NotImplementedError, match='fleet_tasks'):
-    validate_fleet(Config(fleet_tasks='bandit,gridworld'))
+  # Mixed fleets are ported (A7.2); routed serving is not (A7.3).
+  validate_fleet(Config(fleet_tasks='bandit,gridworld'))
+  with pytest.raises(NotImplementedError, match='A7.3'):
+    validate_fleet(Config(serving_replicas='localhost:1'))
   # The curriculum and deep_fast are ported: the config takes them and a
   # train step runs with them.
   for kw in ({'curriculum': 'regret'}, {'torso': 'deep_fast'}):
