@@ -55,8 +55,8 @@ Evaluation restores the params and the step only
 (`restore_latest_params`): the step's file is memory-mapped
 (`torch.load(mmap=True)`), so the RMSProp moments, PopArt statistics and
 target network it also holds are never read into memory, and only the
-params' tensors are copied to the device. Not here yet: the telemetry
-gauges (A7.4).
+params' tensors are copied to the device. The ladder's counters are
+registry gauges (`checkpoint/*`), unregistered at close.
 """
 
 import json
@@ -70,6 +70,7 @@ import torch
 
 from scalable_agent_tpu_torch import integrity
 from scalable_agent_tpu_torch import learner as learner_lib
+from scalable_agent_tpu_torch import telemetry
 from scalable_agent_tpu_torch.learner import TrainState
 from scalable_agent_tpu_torch.parallel import distributed
 from scalable_agent_tpu_torch.parallel import sharding
@@ -258,6 +259,16 @@ class Checkpointer:
     # Steps refused for a content-digest mismatch (bit rot), counted
     # apart from the other fallbacks.
     self.digest_fallbacks = 0
+    # The registry's view of the ladder's counters: the drain manifest
+    # and the flight recorder read them from one source.
+    self._gauges = [
+        telemetry.gauge('checkpoint/save_errors',
+                        fn=lambda: self.save_errors),
+        telemetry.gauge('checkpoint/restore_fallbacks',
+                        fn=lambda: self.restore_fallbacks),
+        telemetry.gauge('checkpoint/digest_fallbacks',
+                        fn=lambda: self.digest_fallbacks),
+    ]
     # Seconds of the last save (payload copy, write, fsync, digests)
     # and of the last restore (digests, load, copy onto the device).
     self.last_save_secs: Optional[float] = None
@@ -854,7 +865,11 @@ class Checkpointer:
     return self.restore_latest(target)
 
   def close(self):
-    """Nothing runs in the background: saves complete inside `save`."""
+    """Nothing runs in the background (saves complete inside `save`):
+    drops the registry's gauges over this instance (identity-checked,
+    so a newer checkpointer's registration survives)."""
+    for gauge in self._gauges:
+      telemetry.registry().unregister(gauge.name, gauge)
 
 
 def registry_restore_targets(full_shapes, registry, mesh

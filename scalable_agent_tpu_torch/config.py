@@ -223,6 +223,22 @@ class Config:
   # the JAX package, where the gather is what lets a process read it.
   sdc_check: bool = True
   sdc_allgather: bool = True
+  # The telemetry plane (telemetry.py). telemetry_trace: per-unroll trace
+  # spans stamped when an actor completes an unroll and completed through
+  # staging, serve and the train step; the learner writes traces.jsonl,
+  # one line per trained batch with the policy-lag vector
+  # (scripts/trace_report.py reads it). False turns off the stamping,
+  # the tracer and the stream. telemetry_flight_len: the flight
+  # recorder's depth, the latest trace records dumped with the halt
+  # bundle.
+  telemetry_trace: bool = True
+  telemetry_flight_len: int = 512
+  # Arm the lock-order checker (analysis/runtime.py) for this run: the
+  # runtime's locks record the process-wide acquisition graph, and a
+  # cycle (a latent ABBA deadlock) lands as a durable
+  # lock_order_inversion incident and on the analysis/lock_cycles
+  # counter. driver.train arms it before it builds any component.
+  lock_order_check: bool = False
   # The population engine (population.py). The level curriculum over the
   # procgen level set, inside the fused step (Anakin and the filler):
   # 'uniform' keeps the plain draw; 'regret' EMAs the positive value loss

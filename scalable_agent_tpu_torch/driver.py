@@ -41,6 +41,8 @@ from scalable_agent_tpu_torch import learner as learner_lib
 from scalable_agent_tpu_torch import observability
 from scalable_agent_tpu_torch import popart as popart_lib
 from scalable_agent_tpu_torch import population as population_lib
+from scalable_agent_tpu_torch import telemetry
+from scalable_agent_tpu_torch.analysis import runtime as lock_check
 from scalable_agent_tpu_torch.config import (COMPUTE_DTYPES, Config,
                                              validate_fleet,
                                              validate_integrity,
@@ -237,6 +239,8 @@ def make_fleet(config: Config, policy, buffer, levels: List[str],
         backend=level if task_plan is not None else None)
     env, process = factory.build_environment(
         spec, use_py_process=config.use_py_process)
+    # The env_step fault site: `env` itself unless a plan targets it.
+    env = faults_lib.maybe_wrap_env(env)
     state = None
     try:
       state = initial_state_fn(priority=(
@@ -267,8 +271,10 @@ class TrainRun:
   when train() returns) and their final stats, the checkpointer, the
   health monitor and the mesh, and per learner step the host time it
   ended at and the prefetcher's cumulative blocked-get seconds then
-  (`step_log`). The Anakin runtime's has no server, fleet, prefetcher or
-  buffer, and holds its final AnakinCarry (`carry`)."""
+  (`step_log`), and the fleet's PipelineTracer when one ran (`tracer`,
+  closed; its stats() stay readable). The Anakin runtime's has no
+  server, fleet, prefetcher, buffer or tracer, and holds its final
+  AnakinCarry (`carry`)."""
 
   def __init__(self, config, agent=None, state=None, server=None,
                fleet=None, prefetcher=None, buffer=None):
@@ -279,6 +285,7 @@ class TrainRun:
     self.fleet = fleet
     self.prefetcher = prefetcher
     self.buffer = buffer
+    self.tracer: Optional[telemetry.PipelineTracer] = None
     self.checkpointer: Optional[checkpoint_lib.Checkpointer] = None
     self.health: Optional[health_lib.HealthMonitor] = None
     self.mesh = None
@@ -326,12 +333,15 @@ class _HealthLadder:
   there, one event per check, perturbing one replica's probe lane."""
 
   def __init__(self, config: Config, monitor, checkpointer, incidents,
-               sdc=None):
+               sdc=None, tracer=None):
     self._config = config
     self.monitor = monitor
     self._checkpointer = checkpointer
     self._incidents = incidents
     self._sdc = sdc
+    # The fleet's tracer: its flight recorder rides the halt bundle and
+    # is dumped beside a rollback's incident.
+    self._tracer = tracer
     self._pending = None
     self.bad_count_in_burst = 0
 
@@ -403,13 +413,17 @@ class _HealthLadder:
         state = rolled._replace(update_steps=state.update_steps)
         self._incidents.event('rollback', step=step_now,
                               restored_checkpoint_step=restored_step,
-                              reason=monitor.last_reason)
+                              reason=monitor.last_reason,
+                              flight=self._flight_file(step_now))
         log.warning('health rollback at step %d: restored checkpoint step '
                     '%d (params/optimizer/popart revert; the step counter '
                     'keeps running)', step_now, restored_step)
     if verdict == health_lib.HALT:
-      bundle = monitor.write_halt_bundle(self._config.logdir, self._config,
-                                         step_now, reason=monitor.last_reason)
+      bundle = monitor.write_halt_bundle(
+          self._config.logdir, self._config, step_now,
+          reason=monitor.last_reason,
+          flight=(self._tracer.flight.dump() if self._tracer is not None
+                  else None))
       self._incidents.event('health_halt', step=step_now,
                             reason=monitor.last_reason, bundle=bundle)
       raise health_lib.TrainingDivergence(
@@ -417,6 +431,21 @@ class _HealthLadder:
           f'rollback escalation(s): {monitor.last_reason}. Diagnostic '
           f'bundle: {bundle}', bundle_path=bundle)
     return state, restored_step
+
+  def _flight_file(self, step_now: int) -> Optional[str]:
+    """The flight recorder dumped under <logdir>/diagnostics/ beside a
+    rollback (the pipeline's recent history, not only a counter total);
+    None without a tracer or when the write fails."""
+    if self._tracer is None:
+      return None
+    try:
+      out_dir = os.path.join(self._config.logdir, 'diagnostics')
+      os.makedirs(out_dir, exist_ok=True)
+      return self._tracer.flight.write(os.path.join(
+          out_dir, f'flight_rollback_step{step_now}.json'))
+    except OSError:
+      log.exception('flight-recorder dump failed')
+      return None
 
   def write_summaries(self, writer, step: int):
     if self.monitor is not None:
@@ -564,10 +593,29 @@ def train(config: Config, max_steps: Optional[int] = None, device='cuda',
   filler parks with a warning (`supports_filler`); a filler core that
   cannot take the task's head width raises at spin-up.
 
+  The telemetry plane: with telemetry_trace a PipelineTracer is installed
+  before the fleet starts; each unroll's span is stamped done (actor),
+  staged and serve (prefetcher) and step (here), and traces.jsonl
+  (traces_p{r}.jsonl off rank 0) gets one record per learner step with
+  the policy-lag vector; its flight recorder rides the halt bundle and a
+  rollback's dump. The loop's clocks and plane split are registry gauges
+  (`driver/*`), and the drain manifest carries the registry's snapshot.
+  lock_order_check arms the lock-order checker before any component
+  builds its locks; a detection is a durable `lock_order_inversion`
+  incident. The env_step fault site wraps each env (make_fleet), and
+  slow_learner fires once per learner step before the train step (a
+  `fault_slow_learner` incident); a health check that respawns actors
+  writes `actors_respawned` with their errors.
+
   `on_step(run, steps_done, metrics)` runs after each learner step
   (chip_smoke.py times and profiles with it). `device` defaults to CUDA
   and raises without it. Returns the TrainRun.
   """
+  # Arm before any component builds its locks (make_lock reads the
+  # armed state at construction), for both runtimes. Arm only: a False
+  # flag must not strip the LOCK_ORDER_CHECK environment's arming.
+  if config.lock_order_check:
+    lock_check.arm()
   if config.pbt_population >= 2:
     # The population owns its members' Anakin runs end to end.
     return train_population(config, max_steps=max_steps, device=device,
@@ -746,7 +794,7 @@ def train(config: Config, max_steps: Optional[int] = None, device='cuda',
 
   process_seed_base = rank * max(config.num_actors, 1000)
   buffer = server = fleet = prefetcher = writer = incidents = None
-  filler = None
+  filler = tracer = None
   try:
     # The replay tier retains consumed unrolls behind the FIFO; their
     # staleness counts in published param versions.
@@ -772,6 +820,15 @@ def train(config: Config, max_steps: Optional[int] = None, device='cuda',
     fleet = make_fleet(config, server.policy, buffer, levels,
                        server.initial_core_state,
                        seed_base=process_seed_base, tasks=fleet_tasks)
+    suffix = '' if rank == 0 else f'_p{rank}'
+    if config.telemetry_trace:
+      # Installed before the prefetcher's thread and the fleet start, so
+      # the first batch and the first unroll are traced.
+      tracer = telemetry.PipelineTracer(
+          config.logdir, filename=f'traces{suffix}.jsonl',
+          flight_capacity=config.telemetry_flight_len)
+      telemetry.set_tracer(tracer)
+    run.tracer = tracer
     prefetcher = ring_buffer.BatchPrefetcher(
         buffer, local_batch_size, place_fn=stage,
         depth=config.staging_depth, stack_fn=stack, stager=stager,
@@ -805,11 +862,13 @@ def train(config: Config, max_steps: Optional[int] = None, device='cuda',
                  'idle learner slices; fresh-frame clocks unchanged',
                  filler.backend, filler.stats()['batch_size'],
                  filler.stats()['unroll_length'])
-    suffix = '' if rank == 0 else f'_p{rank}'
     writer = observability.SummaryWriter(
         config.logdir, filename=f'summaries{suffix}.jsonl')
     incidents = observability.EventLog(
         config.logdir, filename=f'incidents{suffix}.jsonl')
+    # Lock-order detections land as durable incidents; cleared at
+    # teardown, before the stream closes.
+    lock_check.set_incident_sink(incidents.event)
     if topology is not None:
       incidents.event('topology_resharded', step=initial_steps, **topology)
     if rank == 0:
@@ -819,10 +878,11 @@ def train(config: Config, max_steps: Optional[int] = None, device='cuda',
     run.prefetcher, run.buffer = prefetcher, buffer
     fleet.start()
   except BaseException:
-    _teardown(fleet, prefetcher, server, buffer, writer, incidents)
+    _teardown(fleet, prefetcher, server, buffer, writer, incidents, tracer)
     raise
 
-  ladder = _HealthLadder(config, run.health, checkpointer, incidents, sdc)
+  ladder = _HealthLadder(config, run.health, checkpointer, incidents, sdc,
+                         tracer=tracer)
   episodes = observability.EpisodeStats(
       levels, writer=writer,
       benchmark=(config.level_name if config.level_name in suites.SUITES
@@ -843,6 +903,25 @@ def train(config: Config, max_steps: Optional[int] = None, device='cuda',
   drain_t0 = drain_deadline = 0.0
   last_filler_check = time.monotonic()
   last_filler_skipped = 0
+  # The loop's clocks, read by the registry live; unregistered at the
+  # end (the frames closure reaches the prefetcher).
+  loop_gauges = [
+      telemetry.gauge('driver/update_steps',
+                      fn=lambda: initial_steps + steps_done),
+      telemetry.gauge('driver/env_frames', fn=lambda: run.frames),
+  ]
+  planes = _PlaneSplit(config.num_actors)
+
+  def check_fleet():
+    """fleet.check_health, and an `actors_respawned` incident naming the
+    slots it respawned and their errors (read before the respawn
+    clears them)."""
+    errors = [f'{type(e).__name__}: {e}' for e in fleet.errors()]
+    respawned = fleet.check_health(stall_timeout_secs=stall_timeout_secs)
+    if respawned:
+      incidents.event('actors_respawned', step=initial_steps + steps_done,
+                      slots=respawned, errors=errors)
+    return respawned
 
   def stop_signals():
     """(the preempt_signal fault, the drain event): one fault event per
@@ -894,7 +973,7 @@ def train(config: Config, max_steps: Optional[int] = None, device='cuda',
           # fleet still surfaces while the filler keeps the learner busy.
           last_filler_check = now
           errors = fleet.errors() or errors
-          fleet.check_health(stall_timeout_secs=stall_timeout_secs)
+          check_fleet()
           if (stall_timeout_secs is not None and
               now - last_batch_time > max(3 * stall_timeout_secs, 30.0)):
             raise errors[0] if errors else TimeoutError(
@@ -911,7 +990,7 @@ def train(config: Config, max_steps: Optional[int] = None, device='cuda',
         # No data yet: surface actor failures instead of hanging. Read
         # the errors before check_health, whose respawn clears them.
         errors = fleet.errors() or errors
-        fleet.check_health(stall_timeout_secs=stall_timeout_secs)
+        check_fleet()
         if (stall_timeout_secs is not None and
             time.monotonic() - last_batch_time >
             max(3 * stall_timeout_secs, 30.0)):
@@ -941,10 +1020,20 @@ def train(config: Config, max_steps: Optional[int] = None, device='cuda',
       if poisoned:
         incidents.event('fault_nan_burst',
                         step=initial_steps + steps_done + 1)
+      # Fault site 'slow_learner': a stalled step; the buffer fills and
+      # the actors' puts block (backpressure), never unbounded queueing.
+      slept = faults_lib.maybe_slow_learner()
+      if slept is not None:
+        incidents.event('fault_slow_learner',
+                        step=initial_steps + steps_done + 1, secs=slept)
       state, metrics = train_step(run.state, batch)
       run.state = state
       steps_done += 1
       step_now = initial_steps + steps_done
+      if tracer is not None:
+        # The step consuming the oldest served batch was dispatched:
+        # its spans complete, and traces.jsonl gets the batch record.
+        tracer.on_step(step_now)
       # Under reuse: the fresh frames this batch's first serve credited
       # (0 on a re-serve), so fps stays an env-frame rate.
       fps_meter.update(max(run.frames - frames, 0) if run.env_frames_fn
@@ -966,6 +1055,9 @@ def train(config: Config, max_steps: Optional[int] = None, device='cuda',
         last_publish_step = step_now
         # The replay tier's staleness clock.
         buffer.note_param_version(step_now)
+        if tracer is not None:
+          # The local publish clock that policy lag counts in.
+          tracer.on_publish(step_now)
 
       now = time.monotonic()
       if now - last_summary >= config.summary_secs:
@@ -974,6 +1066,9 @@ def train(config: Config, max_steps: Optional[int] = None, device='cuda',
             writer, incidents, step_now, metrics, fps_meter,
             action_counts_acc, fleet, buffer, server, prefetcher,
             last_quarantined, stall_timeout_secs)
+        planes.write(writer, step_now, buffer, prefetcher, fleet,
+                     stall_timeout_secs)
+        _write_telemetry_summaries(writer, tracer, step_now)
         ladder.write_summaries(writer, step_now)
         last_filler_skipped = _write_filler_summaries(
             writer, incidents, filler, step_now, last_filler_skipped,
@@ -983,7 +1078,7 @@ def train(config: Config, max_steps: Optional[int] = None, device='cuda',
                      grouped)
       # Respawn dead or stalled actors, and spawn slots a resize
       # unparked, once per step (as the JAX loop does).
-      fleet.check_health(stall_timeout_secs=stall_timeout_secs)
+      check_fleet()
       run.step_log.append({'time': time.monotonic(),
                            'get_wait_secs':
                                prefetcher.stats()['wait_secs']})
@@ -995,6 +1090,9 @@ def train(config: Config, max_steps: Optional[int] = None, device='cuda',
                        metrics, fps_meter, action_counts_acc, fleet, buffer,
                        server, prefetcher, last_quarantined,
                        stall_timeout_secs)
+      planes.write(writer, initial_steps + steps_done, buffer, prefetcher,
+                   fleet, stall_timeout_secs)
+      _write_telemetry_summaries(writer, tracer, initial_steps + steps_done)
       ladder.write_summaries(writer, initial_steps + steps_done)
       _write_filler_summaries(writer, incidents, filler,
                               initial_steps + steps_done,
@@ -1008,10 +1106,14 @@ def train(config: Config, max_steps: Optional[int] = None, device='cuda',
           popart_lib.stats_summary(run.state.popart, levels)))
   finally:
     run.stats = _teardown(fleet, prefetcher, server, buffer, writer,
-                          incidents)
+                          incidents, tracer)
+    for gauge in loop_gauges + planes.gauges():
+      telemetry.registry().unregister(gauge.name, gauge)
     if filler is not None:
       run.stats['filler'] = filler.stats()
+      filler.close()
     _final_save(checkpointer, ladder, run.state, grouped)
+    checkpointer.close()
   return run
 
 
@@ -1043,6 +1145,9 @@ def _finish_drain(config, run, ladder, checkpointer, incidents, writer,
   save (withheld mid-burst, as every save is) and write the manifest."""
   quiesce = run.fleet.quiesce(
       timeout=max(1.0, drain_deadline - time.monotonic()))
+  # The prefetcher's close unregisters its staging/* gauges: read them
+  # first; the snapshot after the save below updates the rest.
+  metrics = telemetry.registry().snapshot()
   run.prefetcher.close()
   buffer_stats = run.buffer.stats()
   if ladder.healthy:
@@ -1068,8 +1173,11 @@ def _finish_drain(config, run, ladder, checkpointer, incidents, writer,
                  if ladder.monitor is not None else None),
       # The filler's ledger when one ran.
       'filler': filler.stats() if filler is not None else None,
-      # Planes the port does not have yet (A7.4).
-      'metrics': None, 'slo': None, 'controller': None,
+      # The registry's snapshot: the one source the flight recorder
+      # reads too. The SLO engine and the controller are ROADMAP
+      # A7.4's second part.
+      'metrics': dict(metrics, **telemetry.registry().snapshot()),
+      'slo': None, 'controller': None,
       'drain_source': drain_source,
       'drain_latency_secs': round(latency, 3),
       'wall_time': round(time.time(), 3),
@@ -1115,9 +1223,11 @@ def train_anakin(config: Config, max_steps: Optional[int] = None,
   writes the logdir and the checkpoints; the save decision is rank 0's,
   checked every checkpoint_check_every_steps steps; the verdicts come
   from the all-reduced metrics, so every rank rolls back in the same
-  step. The JAX runtime's SLO engine and profiler capture (ROADMAP A7.4)
-  are not here. Returns a TrainRun whose fleet, server and prefetcher
-  are None."""
+  step. The loop's clocks are registry gauges (`driver/*`; both planes
+  pinned at 1.0, since acting and learning are one fused step), and with
+  a curriculum the latest summarised `curriculum/*` digests. The JAX
+  runtime's SLO engine and profiler capture (ROADMAP A7.4) are not here.
+  Returns a TrainRun whose fleet, server and prefetcher are None."""
   from scalable_agent_tpu_torch.parallel import anakin as anakin_lib
   for warning in validate_runtime(config) + validate_population(config):
     log.warning('%s', warning)
@@ -1159,6 +1269,36 @@ def train_anakin(config: Config, max_steps: Optional[int] = None,
   metrics = None
   last_summary = time.monotonic()
   summarised_step = initial_steps
+  # The registry's view of the loop, under train()'s names. The plane
+  # split is a fleet's: in the fused step both planes are busy whenever
+  # the loop is, so both gauges read 1.0.
+  loop_gauges = [
+      telemetry.gauge('driver/update_steps',
+                      fn=lambda: initial_steps + steps_done),
+      telemetry.gauge('driver/env_frames',
+                      fn=lambda: (initial_steps + steps_done) *
+                      config.frames_per_step),
+      telemetry.gauge('driver/env_plane_utilization', fn=lambda: 1.0),
+      telemetry.gauge('driver/learner_plane_utilization',
+                      fn=lambda: 1.0),
+  ]
+  # The curriculum's digests as of the last summary (no extra device
+  # read).
+  curriculum_latest: Dict[str, float] = {}
+  if config.curriculum != 'uniform':
+    loop_gauges += [
+        telemetry.gauge(
+            'curriculum/entropy',
+            fn=lambda: curriculum_latest.get('curriculum_entropy', 0.0)),
+        telemetry.gauge(
+            'curriculum/levels_visited',
+            fn=lambda: curriculum_latest.get('curriculum_levels_visited',
+                                             0.0)),
+        telemetry.gauge(
+            'curriculum/score_max',
+            fn=lambda: curriculum_latest.get('curriculum_score_max',
+                                             0.0)),
+    ]
 
   def flush(step_now):
     if writer is None:
@@ -1166,6 +1306,9 @@ def train_anakin(config: Config, max_steps: Optional[int] = None,
     keys = ['total_loss', 'mean_reward', 'learning_rate']
     if curriculum:
       keys += sorted(k for k in metrics if k.startswith('curriculum_'))
+      curriculum_latest.update(
+          {k: float(metrics[k]) for k in keys
+           if k.startswith('curriculum_')})
     writer.scalars({k: float(metrics[k]) for k in keys}, step_now)
     writer.scalar('env_frames_per_sec', fps_meter.fps(), step_now)
     ladder.write_summaries(writer, step_now)
@@ -1223,6 +1366,9 @@ def train_anakin(config: Config, max_steps: Optional[int] = None,
       for stream in (writer, incidents):
         if stream is not None:
           stream.close()
+      for gauge in loop_gauges:
+        telemetry.registry().unregister(gauge.name, gauge)
+      checkpointer.close()
   run.carry = carry
   return run
 
@@ -1292,8 +1438,10 @@ class _PopulationLog:
   """The population's parent-logdir record, as the JAX driver writes
   it: `population_summaries.jsonl` (one row per member per round),
   `PBT_LOG.json` (every round's returns, hypers and decisions, then the
-  winner), the `population/*` summary scalars and the `pbt_exploit` /
-  `pbt_winner` incidents."""
+  winner), the `population/*` summary scalars, mirrored in the registry's
+  `population/*` gauges from the first scoring on (a gauge before any
+  member has a return would read a placeholder; unregistered at close),
+  and the `pbt_exploit` / `pbt_winner` incidents."""
 
   def __init__(self, config: Config, suites, num_rounds: int,
                vectorized: bool):
@@ -1303,6 +1451,8 @@ class _PopulationLog:
     self.incidents = observability.EventLog(config.logdir)
     self.num_rounds = num_rounds
     self.exploits = 0
+    self._latest: Dict[str, float] = {}
+    self._gauges: List = []
     self.log = {'population': config.pbt_population, 'suites': list(suites),
                 'round_frames': config.resolved_pbt_round_frames,
                 'num_rounds': num_rounds, 'quantile': config.pbt_quantile,
@@ -1322,9 +1472,22 @@ class _PopulationLog:
   def scored(self, target: int, returns, groups):
     per_suite_best = {g: max(returns[i] for i in range(len(returns))
                              if groups[i] == g) for g in set(groups)}
+    self._latest.update(task_return_min=min(per_suite_best.values()),
+                        best_return=max(returns))
+    if not self._gauges:
+      self._gauges = [
+          telemetry.gauge(
+              'population/task_return_min',
+              fn=lambda: self._latest.get('task_return_min', 0.0)),
+          telemetry.gauge(
+              'population/best_return',
+              fn=lambda: self._latest.get('best_return', 0.0)),
+          telemetry.gauge('population/exploits_total',
+                          fn=lambda: float(self.exploits)),
+      ]
     self.writer.scalars({
-        'population/task_return_min': min(per_suite_best.values()),
-        'population/best_return': max(returns)}, target)
+        'population/task_return_min': self._latest['task_return_min'],
+        'population/best_return': self._latest['best_return']}, target)
 
   def exploit(self, r: int, target: int, k: int, decision, members,
               returns, how: str):
@@ -1364,6 +1527,8 @@ class _PopulationLog:
   def close(self):
     self.writer.close()
     self.incidents.close()
+    for gauge in self._gauges:
+      telemetry.registry().unregister(gauge.name, gauge)
 
 
 def _initial_members(config: Config, rng: np.random.Generator, suites):
@@ -1572,6 +1737,7 @@ def _train_population_fused(config: Config, max_steps: Optional[int] = None,
   record = _PopulationLog(config, suites, _num_rounds(config),
                           vectorized=True)
   member_writers = []
+  loop_gauges: List = []
   try:
     for c in member_configs:
       with open(os.path.join(c.logdir, 'config.json'), 'w') as f:
@@ -1584,6 +1750,18 @@ def _train_population_fused(config: Config, max_steps: Optional[int] = None,
     steps_done = 0
     last_summary = time.monotonic()
     metrics = None
+    # train_anakin's registry view of the loop, the frames over all n
+    # members.
+    loop_gauges.extend([
+        telemetry.gauge('driver/update_steps',
+                        fn=lambda: initial_steps + steps_done),
+        telemetry.gauge('driver/env_frames',
+                        fn=lambda: (initial_steps + steps_done) *
+                        config.frames_per_step * n),
+        telemetry.gauge('driver/env_plane_utilization', fn=lambda: 1.0),
+        telemetry.gauge('driver/learner_plane_utilization',
+                        fn=lambda: 1.0),
+    ])
 
     def flush_members(step_now):
       values = {key: v.tolist() for key, v in metrics.items()}
@@ -1641,6 +1819,8 @@ def _train_population_fused(config: Config, max_steps: Optional[int] = None,
     for writer in member_writers:
       writer.close()
     record.close()
+    for gauge in loop_gauges:
+      telemetry.registry().unregister(gauge.name, gauge)
 
 
 def eval_partition(num_levels: int, world: int, rank: int):
@@ -1880,10 +2060,12 @@ def _write_summaries(writer, incidents, step, metrics, fps_meter,
   return quarantined
 
 
-def _teardown(fleet, prefetcher, server, buffer, writer, incidents):
+def _teardown(fleet, prefetcher, server, buffer, writer, incidents,
+              tracer=None):
   """Stop what was built, most-blocking first, each step on its own (one
   failure does not skip the rest); returns the final stats of what was
-  running."""
+  running. The lock-order sink is cleared before the incident stream
+  closes, and the tracer uninstalled and closed last."""
   stats = {}
 
   def attempt(name, fn):
@@ -1911,7 +2093,82 @@ def _teardown(fleet, prefetcher, server, buffer, writer, incidents):
     attempt('fleet_stop', lambda: fleet.stop(timeout=10.0))
   if prefetcher is not None:
     attempt(None, prefetcher.close)
+  attempt(None, lambda: lock_check.set_incident_sink(None))
   for stream in (writer, incidents):
     if stream is not None:
       attempt(None, stream.close)
+  if tracer is not None:
+    attempt(None, lambda: telemetry.set_tracer(None))
+    attempt('trace', tracer.stats)
+    attempt(None, tracer.close)
   return stats
+
+
+class _PlaneSplit:
+  """The summary block's utilization split, as the JAX loop computes it,
+  over each summary interval: the learner plane's share of the wall
+  time not blocked on the feed (the prefetcher's wait), and the env
+  plane's share not parked on the buffer's backpressure (the actors'
+  summed put waits over `num_actors` producers). Written as the
+  `learner_plane_utilization` and `env_plane_utilization` scalars and
+  mirrored, with the fleet's healthy fraction, in the registry's
+  `driver/*` gauges, registered at the first interval (a 0.0 before any
+  measurement would read as a dead plane)."""
+
+  def __init__(self, num_actors: int):
+    self._producers = max(int(num_actors), 1)
+    self._last = None  # (time, feed wait secs, put wait secs)
+    self._gauges: Dict[str, telemetry.Gauge] = {}
+
+  def _set(self, name: str, value: float):
+    gauge = self._gauges.get(name)
+    if gauge is None:
+      # Literal registration names: the name-parity test reads them.
+      if name == 'env':
+        gauge = telemetry.gauge('driver/env_plane_utilization')
+      elif name == 'learner':
+        gauge = telemetry.gauge('driver/learner_plane_utilization')
+      else:
+        gauge = telemetry.gauge('driver/fleet_healthy_fraction')
+      self._gauges[name] = gauge
+    gauge.set(value)
+
+  def write(self, writer, step: int, buffer, prefetcher, fleet,
+            stall_timeout_secs):
+    now = time.monotonic()
+    snap = (now, prefetcher.stats()['wait_secs'],
+            buffer.stats()['put_wait_secs'])
+    last, self._last = self._last, snap
+    if last is None:
+      return
+    interval = now - last[0]
+    if interval <= 0:
+      return
+    learner = min(max(1.0 - (snap[1] - last[1]) / interval, 0.0), 1.0)
+    env = min(max(1.0 - (snap[2] - last[2]) /
+                  (interval * self._producers), 0.0), 1.0)
+    writer.scalars({'learner_plane_utilization': learner,
+                    'env_plane_utilization': env}, step)
+    self._set('env', env)
+    self._set('learner', learner)
+    self._set('fleet', fleet.stats(healthy_horizon_secs=(
+        60.0 if stall_timeout_secs is None
+        else stall_timeout_secs))['healthy_fraction'])
+
+  def gauges(self) -> List:
+    return list(self._gauges.values())
+
+
+def _write_telemetry_summaries(writer, tracer, step: int):
+  """The telemetry plane's summary scalars: the live policy-lag and
+  end-to-end span percentiles (NaN until traffic flows), the untagged
+  unrolls and the flight recorder's occupancy, one registry snapshot
+  into the flight recorder; and the process-wide dropped JSONL
+  writes."""
+  if tracer is not None:
+    writer.scalars(tracer.span_percentiles(), step)
+    writer.scalar('trace_untagged_unrolls',
+                  tracer.stats()['untagged_unrolls'], step)
+    tracer.flight.note_registry(telemetry.registry().snapshot())
+    writer.scalar('trace_flight_records', len(tracer.flight), step)
+  writer.scalar('dropped_writes', telemetry.dropped_writes_total(), step)

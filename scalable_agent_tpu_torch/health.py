@@ -27,8 +27,9 @@ adds under data parallelism from the replicas' param fingerprints
 (parallel/train_parallel.make_sdc_fingerprint_fn), read one step late
 like the other sentinels (`read_fingerprints`). The PopArt detectors
 read `popart_sigma_min` and `popart_sigma_max`, which the learner step
-emits with use_popart (learner.apply_gradients). The flight recorder of
-the halt bundle waits for the telemetry plane (A7.4).
+emits with use_popart (learner.apply_gradients). The ladder's counters
+are registry gauges (`health/*`), and the halt bundle carries the
+telemetry flight recorder's dump when the caller passes it.
 """
 
 import collections
@@ -43,6 +44,8 @@ from typing import Dict, List, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
+
+from scalable_agent_tpu_torch import telemetry
 
 # Verdicts (strings: they go straight into logs and JSONL).
 OK = 'ok'
@@ -164,6 +167,16 @@ class HealthMonitor:
     # Incidents other planes report (counted per kind; not verdicts).
     self._external: Dict[str, int] = {}
     self._external_lock = threading.Lock()
+    # The registry's view of the ladder's counters: the drain manifest
+    # and the flight recorder read the numbers the summaries carry.
+    telemetry.gauge('health/skipped_steps',
+                    fn=lambda: self.skipped_steps)
+    telemetry.gauge('health/flagged_steps',
+                    fn=lambda: self.flagged_steps)
+    telemetry.gauge('health/rollbacks', fn=lambda: self.rollbacks)
+    telemetry.gauge('health/halts', fn=lambda: self.halts)
+    telemetry.gauge('health/sdc_mismatches',
+                    fn=lambda: self.sdc_mismatches)
 
   # --- detectors ---
 
@@ -299,9 +312,12 @@ class HealthMonitor:
   # --- diagnostics ---
 
   def write_halt_bundle(self, logdir: str, config, step: int,
-                        reason: str) -> str:
+                        reason: str, flight=None) -> str:
     """The halt bundle: the last window of checks, the counters, the
-    config and the versions, as one JSON under <logdir>/diagnostics/."""
+    config and the versions, as one JSON under <logdir>/diagnostics/.
+    `flight` is the telemetry flight recorder's dump (the latest trace
+    records and registry snapshots), so the halt ships the pipeline's
+    recent history too."""
     bundle = {
         'reason': reason,
         'step': int(step),
@@ -312,6 +328,8 @@ class HealthMonitor:
         if dataclasses.is_dataclass(config) else dict(config or {}),
         'versions': _versions(),
     }
+    if flight is not None:
+      bundle['flight'] = flight
     out_dir = os.path.join(logdir, 'diagnostics')
     os.makedirs(out_dir, exist_ok=True)
     path = os.path.join(out_dir, f'health_halt_step{int(step)}.json')

@@ -12,13 +12,15 @@ instead of reporting corruption that is not there.
 `spec_table_digest` is the CRC of a checkpoint's sharding manifest
 (checkpoint.py's SHARDING_<step>.json), `tree_digest` that of a tree of
 host arrays (the replay tier's insert-time digest of an unroll,
-runtime/ring_buffer.py). The JAX module's telemetry counters belong to
-the metrics registry (ROADMAP A7.4): not here yet.
+runtime/ring_buffer.py). The registry counts the digests made and says
+whether the zlib fallback runs (`integrity/*`).
 """
 
 from typing import Dict, Iterator, Optional, Tuple
 
 import numpy as np
+
+from scalable_agent_tpu_torch import telemetry
 
 try:
   import google_crc32c as _crc32c_lib
@@ -57,6 +59,14 @@ class Crc:
     return self
 
 
+# How much content hashing the integrity plane does, and whether this
+# host runs the slower zlib fallback.
+_TREE_DIGESTS = telemetry.counter('integrity/tree_digests')
+_FILE_DIGESTS = telemetry.counter('integrity/file_digests')
+telemetry.gauge('integrity/crc_algo_is_fallback',
+                fn=lambda: 0 if CRC_ALGO == 'crc32c' else 1)
+
+
 def _leaves(tree) -> Iterator:
   """The leaves of a tree of (named) tuples, lists and dicts, depth
   first, dicts by sorted key and None skipped: JAX's flatten order."""
@@ -76,6 +86,7 @@ def tree_digest(tree) -> int:
   """Content CRC of a tree of host arrays in flatten order. Each leaf
   adds its dtype name and shape to the stream, so a reshaped or recast
   tree never collides with the original."""
+  _TREE_DIGESTS.inc()
   crc = Crc()
   for leaf in _leaves(tree):
     arr = np.asarray(leaf)
@@ -88,6 +99,7 @@ def tree_digest(tree) -> int:
 
 def file_digest(path: str, chunk_bytes: int = 1 << 20) -> int:
   """Content CRC of one file (the checkpoint's bit-rot ledger)."""
+  _FILE_DIGESTS.inc()
   crc = Crc()
   with open(path, 'rb') as f:
     while True:

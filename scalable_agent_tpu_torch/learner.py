@@ -60,10 +60,18 @@ import torch
 
 from scalable_agent_tpu_torch import losses as losses_lib
 from scalable_agent_tpu_torch import popart as popart_lib
+from scalable_agent_tpu_torch import telemetry
 from scalable_agent_tpu_torch import unreal
 from scalable_agent_tpu_torch import vtrace
 from scalable_agent_tpu_torch.config import Config
 from scalable_agent_tpu_torch.structs import ActorOutput, map_structure
+
+# Registered once at import: the registry replaces by name, so a
+# registration per build would reset the count. A climbing build count
+# mid-run means the step is rebuilt on the hot path; frames_per_step is
+# the constant trace_report's throughput arithmetic divides by.
+_STEP_FN_BUILDS = telemetry.counter('learner/step_fn_builds')
+_FRAMES_PER_STEP = telemetry.gauge('learner/frames_per_step')
 
 
 class RMSPropState(NamedTuple):
@@ -555,6 +563,8 @@ def make_train_step_fn(agent, config: Config, mesh=None):
   With `mesh` the batch is this rank's shard (parallel/train_parallel.py
   places it), the gradients, losses and PopArt batch moments are summed
   over the ranks, and the metrics are the global batch's."""
+  _STEP_FN_BUILDS.inc()
+  _FRAMES_PER_STEP.set(config.frames_per_step)
   schedule = make_schedule(config)
 
   def train_step(state: TrainState, batch: ActorOutput):

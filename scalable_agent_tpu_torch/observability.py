@@ -10,52 +10,30 @@ writes. Episode statistics travel through the trajectory as
 `StepOutputInfo`; `EpisodeStats` reads finished episodes out of each
 batch the learner consumes.
 
+`LatencyReservoir` is the seconds-native veneer over
+`telemetry.Histogram` (the inference server's admission waits).
 `cuda_median_ms` and `profiled_device_us` are the port's own: the kernel
 timers of chip_smoke.py and the port's scripts.
 """
 
 import collections
-import json
-import os
 import statistics
-import threading
 import time
 from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
 
+from scalable_agent_tpu_torch import telemetry
 from scalable_agent_tpu_torch.envs import suites
 
 
-class _JsonlAppender:
-  """Append-only, line-buffered JSONL file (thread-safe). A write after
-  close() is dropped and counted on `dropped_writes`, never raised."""
-
-  def __init__(self, logdir: str, filename: str):
-    os.makedirs(logdir, exist_ok=True)
-    self.path = os.path.join(logdir, filename)
-    self._file = open(self.path, 'a', buffering=1)
-    self._lock = threading.Lock()
-    self._closed = False
-    self.dropped_writes = 0
-
-  def write(self, record, durable: bool = False, default=None):
-    line = json.dumps(record, default=default) + '\n'
-    with self._lock:
-      if self._closed:
-        self.dropped_writes += 1
-        return
-      self._file.write(line)
-      if durable:
-        self._file.flush()
-        os.fsync(self._file.fileno())
-
-  def close(self):
-    with self._lock:
-      if not self._closed:
-        self._closed = True
-        self._file.close()
+class _JsonlAppender(telemetry.JsonlAppender):
+  """Append-only, line-buffered JSONL file (thread-safe). One
+  implementation, telemetry.JsonlAppender, writes the summaries, the
+  incidents and the tracer's traces.jsonl: a write after close() is
+  dropped and counted on `dropped_writes` and on the registry's
+  'observability/dropped_writes', never raised."""
 
 
 class SummaryWriter(_JsonlAppender):
@@ -194,6 +172,32 @@ class EpisodeStats:
     if self._writer is not None:
       self._writer.scalars(self.last_scores, step)
     self._level_returns = {name: [] for name in self._level_names}
+
+
+class LatencyReservoir:
+  """Bounded recent-sample reservoir for latency percentiles
+  (thread-safe): seconds in, p50/p99 out, for consumers that want the
+  seconds-native API without a registry name (inference admission
+  waits). A veneer over `telemetry.Histogram`, so the registry's
+  numbers and this surface share one bounded-window / nearest-rank /
+  NaN-on-empty implementation."""
+
+  def __init__(self, maxlen: int = 4096):
+    self._hist = telemetry.Histogram('latency_reservoir', maxlen=maxlen)
+
+  def record(self, seconds: float):
+    self._hist.observe(float(seconds))
+
+  @property
+  def count(self) -> int:
+    return self._hist.count
+
+  def percentiles(self, *qs: float) -> Tuple[float, ...]:
+    return self._hist.percentiles(*qs)
+
+  def percentile_ms(self, *qs: float) -> Tuple[float, ...]:
+    """`percentiles`, in rounded milliseconds."""
+    return tuple(round(v * 1e3, 3) for v in self.percentiles(*qs))
 
 
 def cuda_median_ms(fn, repeats: int, warmup: int = 10) -> float:

@@ -19,6 +19,7 @@ from typing import List, Optional, Sequence
 
 import numpy as np
 
+from scalable_agent_tpu_torch.analysis.runtime import guarded_by, make_lock
 from scalable_agent_tpu_torch.ops import build
 
 # Return codes mirroring batcher.cc's enum Rc.
@@ -99,13 +100,16 @@ def _pointers_and_row_bytes(arrays):
 class Batcher:
   """Handle over the C++ batcher for one family of input tensors."""
 
+  _in_meta: guarded_by('_meta_lock')
+  _out_meta: guarded_by('_meta_lock')
+
   def __init__(self, num_tensors: int, minimum_batch_size: int = 1,
                maximum_batch_size: int = 1024, timeout_ms: int = 100):
     self._lib = library()
     self._h = self._lib.batcher_create(
         minimum_batch_size, maximum_batch_size, timeout_ms, num_tensors)
     self._num_tensors = num_tensors
-    self._meta_lock = threading.Lock()
+    self._meta_lock = make_lock('dynamic_batching.Batcher._meta_lock')
     # dtype/trailing shape per input tensor, fixed by the first call and
     # published under the lock before compute_begin; the computation
     # thread reads it after get_batch (the C++ mutex orders the two).

@@ -60,6 +60,7 @@ from scalable_agent_tpu_torch import driver
 from scalable_agent_tpu_torch import learner
 from scalable_agent_tpu_torch import observability
 from scalable_agent_tpu_torch import population
+from scalable_agent_tpu_torch import telemetry
 from scalable_agent_tpu_torch.config import Config
 from scalable_agent_tpu_torch.envs import jittable
 from scalable_agent_tpu_torch.models import init_params
@@ -684,7 +685,9 @@ class HybridFiller:
   numbering stay on the fleet's fresh frames; the filler's updates and
   frames are counted here, apart. Its env, pending outputs, LSTM carry
   and generators persist here across fill steps, seeded from
-  config.seed + 7777. Data-parallel only: a model-axis mesh raises."""
+  config.seed + 7777. Data-parallel only: a model-axis mesh raises. Its
+  updates also count on the registry's `driver/filler_updates`, which
+  close() unregisters."""
 
   def __init__(self, agent, config: Config, num_actions: int, device,
                mesh=None):
@@ -712,6 +715,7 @@ class HybridFiller:
     self.backend = backend
     self.updates = 0
     self.skipped = 0
+    self._counter = telemetry.counter('driver/filler_updates')
     self.frames_per_update = (self._config.batch_size *
                               self._config.unroll_length *
                               config.num_action_repeats)
@@ -733,6 +737,7 @@ class HybridFiller:
     else:
       float(metrics['total_loss'])  # the step's completion
     self.updates += 1
+    self._counter.inc()
     self._env = EnvCarry(*carry[1:])
     return carry.train_state
 
@@ -741,3 +746,9 @@ class HybridFiller:
             'skipped': self.skipped, 'backend': self.backend,
             'batch_size': self._config.batch_size,
             'unroll_length': self._config.unroll_length}
+
+  def close(self):
+    """Unregister the per-run counter (identity-checked: closing an old
+    filler never evicts a newer one's registration), so a later run in
+    the process does not snapshot this run's tally."""
+    telemetry.registry().unregister(self._counter.name, self._counter)

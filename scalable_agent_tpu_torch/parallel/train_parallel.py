@@ -32,9 +32,17 @@ collectives are explicit:
   gloo has no reduce-scatter, so both are built from all-gather,
   all-reduce and broadcast.
 
+The sharded step runs its forward and backward under `pinned_cudnn`:
+cuDNN's deterministic algorithms, as the reference's step repeats
+exactly. Free to pick, cuDNN chose other algorithms for the blocked
+layers' narrower convolutions from run to run, and the step's params
+moved by up to 1.8 of the parameter gate between runs on the same state
+(ROADMAP C4). The flag reaches only cuDNN, that is, the convolutions.
+
 Not carried over: the jaxlib workarounds (the donation self-heal).
 """
 
+import contextlib
 import logging
 from typing import List
 
@@ -59,6 +67,21 @@ def resolve_tp_compute(config: Config) -> str:
   gathered one's time per row (PERF.md). The choice waits for a
   measurement of NCCL across separate cards."""
   return 'gathered' if config.tp_compute == 'auto' else config.tp_compute
+
+
+@contextlib.contextmanager
+def pinned_cudnn():
+  """cuDNN's deterministic algorithms, no autotuning, inside the block;
+  the global flags as they were on the way out, raise or not. The flags
+  are process-wide: a thread that runs convolutions meanwhile (the
+  fleet's inference server) runs them under the pin too."""
+  cudnn = torch.backends.cudnn
+  saved = cudnn.deterministic, cudnn.benchmark
+  cudnn.deterministic, cudnn.benchmark = True, False
+  try:
+    yield
+  finally:
+    cudnn.deterministic, cudnn.benchmark = saved
 
 
 def param_layout(agent, config: Config, mesh, registry=None
@@ -187,13 +210,14 @@ def make_sharded_train_step(agent, config: Config, mesh, example_batch,
   def sharded_step(state, batch):
     rows = gather_rows(mesh, batch) if over_model else batch
     params = state.params
-    total_loss, metrics, aux = learner.loss_fn(
-        agent, rows, config, mesh=mesh, params=params, tp=tp,
-        vtrace_axis=sharding.DATA_AXIS, popart_state=state.popart,
-        target_params=state.target_params,
-        target_popart=state.target_popart)
-    grads = dict(zip(params, torch.autograd.grad(total_loss,
-                                                 list(params.values()))))
+    with pinned_cudnn():
+      total_loss, metrics, aux = learner.loss_fn(
+          agent, rows, config, mesh=mesh, params=params, tp=tp,
+          vtrace_axis=sharding.DATA_AXIS, popart_state=state.popart,
+          target_params=state.target_params,
+          target_popart=state.target_popart)
+      grads = dict(zip(params, torch.autograd.grad(
+          total_loss, list(params.values()))))
     with torch.no_grad():
       grads, metrics, moments = learner._all_reduce_sum(
           mesh, grads, metrics, moments=learner.popart_moments(state, aux))

@@ -16,13 +16,19 @@ Everything here is host numpy; the policy (runtime/inference.py
 policy state is the numeric carry, or in the server's state-cache mode
 an opaque slot handle (`snapshot`, `write`, `release`): the actor reads
 its carry once per unroll, at the start, and releases the slot on exit.
+
+With tracing on in the process (a PipelineTracer installed, telemetry.py)
+each completed unroll gets a fresh trace context, stamped `done` and
+carried beside the unroll in the identity-keyed sidecar.
 """
 
+import threading
 import time
 from typing import Callable, Optional
 
 import numpy as np
 
+from scalable_agent_tpu_torch import telemetry
 from scalable_agent_tpu_torch.structs import (ActorOutput, AgentOutput,
                                               StepOutput, StepOutputInfo,
                                               map_structure)
@@ -158,7 +164,9 @@ def run_actor_loop(actor: Actor, buffer, stop_event,
     `on_failure(exc)` replaces that (the fleet records it on its slot).
 
   `on_unroll()` runs after each put; returning False ends the loop. The
-  actor is closed on every exit.
+  actor is closed on every exit. With tracing on, each unroll's trace
+  (actor id: the thread's name; the loop's sequence number; the
+  behaviour params version) is stamped `done` and tagged to it.
   """
   from scalable_agent_tpu_torch.ops.dynamic_batching import BatcherCancelled
   from scalable_agent_tpu_torch.runtime import ring_buffer
@@ -169,9 +177,17 @@ def run_actor_loop(actor: Actor, buffer, stop_event,
       raise exc
     on_failure(exc)
 
+  actor_name = threading.current_thread().name
+  unroll_seq = 0
+
   try:
     while not stop_event.is_set():
       unroll = actor.unroll()
+      trace = telemetry.begin_unroll_trace(actor_name, unroll_seq)
+      if trace is not None:
+        telemetry.stamp(trace, telemetry.HOP_DONE)
+        telemetry.tag_unroll(unroll, trace)
+      unroll_seq += 1
       stop_deadline = None
       while True:
         try:

@@ -12,6 +12,10 @@ with `SA_FAULT_PLAN` (the plan as JSON) installs it with
 
 The sites this port fires, each on the real code path:
 
+  env_step          FaultyEnv (driver.make_fleet wraps each env when a
+                    plan covers the site): 'raise' crashes the step, so
+                    the fleet's respawn path runs; 'hang' wedges it for
+                    `param` seconds.
   checkpoint_save   Checkpointer.save: the step just written is damaged
                     on disk (its files truncated to half) and LAST_GOOD
                     does not advance — a save killed mid-write; the
@@ -32,6 +36,11 @@ The sites this port fires, each on the real code path:
                     admission) even with slots free; a parked waiter
                     re-checks the real free list on its next backoff
                     tick, so the detour is bounded.
+  slow_learner      driver.train's loop, one event per learner step
+                    before the train step: 'hang' sleeps `param`
+                    seconds, so the trajectory buffer fills and the
+                    actors' puts block (backpressure, buffer/put_waits)
+                    instead of queueing without bound.
   replica_divergence  the fleet loop under data parallelism, one event
                     per health check with the SDC sentinel on: a fired
                     fault perturbs one replica's lane of the fingerprint
@@ -40,8 +49,12 @@ The sites this port fires, each on the real code path:
 
 `SITES` is the JAX package's full tuple, so a plan validates the same
 way in both packages; `install` refuses a plan that schedules a fault at
-a site the port does not fire yet (the env and transport sites: ROADMAP
-A7.3), rather than accept it and never fire it.
+a site the port does not fire yet (the transport sites: ROADMAP A7.3),
+rather than accept it and never fire it.
+
+Event counters are global per site: when several actor threads share
+'env_step', which thread draws the firing index depends on scheduling,
+but the number and kind of faults fired is the schedule's.
 """
 
 import dataclasses
@@ -49,6 +62,7 @@ import json
 import logging
 import os
 import threading
+import time
 from typing import Dict, List, Optional
 
 import numpy as np
@@ -65,8 +79,9 @@ SITES = ('env_step', 'transport_send', 'checkpoint_save', 'nan_burst',
          'replica_divergence')
 
 # The sites this port fires (see the module docstring).
-PORTED_SITES = ('checkpoint_save', 'ckpt_bitrot', 'nan_burst',
-                'preempt_signal', 'replica_divergence', 'slot_exhaustion')
+PORTED_SITES = ('checkpoint_save', 'ckpt_bitrot', 'env_step', 'nan_burst',
+                'preempt_signal', 'replica_divergence', 'slot_exhaustion',
+                'slow_learner')
 
 PLAN_ENV_VAR = 'SA_FAULT_PLAN'
 
@@ -109,6 +124,11 @@ class FaultPlan:
     return sorted((f for per in self._table.values()
                    for f in per.values()),
                   key=lambda f: (f.site, f.index))
+
+  def covers(self, site: str) -> bool:
+    """Whether any fault targets `site` (whether envs get wrapped at
+    all: an uncovered site costs nothing)."""
+    return bool(self._table.get(site))
 
   def fire(self, site: str) -> Optional[Fault]:
     """Advance `site`'s event counter; return the fault scheduled at
@@ -259,6 +279,64 @@ def fire(site: str) -> Optional[Fault]:
   if plan is None:
     return None
   return plan.fire(site)
+
+
+# --- site: env_step ---
+
+
+class FaultyEnv:
+  """An env wrapper that consults the plan on every step.
+
+  'raise' raises an InjectedFault out of env.step, the shape of an env
+  crash (the fleet's respawn path runs). 'hang' sleeps `param` seconds
+  inside the step, the shape of a wedged simulator (the heartbeat goes
+  stale). Unknown kinds fall through to the plain step."""
+
+  def __init__(self, env):
+    self._env = env
+
+  def initial(self):
+    return self._env.initial()
+
+  def step(self, action):
+    fault = fire('env_step')
+    if fault is not None:
+      if fault.kind == 'raise':
+        raise InjectedFault('env_step: injected crash')
+      if fault.kind == 'hang':
+        time.sleep(float(fault.param))
+    return self._env.step(action)
+
+  def close(self):
+    return self._env.close()
+
+  def __getattr__(self, name):
+    return getattr(self._env, name)
+
+
+def maybe_wrap_env(env):
+  """`env` wrapped in a FaultyEnv iff the active plan targets env_step;
+  otherwise `env` itself."""
+  plan = _active
+  if plan is not None and plan.covers('env_step'):
+    return FaultyEnv(env)
+  return env
+
+
+# --- site: slow_learner ---
+
+
+def maybe_slow_learner() -> Optional[float]:
+  """Consult the slow_learner site once (one learner step, one event);
+  a fired 'hang' sleeps its seconds here. Returns the seconds slept, or
+  None."""
+  fault = fire('slow_learner')
+  if fault is None or fault.kind != 'hang':
+    return None
+  secs = float(fault.param)
+  log.warning('slow_learner fault: the learner sleeps %.2f s', secs)
+  time.sleep(secs)
+  return secs
 
 
 # --- sites: checkpoint_save and ckpt_bitrot ---

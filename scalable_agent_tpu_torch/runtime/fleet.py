@@ -28,6 +28,7 @@ import threading
 import time
 from typing import Callable, Dict, List, Optional
 
+from scalable_agent_tpu_torch.analysis.runtime import guarded_by, make_lock
 from scalable_agent_tpu_torch.runtime.actor import Actor, run_actor_loop
 
 log = logging.getLogger('scalable_agent_tpu_torch')
@@ -110,6 +111,11 @@ class ActorFleet:
       rehabilitate a quarantined slot.
   """
 
+  # Slot mutation and the rehabilitation counters happen under _lock;
+  # the _Slot objects are reached only through _slots.
+  _slots_rehabilitated: guarded_by('_lock')
+  _rehabilitations: guarded_by('_lock')
+
   def __init__(self, make_actor: Callable, buffer, num_actors: int,
                quarantine_after: int = 5, probation_secs: float = 30.0):
     self._make_actor = make_actor
@@ -117,7 +123,7 @@ class ActorFleet:
     self._quarantine_after = int(quarantine_after)
     self._probation_secs = float(probation_secs)
     self._stop = threading.Event()
-    self._lock = threading.Lock()
+    self._lock = make_lock('fleet._lock')
     self._slots: List[_Slot] = [_Slot(i) for i in range(num_actors)]
     self._slots_rehabilitated = 0  # probations cleared by an unroll
     self._rehabilitations = 0      # probations started

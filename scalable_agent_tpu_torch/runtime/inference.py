@@ -89,7 +89,10 @@ import time
 import numpy as np
 import torch
 
+from scalable_agent_tpu_torch import telemetry
+from scalable_agent_tpu_torch.analysis.runtime import guarded_by, make_lock
 from scalable_agent_tpu_torch.config import validate_fleet
+from scalable_agent_tpu_torch.observability import LatencyReservoir
 from scalable_agent_tpu_torch.ops import dynamic_batching
 from scalable_agent_tpu_torch.runtime import codec as codec_lib
 from scalable_agent_tpu_torch.runtime import faults as faults_lib
@@ -97,6 +100,18 @@ from scalable_agent_tpu_torch.runtime.fleet import Backoff
 from scalable_agent_tpu_torch.structs import AgentOutput, StepOutput
 
 log = logging.getLogger('scalable_agent_tpu_torch')
+
+# The serving plane's registry metrics: merged-call latency, the version
+# table's flips, evictions and residents, A/B and shadow calls, and the
+# serves no warm forward covered.
+_SERVE_LATENCY = telemetry.histogram('serving/latency_ms')
+_SHADOW_DIVERGENCE = telemetry.gauge('serving/shadow_divergence')
+_SHADOW_CALLS = telemetry.counter('serving/shadow_calls')
+_AB_CALLS = telemetry.counter('serving/ab_calls')
+_EVICTIONS = telemetry.counter('serving/evictions')
+_VERSION_FLIPS = telemetry.counter('serving/version_flips')
+_RESIDENT_VERSIONS = telemetry.gauge('serving/resident_versions')
+_AOT_MISSES = telemetry.counter('serving/aot_misses')
 
 # Admission priority classes (lower is served first): a released slot
 # goes to the best-priority parked waiter, so respawn and eval churn
@@ -291,14 +306,16 @@ class InferenceServer:
     self._hidden = agent.hidden_size
     self._template = copy.deepcopy(agent).to(self._device).eval()
     self._template.requires_grad_(False)
-    self._template_lock = threading.Lock()
+    self._template_lock = make_lock('inference._template_lock')
     self._state_cache = bool(config.inference_state_cache)
     self._admission = config.inference_admission
     self._admission_timeout = float(config.inference_admission_timeout_secs)
 
     self._stream = torch.cuda.Stream(self._device) if self._cuda else None
     self._generator = torch.Generator(self._device).manual_seed(seed)
-    self._lock = threading.Lock()  # the version table and the stats
+    # The version table and the stats: what the JAX server splits
+    # between _params_lock and _stats_lock, under its name.
+    self._lock = make_lock('inference._params_lock')
     self._snapshots = []           # every snapshot made (for stats)
     self._retired = collections.deque()
     # The version table.
@@ -339,6 +356,7 @@ class InferenceServer:
     self._sheds = 0
     self._admission_timeouts = 0
     self._arena_grows = 0
+    self._admission_wait_reservoir = LatencyReservoir(maxlen=1024)
     self._latencies = collections.deque(maxlen=512)
     self._unjoined_threads = 0
     seed_key = object()
@@ -348,8 +366,8 @@ class InferenceServer:
 
     # The state arena; lock order where nested: _slot_lock ->
     # _arena_lock, _slot_lock -> _lock.
-    self._slot_lock = threading.Lock()
-    self._arena_lock = threading.Lock()
+    self._slot_lock = make_lock('inference._slot_lock')
+    self._arena_lock = make_lock('inference._arena_lock')
     self._waiters = []
     self._waiter_seq = 0
     self._closed = False
@@ -465,7 +483,8 @@ class InferenceServer:
     """Park until a released slot is handed over, the server closes or
     the deadline passes; the wait re-checks the free list on a capped,
     jittered backoff."""
-    deadline = time.monotonic() + self._admission_timeout
+    t0 = time.monotonic()
+    deadline = t0 + self._admission_timeout
     backoff = Backoff(base=0.02, cap=0.5)
     while True:
       remaining = deadline - time.monotonic()
@@ -474,7 +493,8 @@ class InferenceServer:
                                       remaining))
       with self._slot_lock:
         if waiter.slot is not None:
-          return waiter.slot
+          slot = waiter.slot
+          break
         if waiter.closed or self._closed:
           if waiter in self._waiters:
             self._waiters.remove(waiter)
@@ -482,7 +502,8 @@ class InferenceServer:
               'inference server closed while waiting for a state slot')
         if self._free and self._best_waiter_locked() is waiter:
           self._waiters.remove(waiter)
-          return self._free.pop()
+          slot = self._free.pop()
+          break
         if time.monotonic() >= deadline:
           self._waiters.remove(waiter)
           shed = self._admission == 'shed'
@@ -497,6 +518,8 @@ class InferenceServer:
               f'({self._num_slots} slots, {len(self._waiters)} other '
               'waiter(s)); raise --inference_state_slots, or pick '
               '--inference_admission=grow')
+    self._admission_wait_reservoir.record(time.monotonic() - t0)
+    return slot
 
   def _grow_arena_locked(self):
     """Double the arena (grow admission; _slot_lock held). Slot ids and
@@ -636,6 +659,7 @@ class InferenceServer:
           self._ab_acc -= 1.0
           entry = candidate
           self._ab_calls += 1
+          _AB_CALLS.inc()
     entry.serves += 1
     entry.tick = self._serve_tick
     shadow = None
@@ -664,6 +688,7 @@ class InferenceServer:
     self._versions.move_to_end(key)
     self._live_key = key
     self._evict_locked()
+    _RESIDENT_VERSIONS.set(float(len(self._versions)))
 
   def _evict_locked(self):
     """LRU-evict unpinned, non-live entries past the count cap and the
@@ -689,6 +714,7 @@ class InferenceServer:
       del self._versions[victim.key]
       self._retired.append(victim.snapshot)
       self._evictions += 1
+      _EVICTIONS.inc()
       log.info('serving: evicted resident version %s (LRU; %d left)',
                victim.label(), len(self._versions))
 
@@ -700,6 +726,7 @@ class InferenceServer:
     self._live_key = key
     self._version_flips += 1
     self._params_version += 1
+    _VERSION_FLIPS.inc()
 
   def update_params(self, params, version=None):
     """Publish `params` (the learner's tensors, by name) as the live
@@ -956,6 +983,7 @@ class InferenceServer:
         self._warmed):
       with self._lock:
         self._aot_misses += 1
+      _AOT_MISSES.inc()
 
   def _dispatch_loop(self):
     picked = []
@@ -1029,6 +1057,9 @@ class InferenceServer:
             self._shadow_divergence = (
                 divergence if self._shadow_calls == 1 else
                 0.9 * self._shadow_divergence + 0.1 * divergence)
+            ewma = self._shadow_divergence
+          _SHADOW_CALLS.inc()
+          _SHADOW_DIVERGENCE.set(ewma)
       except Exception as e:
         try:
           self._batcher.set_error(batch_id, f'{type(e).__name__}: {e}')
@@ -1037,9 +1068,11 @@ class InferenceServer:
       finally:
         self._release(held, event)
         self._sem.release()
+      lat_ms = (time.perf_counter() - t0) * 1e3
+      _SERVE_LATENCY.observe(lat_ms)
       with self._lock:
         self._inflight -= 1
-        self._latencies.append((time.perf_counter() - t0) * 1e3)
+        self._latencies.append(lat_ms)
 
   def _warm_bucket(self, padded, snapshot, generator=None):
     """One forward of zero inputs in bucket `padded` on `snapshot`
@@ -1120,6 +1153,8 @@ class InferenceServer:
           'state_cache': self._state_cache,
           'acquires': self._acquires,
           'admission_waits': self._admission_waits,
+          'admission_wait_p99_ms': (
+              self._admission_wait_reservoir.percentile_ms(0.99)[0]),
           'sheds': self._sheds,
           'admission_timeouts': self._admission_timeouts,
           'arena_grows': self._arena_grows,

@@ -23,6 +23,13 @@ ported from the JAX package's runtime/ring_buffer.py (batch staging).
   before it frees the slot (the staged device batch is handed over
   unchanged: no re-stage, no second copy). Episode stats and fresh-frame
   counts take only the fresh slots of a batch's first serve.
+
+Each class's counters are also registry gauges (`replay/*`, `buffer/*`,
+`staging/*`; telemetry.py), unregistered at close. With a tracer
+installed (telemetry.set_tracer) the prefetcher stamps the spans' hops:
+`staged` when a batch's unrolls are picked, `serve` at its first serve.
+The locks are `analysis.runtime.make_lock`s under the JAX package's
+names, so an armed lock-order check sees them.
 """
 
 import collections
@@ -36,6 +43,8 @@ import numpy as np
 import torch
 
 from scalable_agent_tpu_torch import integrity
+from scalable_agent_tpu_torch import telemetry
+from scalable_agent_tpu_torch.analysis.runtime import guarded_by, make_lock
 from scalable_agent_tpu_torch.runtime.actor import batch_unrolls
 from scalable_agent_tpu_torch.structs import ActorOutput, map_structure
 
@@ -65,6 +74,13 @@ class ReplayTier:
   Thread-safe (its own lock; it never calls back into the buffer).
   """
 
+  _entries: guarded_by('_lock')
+  _cursor: guarded_by('_lock')
+  _version: guarded_by('_lock')
+  _staleness_sum: guarded_by('_lock')
+  _staleness_samples: guarded_by('_lock')
+  _last_sample: guarded_by('_lock')
+
   def __init__(self, capacity_unrolls: int, max_staleness: int = 0,
                verify_crc: bool = True):
     if capacity_unrolls < 1:
@@ -74,7 +90,7 @@ class ReplayTier:
     self._verify_crc = bool(verify_crc)
     self._entries = collections.deque()  # (unroll, version, crc or None)
     self._cursor = 0
-    self._lock = threading.Lock()
+    self._lock = make_lock('ring_buffer.ReplayTier._lock')
     self._version = 0
     self.evictions_age = 0
     self.evictions_version = 0
@@ -83,6 +99,20 @@ class ReplayTier:
     self._staleness_sum = 0
     self._staleness_samples = 0
     self._last_sample = (0, 0)  # (count, staleness sum): unsample_last
+    # The registry's view of the counters above (lock-free int reads);
+    # the owning buffer's close() unregisters them.
+    self._gauges = [
+        telemetry.gauge('replay/occupancy',
+                        fn=lambda: len(self._entries)),
+        telemetry.gauge('replay/evictions_age',
+                        fn=lambda: self.evictions_age),
+        telemetry.gauge('replay/evictions_version',
+                        fn=lambda: self.evictions_version),
+        telemetry.gauge('replay/evictions_crc',
+                        fn=lambda: self.evictions_crc),
+        telemetry.gauge('replay/reused_unrolls',
+                        fn=lambda: self.reused_unrolls),
+    ]
 
   def note_param_version(self, version: int):
     """Advance the current published param version: the clock of the
@@ -203,6 +233,13 @@ class TrajectoryBuffer:
   (backpressure, order, push-back on timeout or close) are unchanged.
   """
 
+  _deque: guarded_by('_lock')
+  _closed: guarded_by('_lock')
+  _high_water: guarded_by('_lock')
+  _put_waits: guarded_by('_lock')
+  _put_wait_secs: guarded_by('_lock')
+  _fresh_unrolls: guarded_by('_lock')
+
   def __init__(self, capacity_unrolls: int,
                replay: Optional[ReplayTier] = None,
                replay_ratio: float = 0.0):
@@ -216,7 +253,7 @@ class TrajectoryBuffer:
     self._replay = replay
     self._replay_ratio = replay_ratio
     self._deque = collections.deque()
-    self._lock = threading.Lock()
+    self._lock = make_lock('ring_buffer.TrajectoryBuffer._lock')
     self._not_full = threading.Condition(self._lock)
     self._not_empty = threading.Condition(self._lock)
     self._closed = False
@@ -227,6 +264,21 @@ class TrajectoryBuffer:
     # training by the prefetch lookahead: frame budgets read the
     # prefetcher's serve-time fresh_slots_served instead.
     self._fresh_unrolls = 0
+    # The registry's view of the occupancy and backpressure counters,
+    # and the replay tier's; close() unregisters them (identity-checked:
+    # a newer buffer's registration survives an older one's close).
+    self._gauges = [
+        telemetry.gauge('buffer/occupancy',
+                        fn=lambda: len(self._deque)),
+        telemetry.gauge('buffer/high_water',
+                        fn=lambda: self._high_water),
+        telemetry.gauge('buffer/put_waits',
+                        fn=lambda: self._put_waits),
+        telemetry.gauge('buffer/fresh_unrolls',
+                        fn=lambda: self._fresh_unrolls),
+    ]
+    if replay is not None:
+      self._gauges += replay._gauges
 
   @property
   def replay(self) -> Optional[ReplayTier]:
@@ -328,6 +380,8 @@ class TrajectoryBuffer:
       self._closed = True
       self._not_full.notify_all()
       self._not_empty.notify_all()
+    for gauge in self._gauges:
+      telemetry.registry().unregister(gauge.name, gauge)
 
   def stats(self):
     """{'occupancy', 'capacity', 'high_water', 'put_waits',
@@ -526,6 +580,18 @@ class BatchPrefetcher:
   `set_replay_k` changes the count for batches staged after the call.
   """
 
+  _out: guarded_by('_lock')
+  _closed: guarded_by('_lock')
+  _error: guarded_by('_lock')
+  _staged: guarded_by('_lock')
+  _gets: guarded_by('_lock')
+  _blocked_gets: guarded_by('_lock')
+  _wait_secs: guarded_by('_lock')
+  _serves: guarded_by('_lock')
+  _reserves: guarded_by('_lock')
+  _fresh_served: guarded_by('_lock')
+  _replay_k: guarded_by('_lock')
+
   def __init__(self, buffer: TrajectoryBuffer, batch_size: int,
                place_fn: Callable = lambda batch, n_fresh=None: batch,
                depth: int = 2, stack_fn: Callable = batch_unrolls,
@@ -545,7 +611,7 @@ class BatchPrefetcher:
     self._reserve_fn = reserve_fn
     self._fresh_aware = buffer.replay is not None
     self._out = collections.deque()
-    self._lock = threading.Lock()
+    self._lock = make_lock('ring_buffer.BatchPrefetcher._lock')
     self._ready = threading.Condition(self._lock)
     self._space = threading.Condition(self._lock)
     self._closed = False
@@ -557,14 +623,29 @@ class BatchPrefetcher:
     self._serves = 0
     self._reserves = 0
     self._fresh_served = 0
+    # The registry's view; unregistered by close().
+    self._gauges = [
+        telemetry.gauge('staging/staged_batches',
+                        fn=lambda: self._staged),
+        telemetry.gauge('staging/blocked_gets',
+                        fn=lambda: self._blocked_gets),
+        telemetry.gauge('staging/serves', fn=lambda: self._serves),
+        telemetry.gauge('staging/fresh_slots_served',
+                        fn=lambda: self._fresh_served),
+    ]
     self._thread = threading.Thread(target=self._loop,
                                     name='batch-prefetcher', daemon=True)
     self._thread.start()
 
   def _stage_next(self):
-    """Stage one batch; returns (staged, n_fresh)."""
+    """Stage one batch; returns (staged, n_fresh). With a tracer, the
+    batch's unrolls are handed to `tracer.on_batch` once picked: their
+    spans' `staged` hop, and the batch's entry in the tracer's FIFO."""
+    tracer = telemetry.get_tracer()
     if self._stager is None:
       items, n_fresh = self._buffer.get_unrolls(self._batch_size)
+      if tracer is not None:
+        tracer.on_batch(items, n_fresh)
       batch = self._stack_fn(items)
       if self._fresh_aware:
         return self._place_fn(batch, n_fresh), n_fresh
@@ -573,10 +654,15 @@ class BatchPrefetcher:
     # replayed ones, at hand at once, fill the tail of the batch.
     replayed = self._buffer.sample_replay(self._batch_size)
     n_fresh = self._batch_size - len(replayed)
+    fresh = []
     for _ in range(n_fresh):
-      self._stager.add(self._buffer.get())
+      unroll = self._buffer.get()
+      fresh.append(unroll)
+      self._stager.add(unroll)
     for unroll in replayed:
       self._stager.add(unroll, peel_view=False)
+    if tracer is not None:
+      tracer.on_batch(fresh + replayed, n_fresh)
     return self._stager.finish(), n_fresh
 
   def _loop(self):
@@ -648,6 +734,11 @@ class BatchPrefetcher:
       self._serves += 1
       if first_serve:
         self._fresh_served += entry[2]
+        tracer = telemetry.get_tracer()
+        if tracer is not None:
+          # The learner took the batch (a re-serve rides the same
+          # staged batch: no new pipeline traversal).
+          tracer.on_serve()
       else:
         self._reserves += 1
     if not first_serve and self._reserve_fn is not None:
@@ -712,3 +803,5 @@ class BatchPrefetcher:
     self._thread.join(timeout=5)
     with self._lock:
       self._out.clear()
+    for gauge in self._gauges:
+      telemetry.registry().unregister(gauge.name, gauge)

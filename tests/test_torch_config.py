@@ -29,8 +29,10 @@ def test_every_port_field_has_the_jax_default():
   # procgen_wall_density and the six pbt_* fields; evaluation and the
   # serving plane (A7.1, A7.2) test_num_episodes, dataset_path,
   # level_cache_dir, sticky_action_prob, inference_state_slots and
-  # inference_admission_timeout_secs.
-  assert len(port) == 112
+  # inference_admission_timeout_secs; the telemetry plane (A7.4's first
+  # part, with A7.5's lock primitives) telemetry_trace,
+  # telemetry_flight_len and lock_order_check.
+  assert len(port) == 115
 
 
 def test_the_checkpoint_and_health_fields_reach_the_cli():

@@ -493,3 +493,54 @@ def test_dp_fleet_on_card_launches_k1b_once_per_step(cuda, tmp_path):
     assert (result['k1'], result['k1b'], result['steps']) == (0, 3, 3)
   for k, v in ranks[0]['params'].items():
     assert torch.equal(v, ranks[1]['params'][k]), k
+
+
+def _tp_repeat_rank(rank, world, port, outdir):
+  """A gloo rank on cuda:0 of a {data 1, model 2} mesh: one sharded TP
+  step at the deep torso's full frame (72x96, T=20, B=8: chip_smoke's
+  cut of the sharded step), twice, each from the same seeded state, with
+  cuDNN free to pick as training runs it; this rank's blocks after each."""
+  torch.backends.cudnn.allow_tf32 = False
+  torch.backends.cuda.matmul.allow_tf32 = False
+  from scalable_agent_tpu_torch.parallel import train_parallel
+  kw = dict(_TP_KW, torso='deep', height=72, width=96, unroll_length=20,
+            batch_size=8)
+  config = Config(**kw, model_parallelism=2, tp_compute='sharded',
+                  coordinator_address=f'localhost:{port}',
+                  num_processes=world, process_id=rank)
+  device = distributed.maybe_initialize(config, backend='gloo',
+                                        device='cuda:0', timeout_secs=120)
+  mesh = mesh_lib.make_mesh(device, model_parallelism=2)
+  rng = np.random.RandomState(0)
+  batch = map_structure(torch.from_numpy, _small_batch(t=20, b=8))
+  frames = rng.randint(0, 256, (21, 8, 72, 96, 3)).astype(np.uint8)
+  batch = batch._replace(env_outputs=batch.env_outputs._replace(
+      observation=(torch.from_numpy(frames),
+                   batch.env_outputs.observation[1])))
+  runs = []
+  for _ in range(2):
+    agent = ImpalaAgent(4, (72, 96, 3), torso='deep')
+    init_params(agent, torch.Generator().manual_seed(0))
+    agent.to(device)
+    state = train_parallel.make_sharded_train_state(agent, config, mesh)
+    step, place = train_parallel.make_sharded_train_step(agent, config,
+                                                         mesh, batch)
+    state, _ = step(state, place(batch))
+    runs.append({k: v.detach().cpu() for k, v in state.params.items()})
+  torch.save({'runs': runs,
+              'deterministic': torch.backends.cudnn.deterministic},
+             f'{outdir}/rank{rank}.pt')
+  distributed.shutdown()
+
+
+def test_the_sharded_tp_step_repeats_bit_for_bit(cuda, tmp_path):
+  """ROADMAP C4: the sharded TP step as training runs it (no cuDNN flag
+  set by the caller) gives equal bits from the same state; the step's
+  pin leaves cudnn.deterministic as it found it."""
+  _spawn_on_card(_tp_repeat_rank, 2, str(tmp_path))
+  for r in range(2):
+    result = torch.load(tmp_path / f'rank{r}.pt')
+    assert result['deterministic'] is False
+    first, second = result['runs']
+    for k, v in first.items():
+      assert torch.equal(v, second[k]), (r, k)

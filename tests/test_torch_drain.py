@@ -256,9 +256,10 @@ def test_fault_plans_fire_as_in_jax():
   assert fired == [False, False, True, True, True, False]
   faults.clear()
   assert faults.fire('nan_burst') is None
-  # A site the port does not fire: refused, never silently idle.
+  # A site the port does not fire (the transport sites): refused, never
+  # silently idle.
   with pytest.raises(NotImplementedError, match='A7.3'):
-    faults.install(faults.FaultPlan.storm(seed=0, env_raise_at=3))
+    faults.install(faults.FaultPlan.storm(seed=0, transport=['drop']))
   with pytest.raises(ValueError, match='unknown fault site'):
     faults.Fault('no_such_site', 0, 'x')
 
