@@ -97,10 +97,9 @@ Phases, each of which raises (exit code != 0) when it fails:
              tensors alternate between two versions, each published and
              at once overwritten in place; every answer must be one
              version's (same bar) and both must be seen.
-15. cli_fleet — `python -m scalable_agent_tpu_torch.experiment --mode=train
-             --runtime=fleet` for 2 full-width steps with 32 process-hosted
-             actors into a temporary logdir; its summaries.jsonl must hold
-             a finite total_loss and env_frames_per_sec.
+15. (the fleet CLI's own check runs in drain_fleet, phase 18: its two
+             CLI runs hold a finite total_loss and env_frames_per_sec at
+             every step.)
 16. resume_anakin — `anakin.train` for 2 full-width fused steps into a
              logdir, then again: the second call restores step 2 onto the
              card (params and RMSProp's nu bit-equal to the payload on
@@ -115,19 +114,20 @@ Phases, each of which raises (exit code != 0) when it fails:
              params right after it bit-equal to the LAST_GOOD payload, the
              server's live version the rollback step, a monotone step
              counter, finite params, one V-trace launch per learner step.
-18. drain_fleet — the fleet CLI with a budget of 6 learner steps: SIGTERM
+18. drain_fleet — the fleet CLI with a budget of 4 learner steps: SIGTERM
              once step 2 is summarised; the process exits 0 within
              preempt_drain_timeout_secs + 60 s with a resume manifest whose
              checkpoint is verified at its step; the same command again
-             restores that step, consumes the manifest and ends at step 6;
-             the two runs' summary steps are 1..6; the manifest's metrics
+             restores that step, consumes the manifest and ends at step 4;
+             the two runs' summary steps are 1..4, each with a finite
+             total_loss and env_frames_per_sec; the manifest's metrics
              are the registry's snapshot (buffer/*, staging/*,
              checkpoint/*, driver/* names; slo and controller null). It
              prints the drain latency.
 
 19. dp_fleet — the data-parallel fleet: 2 gloo ranks sharing the card,
              each with 16 process-hosted actors feeding its 16 rows of the
-             global batch of 32, at the slice's widths, for 8 learner steps:
+             global batch of 32, at the slice's widths, for 6 learner steps:
              K1b once per learner step per rank (K1 never), the ranks'
              params bit-equal after every step, the SDC sentinel armed with
              0 mismatches; then the `replica_divergence` drill (health_
@@ -135,17 +135,18 @@ Phases, each of which raises (exit code != 0) when it fails:
              rollback per rank, the ranks still bit-equal. The first run's
              tail save (at D=2) restored on one rank: bit-equal. It prints
              global env-frames/s, ms per learner step and the blocked-get
-             share per rank over steps 3-8, and the gloo gradient
+             share per rank over steps 3-6, and the gloo gradient
              all-reduce's ms per step.
 20. cli_fleet_dp — `python -m torch.distributed.run --standalone
              --nproc_per_node=1 -m scalable_agent_tpu_torch.experiment
-             --mode=train --runtime=fleet` for 2 full-width steps: an NCCL
+             --mode=train --runtime=fleet` for 1 full-width step: an NCCL
              group of one (NCCL refuses two ranks on one card).
 21. unroll_fleet — unroll staging: 32 full-width unrolls staged one by one
              into the arena on a side stream, bit-equal to `batch_unrolls`
              staged as batch staging stages it; then the fleet phase's run
-             with staging_mode='unroll' for 8 learner steps (K1 once per
-             step), its ms per learner step beside the fleet phase's.
+             with staging_mode='unroll' for 5 learner steps (K1 once per
+             step), its ms per learner step over steps 3-5 beside the fleet
+             phase's.
 22. tp — 2 gloo ranks as a {data 1, model 2} mesh: the TP train step in
              `gathered` at T=100, B=32 and in `sharded` at T=20, B=8 (the
              cut and its reason in phase_tp), each against the one-rank
@@ -159,7 +160,7 @@ Phases, each of which raises (exit code != 0) when it fails:
              the 30 fake DMLab-30 levels at the fleet phase's widths in
              bfloat16, with PopArt over the 30 tasks, pixel control at
              0.01 and the instruction encoder, 32 process-hosted actors
-             stamping level ids i % 30, for 8 learner steps (6 timed):
+             stamping level ids i % 30, for 6 learner steps (4 timed):
              K1 once per learner step, finite losses, every task's PopArt
              statistics moved; env-frames/s, ms per learner step, the
              blocked-get share, device busy and idle share (torch.profiler,
@@ -171,7 +172,7 @@ Phases, each of which raises (exit code != 0) when it fails:
              each parameter tensor within 4x the CPU float32 run's
              distance to the same step with float64 layers on the CPU,
              or 1e-3 of its update's norm, whichever is larger.
-25. cli_full_feature — the CLI with the full-feature flags for 2 steps.
+25. cli_full_feature — the CLI with the full-feature flags for 1 step.
 26. impact_fleet — IMPACT with sample reuse (replay_k 2, replay_ratio
              0.5, target_update_interval 4) at the same widths in float32
              for 8 learner steps: K1 once per step (on the target
@@ -214,7 +215,7 @@ Phases, each of which raises (exit code != 0) when it fails:
              step per rank, the ranks' score and visit tables bit-equal,
              CURRICULUM_LEVELS.json and the curriculum summaries.
 34. filler_fleet — the hybrid filler on the fleet phase's run with the
-             host procgen env in the 32 actors' processes and IMPACT, 8
+             host procgen env in the 32 actors' processes and IMPACT, 6
              learner steps: the fleet's clocks as without the filler
              (update_steps, frames, the RMSProp count, the LR per step),
              filler updates > 0, K1 once per learner step and per filler
@@ -224,16 +225,16 @@ Phases, each of which raises (exit code != 0) when it fails:
              fixed batch at slice_reference's bar.
 36. cores_anakin — the gridworld and cue-memory cores at the slice's widths
              cut to T=20, 2 fused steps each.
-37. eval_cli — the fleet CLI trains 2 learner steps on the 30 fake DMLab-30
+37. eval_cli — the fleet CLI trains 1 learner step on the 30 fake DMLab-30
              levels (float32) and saves; `--mode=test` with
-             test_num_episodes=2 evaluates from the same logdir: exit 0,
+             test_num_episodes=1 evaluates from the same logdir: exit 0,
              eval_summaries.jsonl holds 30 finite test_episode_return rows
-             at the restored step 2 and the dmlab30 scores, equal to
+             at the restored step 1 and the dmlab30 scores, equal to
              suites.eval_scores over the rows; the eval's peak device memory
              against the trainer's, its mean merged batch and wall times.
-38. state_cache_fleet — the fleet phase with the state arena, 8 learner
-             steps (K1 once per step), set_target_size(16) after step 3 and
-             (32) after step 5: slots released and re-acquired; with one
+38. state_cache_fleet — the fleet phase with the state arena, 6 learner
+             steps (K1 once per step), set_target_size(16) after step 2 and
+             (32) after step 4: slots released and re-acquired; with one
              3-step carry run after it, one cache/carry pair: ms per
              learner step, env-frames/s, host<->device bytes per actor
              step.
@@ -253,20 +254,20 @@ Phases, each of which raises (exit code != 0) when it fails:
              (driver.train for 3 learner steps, sheds in the summaries, K1
              once per step), grow (16 -> 32, carries bit-equal).
 42. mixed_fleet — fleet_tasks='gridworld:2,procgen', 4 actions, PopArt, 32
-             process-hosted actors, 8 learner steps: plan 21/11, two PopArt
+             process-hosted actors, 4 learner steps: plan 21/11, two PopArt
              slots, both tasks' episode curves, K1 once per step.
 43. telemetry_fleet — the fleet phase's configuration (32 process-hosted
              actors, K1 in the learner step), publishing every learner
              step, with telemetry_trace=True and
              lock_order_check=True, alternated with telemetry_trace=False,
-             2 pairs of 3 learner steps in this process. The traced runs:
+             one pair of 3-step runs in this process. The traced run:
              trace/batches equals the learner steps, no untagged unroll,
              no dropped record, every span stamped done <= staged <= serve
              <= step in HOP_ORDER, one lag entry per unroll with a known
              behaviour version, 0 lock-order cycles; per-hop p50/p99 and
              the policy-lag histogram by scripts/trace_report.py (loaded
-             by path). Every run: ms per learner step (the pairs' traced /
-             untraced ratios), host CPU seconds per learner step by thread
+             by path). Both runs: ms per learner step (the pair's traced /
+             untraced ratio), host CPU seconds per learner step by thread
              group (actors, inference dispatch and completion, the
              prefetcher, the learner's main thread, the rest) and of the
              env processes from /proc. The tracer's own cost, replayed on
@@ -279,9 +280,41 @@ Phases, each of which raises (exit code != 0) when it fails:
              slow_learner 'hang' 12 s before steps 2 and 3
              (fault_slow_learner incidents, buffer/put_waits rising in the
              registry, the steps completed); the incident lines printed.
+45. remote_fleet — remote actors at the fleet phase's widths:
+             `driver.train` with num_actors=0 and remote_actor_port for 4
+             learner steps, publishing at step 3 (the param lane sends no
+             'bye' to a host mid-fetch at the learner's close, as in JAX,
+             so the last step publishes nothing), fed by 2 actor-host
+             processes of the CLI
+             (`--job_name=actor --task=0/1 --num_actors=16`, envs in their
+             own processes, inference on the card): update_steps 4, one
+             K1 launch per learner step, ingest unrolls >= 4 x 32 and the
+             local fleet's 0, no CRC, stale-epoch, discard, digest or
+             validation refusal, both hosts joined, one serialization per
+             published version, both hosts exit 0 on the learner's 'bye'.
+             It prints ms per learner step (median of steps 2-4) beside the
+             fleet phase's, the learner process's idle share
+             (torch.profiler, steps 2-4), unrolls/s and MB/s over the wire
+             and the bytes of one unroll's frame, the ack p50/p99, the bf16
+             param blob's bytes and a publish's ms, and peak memory.
+46. remote_faults — the drill: one actor host (16 actors,
+             actor_reconnect_secs=120) feeds the learner CLI (num_actors=0,
+             a checkpoint every step) whose fault plan from the
+             environment holds wire_bitflip once (it fires in the actor
+             host, which gets the same plan), publish_corrupt at the first
+             publish and learner_crash at the 3rd consumed batch; the
+             learner dies by SIGKILL, the same CLI restarted on the same
+             port resumes from step 2 and reaches its 3-step budget
+             publishing nothing, the
+             host reattaches (counted) and exits 0 on the bye; no
+             stale-epoch unroll arrives, a CRC refusal was followed by a
+             resend, the corrupt publish was refused and never installed.
 
 Every CLI phase checks that its process logged `float32 precision: tf32 off
 (cudnn, matmul)`: the port's entry points run float32 layers without TF32.
+Phases whose work is in subprocesses and whose checks are of correctness
+run at once, to keep the script inside its time limit: cli, cli_bf16 and
+cli_dp; cli_fleet_dp and cli_full_feature; remote_faults and eval_cli.
 
 The forkserver that env processes fork from is started before the first
 CUDA call. Every kernel's launch count is set to 0 just before each path
@@ -289,7 +322,8 @@ CUDA call. Every kernel's launch count is set to 0 just before each path
 call, rollback_fleet, unroll_fleet, full_feature, impact_fleet and
 extensions_anakin, procgen_anakin, pbt_vectorized, pbt_serial,
 filler_fleet, deep_fast, cores_anakin, state_cache_fleet, admission's shed
-run, mixed_fleet, telemetry_fleet and faults_fleet; the ranks of slice_dp,
+run, mixed_fleet, telemetry_fleet, faults_fleet and remote_fleet; the
+ranks of slice_dp,
 dp_fleet, tp, popart_dp and curriculum_dp count their own and report
 them)
 and read just after; a kernel that its
@@ -347,6 +381,7 @@ from scalable_agent_tpu_torch.parallel import train_parallel
 from scalable_agent_tpu_torch.profile_anakin import SLICE
 from scalable_agent_tpu_torch.runtime import faults
 from scalable_agent_tpu_torch.runtime import py_process
+from scalable_agent_tpu_torch.runtime import remote
 from scalable_agent_tpu_torch.runtime import ring_buffer
 from scalable_agent_tpu_torch.runtime.actor import batch_unrolls
 from scalable_agent_tpu_torch.runtime.inference import InferenceServer
@@ -1287,33 +1322,6 @@ def _publish_race(agent, params, config, calls):
       'snapshots')
 
 
-def phase_cli_fleet():
-  """The CLI's fleet runtime, 2 full-width steps through env processes."""
-  config = Config(**FLEET)
-  with tempfile.TemporaryDirectory(prefix='chip_smoke_cli_fleet_') as logdir:
-    cmd = [sys.executable, '-m', 'scalable_agent_tpu_torch.experiment',
-           '--mode=train', '--runtime=fleet', f'--logdir={logdir}',
-           f'--total_environment_frames={2 * config.frames_per_step}']
-    for field, value in FLEET.items():
-      cmd.append(f'--{field}={value}')
-    t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True, timeout=600,
-                          cwd=os.path.dirname(os.path.abspath(__file__)))
-    if proc.returncode != 0:
-      raise RuntimeError(f'fleet CLI failed ({proc.returncode}):\n'
-                         f'{proc.stderr[-8000:]}')
-    _check_precision_line(proc.stderr, 'cli_fleet')
-    with open(os.path.join(logdir, 'summaries.jsonl')) as f:
-      events = [json.loads(line) for line in f]
-  losses = [e['value'] for e in events if e['tag'] == 'total_loss']
-  fps = [e['value'] for e in events if e['tag'] == 'env_frames_per_sec']
-  if not losses or not all(map(math.isfinite, losses)) or not fps:
-    raise AssertionError(f'fleet CLI total_loss {losses}, '
-                         f'env_frames_per_sec {fps}')
-  log(f'cli_fleet: 2 steps in {time.perf_counter() - t0:.1f} s, total_loss '
-      f'{losses}, env_frames_per_sec {fps}')
-
-
 def _dir_bytes(path):
   return sum(os.path.getsize(os.path.join(root, name))
              for root, _, files in os.walk(path) for name in files)
@@ -1457,7 +1465,7 @@ def phase_rollback_fleet():
   return counts
 
 
-DRAIN_STEPS = 6
+DRAIN_STEPS = 4
 
 
 def _cli_fleet_run(cmd, logdir, name, sigterm_at_step=None):
@@ -1503,11 +1511,12 @@ def _fps_steps(logdir):
 
 
 def phase_drain_fleet():
-  """The fleet CLI (--mode=train --runtime=fleet) with a budget of 6
+  """The fleet CLI (--mode=train --runtime=fleet) with a budget of 4
   learner steps: SIGTERM once step 2 is summarised; the process exits 0,
   with a verified checkpoint at the manifest's step; the same command
-  again resumes there, consumes the manifest and ends at step 6; the two
-  runs' summary steps are 1..6. The manifest's `metrics` is the
+  again resumes there, consumes the manifest and ends at step 4; the two
+  runs' summary steps are 1..4, each with a finite total_loss and
+  env_frames_per_sec (the fleet CLI's check). The manifest's `metrics` is the
   registry's snapshot with the buffer/*, staging/*, checkpoint/* and
   driver/* names; `slo` and `controller` are null."""
   config = Config(**FLEET)
@@ -1544,8 +1553,11 @@ def phase_drain_fleet():
                                        'resume_manifest.json.consumed')):
       raise AssertionError('the manifest was not consumed')
     steps = _fps_steps(logdir)
-    if steps != list(range(1, DRAIN_STEPS + 1)):
-      raise AssertionError(f'summary steps {steps}')
+    losses = _summary_values(logdir, 'total_loss')
+    if (steps != list(range(1, DRAIN_STEPS + 1))
+        or [s for s, _ in losses] != steps
+        or not all(math.isfinite(v) for _, v in losses)):
+      raise AssertionError(f'summary steps {steps}, total_loss {losses}')
     last_good = checkpoint_lib.Checkpointer(
         os.path.join(logdir, 'checkpoints')).last_good_step()
     if last_good != DRAIN_STEPS:
@@ -1564,11 +1576,12 @@ def phase_drain_fleet():
 # The data-parallel fleet: 2 gloo ranks sharing the card, each with 16
 # process-hosted actors, global B=32 (16 rows per rank).
 DP_FLEET = dict(FLEET, num_actors=16)
-DP_FLEET_STEPS = 8
+DP_FLEET_STEPS = 6
 SDC_DRILL_STEPS = 5
 # The tensor-parallel phase: the sharded step at a cut T*B (see phase_tp),
 # and a short TP fleet with 16 actors per rank.
 TP_STEPS = 3
+UNROLL_FLEET_STEPS = 5
 TP_SHARDED_CUT = dict(unroll_length=20, batch_size=8)
 TP_FLEET = dict(FLEET, num_actors=16, publish_params_every=1,
                 model_parallelism=2, tp_compute='gathered')
@@ -1794,7 +1807,7 @@ def phase_cli_fleet_dp():
     cmd = [sys.executable, '-m', 'torch.distributed.run', '--standalone',
            '--nproc_per_node=1', '-m', 'scalable_agent_tpu_torch.experiment',
            '--mode=train', '--runtime=fleet', f'--logdir={logdir}',
-           f'--total_environment_frames={2 * config.frames_per_step}']
+           f'--total_environment_frames={config.frames_per_step}']
     cmd += [f'--{field}={value}' for field, value in DP_FLEET.items()]
     t0 = time.perf_counter()
     proc = subprocess.run(cmd, capture_output=True, text=True, timeout=600,
@@ -1808,9 +1821,9 @@ def phase_cli_fleet_dp():
     with open(os.path.join(logdir, 'summaries.jsonl')) as f:
       losses = [e['value'] for e in map(json.loads, f)
                 if e['tag'] == 'total_loss']
-  if len(losses) != 2 or not all(map(math.isfinite, losses)):
+  if len(losses) != 1 or not all(map(math.isfinite, losses)):
     raise AssertionError(f'fleet CLI total_loss {losses}')
-  log(f'cli_fleet_dp: 2 steps in {time.perf_counter() - t0:.1f} s in an NCCL '
+  log(f'cli_fleet_dp: 1 step in {time.perf_counter() - t0:.1f} s in an NCCL '
       f'group of one, total_loss {losses}')
 
 
@@ -1869,22 +1882,22 @@ def phase_unroll_fleet():
   with tempfile.TemporaryDirectory(prefix='chip_smoke_unroll_') as logdir:
     run, counts = _drive('unroll_fleet', lambda: driver.train(
         Config(**FLEET, staging_mode='unroll', logdir=logdir),
-        max_steps=FLEET_STEPS, device='cuda', stall_timeout_secs=300))
-  if counts['vtrace'] != FLEET_STEPS or counts['vtrace_sharded']:
+        max_steps=UNROLL_FLEET_STEPS, device='cuda', stall_timeout_secs=300))
+  if counts['vtrace'] != UNROLL_FLEET_STEPS or counts['vtrace_sharded']:
     raise AssertionError(f'unroll_fleet launches {counts}')
   prefetch = run.stats['prefetcher']
   if prefetch['mode'] != 'unroll' or prefetch['unrolls_staged'] < (
-      FLEET_STEPS * config.batch_size):
+      UNROLL_FLEET_STEPS * config.batch_size):
     raise AssertionError(f'unroll_fleet prefetcher {prefetch}')
   timed_s, waited_s = _step_times(run, FLEET_TIMED_FROM)
-  timed_steps = FLEET_STEPS - FLEET_TIMED_FROM
+  timed_steps = UNROLL_FLEET_STEPS - FLEET_TIMED_FROM
   step_ms = 1e3 * timed_s / timed_steps
   log(f'unroll_fleet: the arena of {config.batch_size} full-width unrolls '
       f'bit-equal to batch_unrolls (all 12 leaves); one batch staged per '
       f'unroll in {unroll_ms:.2f} ms, stacked and copied at once in '
       f'{batch_ms:.2f} ms (host clock, outside the fleet)')
   log(f'unroll_fleet: {step_ms:.2f} ms per learner step over steps '
-      f'{FLEET_TIMED_FROM + 1}-{FLEET_STEPS} with unroll staging, '
+      f'{FLEET_TIMED_FROM + 1}-{UNROLL_FLEET_STEPS} with unroll staging, '
       f'{MEASURED.get("fleet_step_ms", float("nan")):.2f} ms with batch '
       f'staging (the fleet phase, this run); blocked in prefetcher.get '
       f'{waited_s / timed_s:.4f}; vtrace launches {counts["vtrace"]}; '
@@ -2211,6 +2224,7 @@ IMPACT_FLEET = dict(FULL_FEATURE, compute_dtype='float32',
 EXTENSIONS_ANAKIN = dict(SLICE, use_popart=True, pixel_control_cost=0.01,
                          use_instruction=True)
 EXTENSIONS_ANAKIN_STEPS = 3
+FULL_FEATURE_STEPS = 6
 POPART_DP_FLEET = dict(DP_FLEET, env_backend='fake', level_name='dmlab30',
                        use_popart=True, pixel_control_cost=0.01,
                        use_instruction=True)
@@ -2256,6 +2270,7 @@ def _extension_run(name, config, steps=FLEET_STEPS):
   timed_s, waited_s = _step_times(run, FLEET_TIMED_FROM)
   busy_ms = _device_busy_ms(profiler)
   timing = dict(
+      steps=steps,
       step_ms=1e3 * timed_s / (steps - FLEET_TIMED_FROM),
       blocked=waited_s / timed_s,
       busy_ms=busy_ms / 2 if busy_ms else None,
@@ -2270,22 +2285,22 @@ def _timing_line(timing):
           else f'{timing["busy_ms"]:.2f} ms per learner step, idle share '
                f'{timing["idle"]:.4f}')
   return (f'{timing["step_ms"]:.2f} ms per learner step over steps '
-          f'{FLEET_TIMED_FROM + 1}-{FLEET_STEPS}; learner blocked in '
+          f'{FLEET_TIMED_FROM + 1}-{timing["steps"]}; learner blocked in '
           f'prefetcher.get {timing["blocked"]:.4f} of that time; device '
           f'busy {busy} (torch.profiler over the last 2 steps, inference '
           f'kernels included); peak allocated {timing["peak_gib"]:.3f} GiB')
 
 
 def phase_full_feature():
-  """The full-feature fleet (FULL_FEATURE) for 8 learner steps, 6 timed:
+  """The full-feature fleet (FULL_FEATURE) for 6 learner steps, 4 timed:
   one K1 launch per learner step, finite losses, PopArt statistics over
   the 30 tasks that every task's actors moved, a finite pixel-control
   loss; env-frames/s, ms per learner step, device busy and idle share,
   peak memory, the PopArt sigma range."""
   with tempfile.TemporaryDirectory(prefix='chip_smoke_ff_') as logdir:
     config = Config(**FULL_FEATURE, logdir=logdir)
-    run, counts, last, losses, timing = _extension_run('full_feature',
-                                                       config)
+    run, counts, last, losses, timing = _extension_run(
+        'full_feature', config, steps=FULL_FEATURE_STEPS)
   popart = run.state.popart
   moved = int((popart.mu != 0).sum())
   if popart.mu.shape != (NUM_TASKS,) or moved != NUM_TASKS:
@@ -2405,13 +2420,13 @@ def phase_full_feature_reference():
 
 def phase_cli_full_feature():
   """The CLI with the full-feature flags (bf16, dmlab30 on the fake
-  backend, PopArt, pixel control, the instruction encoder) for 2 learner
-  steps through 32 process-hosted actors."""
+  backend, PopArt, pixel control, the instruction encoder) for 1 learner
+  step through 32 process-hosted actors."""
   config = Config(**FULL_FEATURE)
   with tempfile.TemporaryDirectory(prefix='chip_smoke_cli_ff_') as logdir:
     cmd = [sys.executable, '-m', 'scalable_agent_tpu_torch.experiment',
            '--mode=train', '--runtime=fleet', f'--logdir={logdir}',
-           f'--total_environment_frames={2 * config.frames_per_step}']
+           f'--total_environment_frames={config.frames_per_step}']
     cmd += [f'--{field}={value}' for field, value in FULL_FEATURE.items()]
     t0 = time.perf_counter()
     proc = subprocess.run(cmd, capture_output=True, text=True, timeout=600,
@@ -2428,7 +2443,7 @@ def phase_cli_full_feature():
   for key in ('total_loss', 'pixel_control_loss', 'popart_sigma_max'):
     if not math.isfinite(tags.get(key, math.nan)):
       raise AssertionError(f'cli_full_feature: {key} {tags.get(key)}')
-  log(f'cli_full_feature: 2 steps in {time.perf_counter() - t0:.1f} s; '
+  log(f'cli_full_feature: 1 step in {time.perf_counter() - t0:.1f} s; '
       f'last total_loss {tags["total_loss"]}, pixel_control_loss '
       f'{tags["pixel_control_loss"]}, popart_sigma_max '
       f'{tags["popart_sigma_max"]}')
@@ -2652,6 +2667,7 @@ PBT_SERIAL = dict(SLICE, env_backend='procgen', num_actions=4,
 PBT_SERIAL_ROUNDS = 3
 CURRICULUM_DP = dict(PROCGEN, curriculum='td')
 CURRICULUM_DP_STEPS = 3
+FILLER_FLEET_STEPS = 6
 FILLER_FLEET = dict(FLEET, env_backend='procgen', num_actions=4,
                     anakin_filler=True, surrogate='impact')
 DEEP_FAST_STEPS = 3
@@ -2960,39 +2976,39 @@ def phase_curriculum_dp():
 
 def phase_filler_fleet():
   """The hybrid filler on the fleet at the fleet phase's widths: 32
-  process-hosted actors on the host procgen env, IMPACT, 8 learner steps.
+  process-hosted actors on the host procgen env, IMPACT, 6 learner steps.
   The fleet's clocks are those of a run without the filler (update_steps
-  8, its frame clock 8 x frames_per_step, the RMSProp count 8, the LR at
+  6, its frame clock 6 x frames_per_step, the RMSProp count 6, the LR at
   the fleet's count); filler updates > 0, counted apart; K1 once per
   learner step plus once per filler update."""
   with tempfile.TemporaryDirectory(prefix='chip_smoke_filler_') as logdir:
     config = Config(**FILLER_FLEET, logdir=logdir)
     t0 = time.perf_counter()
     run, counts = _drive('filler_fleet', lambda: driver.train(
-        config, max_steps=FLEET_STEPS, device='cuda', stall_timeout_secs=300))
+        config, max_steps=FILLER_FLEET_STEPS, device='cuda', stall_timeout_secs=300))
     wall = time.perf_counter() - t0
     with open(os.path.join(logdir, 'summaries.jsonl')) as f:
       events = [json.loads(line) for line in f]
   filler = run.stats['filler']
   lr = [e['value'] for e in events if e['tag'] == 'learning_rate']
   schedule = learner.make_schedule(config)
-  if (run.state.update_steps != FLEET_STEPS or
-      run.frames != FLEET_STEPS * config.frames_per_step or
-      int(run.state.opt_state.count) != FLEET_STEPS or
-      lr != [float(schedule(s)) for s in range(FLEET_STEPS)]):
+  if (run.state.update_steps != FILLER_FLEET_STEPS or
+      run.frames != FILLER_FLEET_STEPS * config.frames_per_step or
+      int(run.state.opt_state.count) != FILLER_FLEET_STEPS or
+      lr != [float(schedule(s)) for s in range(FILLER_FLEET_STEPS)]):
     raise AssertionError(f'filler_fleet: clocks steps '
                          f'{run.state.update_steps} frames {run.frames} '
                          f'count {int(run.state.opt_state.count)} lr {lr}')
   if not filler['updates'] > 0 or filler['skipped']:
     raise AssertionError(f'filler_fleet: filler {filler}')
-  if counts['vtrace'] != FLEET_STEPS + filler['updates']:
+  if counts['vtrace'] != FILLER_FLEET_STEPS + filler['updates']:
     raise AssertionError(f'filler_fleet: K1 {counts["vtrace"]} for '
-                         f'{FLEET_STEPS} learner steps and '
+                         f'{FILLER_FLEET_STEPS} learner steps and '
                          f'{filler["updates"]} filler updates')
-  log(f'filler_fleet: {FLEET_STEPS} learner steps in {wall:.2f} s (set-up '
+  log(f'filler_fleet: {FILLER_FLEET_STEPS} learner steps in {wall:.2f} s (set-up '
       f'included) with {filler["updates"]} filler updates ({filler["frames"]} '
       f'filler frames, B={filler["batch_size"]}, T={filler["unroll_length"]}, '
-      f'{filler["updates"] / FLEET_STEPS:.3f} per learner step); fleet '
+      f'{filler["updates"] / FILLER_FLEET_STEPS:.3f} per learner step); fleet '
       f'clocks: update_steps {run.state.update_steps}, frames {run.frames}, '
       f'RMSProp count {int(run.state.opt_state.count)}; K1 launches '
       f'{counts["vtrace"]}; prefetcher {run.stats["prefetcher"]}')
@@ -3057,21 +3073,23 @@ def phase_cores_anakin():
 # levels at the slice's widths) in float32, with 25-step episodes, so 2
 # eval episodes per level take less than one unroll.
 EVAL_FLEET = dict(FULL_FEATURE, compute_dtype='float32', episode_length=25)
-EVAL_TRAIN_STEPS = 2
-EVAL_EPISODES = 2
+EVAL_TRAIN_STEPS = 1
+EVAL_EPISODES = 1
 CACHE_FLEET = dict(FLEET, inference_state_cache=True)
-# The cache/carry pair: the resize run (steps 7..8 timed, after the
+# The cache/carry pair: the resize run (steps 5..6 timed, after the
 # fleet is back to 32) and one carry run of CACHE_PAIR_STEPS (steps 2..3
 # timed). Two more runs (carry, cache) for a second pair took the whole
 # script to 1,092.6 s of its 1,200 s limit on one H100 host, and the
 # pairs' reading stays unresolved either way (PERF.md).
 CACHE_PAIR_STEPS = 3
-CACHE_MAIN_TIMED_FROM = 6
-RESIZE_AT = {3: 16, 5: 32}  # learner step -> set_target_size
+CACHE_MAIN_STEPS = 6
+CACHE_MAIN_TIMED_FROM = 4
+RESIZE_AT = {2: 16, 4: 32}  # learner step -> set_target_size
 ADMISSION_SLOTS = 16
 ADMISSION_STEPS = 3
 MIXED_FLEET = dict(FLEET, fleet_tasks='gridworld:2,procgen', num_actions=4,
                    use_popart=True)
+MIXED_FLEET_STEPS = 4
 SERVING_VERSIONS = 5
 SERVING_ROUNDS = 16
 
@@ -3098,7 +3116,7 @@ def _logged_int(stderr, prefix):
 
 def phase_eval_cli():
   """The fleet CLI trains EVAL_TRAIN_STEPS learner steps on the 30 fake
-  DMLab-30 levels and saves; `--mode=test` with test_num_episodes=2
+  DMLab-30 levels and saves; `--mode=test` with test_num_episodes=1
   evaluates from the same logdir: exit 0, eval_summaries.jsonl holds a
   finite test_episode_return per level at the restored step 2 and the
   dmlab30 scores, equal to suites.eval_scores over the levels' returns;
@@ -3173,9 +3191,9 @@ def _cache_run(name, config, steps, on_step=None,
 
 def phase_state_cache_fleet():
   """The fleet phase's config with the state arena (CACHE_FLEET), 32
-  actors, 8 learner steps: K1 once per learner step, finite losses,
-  changed params; set_target_size(16) after step 3 and (32) after step
-  5, the parked actors' slots released and re-acquired. With one
+  actors, 6 learner steps: K1 once per learner step, finite losses,
+  changed params; set_target_size(16) after step 2 and (32) after step
+  4, the parked actors' slots released and re-acquired. With one
   CACHE_PAIR_STEPS-step carry run after it, one cache/carry pair: ms per
   learner step, env-frames/s, host<->device bytes per actor step."""
   reports = []
@@ -3190,7 +3208,7 @@ def phase_state_cache_fleet():
     init_params(agent, torch.Generator().manual_seed(config.seed))
     initial = _param_snapshot(dict(agent.named_parameters()))
     run, counts, step_ms, wire = _cache_run(
-        'state_cache_fleet', config, FLEET_STEPS, on_step,
+        'state_cache_fleet', config, CACHE_MAIN_STEPS, on_step,
         timed_from=CACHE_MAIN_TIMED_FROM)
   final = _param_snapshot(run.state.params)
   moved = max(float((final[k] - initial[k]).abs().max()) for k in final)
@@ -3203,13 +3221,13 @@ def phase_state_cache_fleet():
   if server['acquires'] < config.num_actors + 16 or not server['state_cache']:
     raise AssertionError(f'state_cache_fleet: slots not re-acquired: '
                          f'{server}')
-  log(f'state_cache_fleet: {FLEET_STEPS} learner steps; vtrace launches '
+  log(f'state_cache_fleet: {CACHE_MAIN_STEPS} learner steps; vtrace launches '
       f'{counts["vtrace"]}; max |param change| {moved:.3e}; resize to 16 '
       f'parked {len(parked[0])}, back to 32 unparked {len(unparked[1])}; '
       f'{server["acquires"]} slot acquires over {server["num_slots"]} '
       f'slots, {server["slots_free"]} free at exit; fleet {fleet}')
   log(f'state_cache_fleet: {step_ms:.2f} ms per learner step over steps '
-      f'{CACHE_MAIN_TIMED_FROM + 1}-{FLEET_STEPS}, '
+      f'{CACHE_MAIN_TIMED_FROM + 1}-{CACHE_MAIN_STEPS}, '
       f'{config.frames_per_step / step_ms * 1e3:.1f} env-frames/s, '
       f'{wire:.1f} host<->device bytes per actor step (inference mean '
       f'batch {server["mean_batch"]:.2f})')
@@ -3539,7 +3557,7 @@ def phase_admission():
 
 def phase_mixed_fleet():
   """A mixed fleet (MIXED_FLEET: gridworld 2 : procgen 1, 4 actions,
-  PopArt) of 32 process-hosted actors for 8 learner steps: the actor plan
+  PopArt) of 32 process-hosted actors for 4 learner steps: the actor plan
   21/11, two PopArt slots, both tasks' episode curves, K1 once per
   step."""
   from scalable_agent_tpu_torch import population
@@ -3550,7 +3568,8 @@ def phase_mixed_fleet():
     raise AssertionError(f'mixed_fleet: plan {plan}')
   with tempfile.TemporaryDirectory(prefix='chip_smoke_mixed_') as logdir:
     config = Config(**MIXED_FLEET, logdir=logdir)
-    run, counts, step_ms, _ = _cache_run('mixed_fleet', config, FLEET_STEPS)
+    run, counts, step_ms, _ = _cache_run('mixed_fleet', config,
+                                         MIXED_FLEET_STEPS)
     with open(os.path.join(logdir, 'summaries.jsonl')) as f:
       tags = {e['tag'] for e in map(json.loads, f)}
   curves = sorted(t for t in tags if t.endswith('/episode_return'))
@@ -3560,7 +3579,8 @@ def phase_mixed_fleet():
                          f'curves {curves}')
   log(f'mixed_fleet: plan 21/11 (gridworld/procgen), PopArt mu '
       f'{run.state.popart.mu.tolist()}, curves {curves}; {step_ms:.2f} ms '
-      f'per learner step over steps {FLEET_TIMED_FROM + 1}-{FLEET_STEPS}, '
+      f'per learner step over steps {FLEET_TIMED_FROM + 1}-'
+      f'{MIXED_FLEET_STEPS}, '
       f'{config.frames_per_step / step_ms * 1e3:.1f} env-frames/s; vtrace '
       f'launches {counts["vtrace"]}')
   return counts
@@ -3572,7 +3592,7 @@ def phase_mixed_fleet():
 # learner step so that a 3-step run has a policy lag to read, traced with
 # the lock-order checker armed, alternated with untraced runs.
 TELEMETRY_FLEET = dict(FLEET, publish_params_every=1)
-TELEMETRY_PAIRS = 2
+TELEMETRY_PAIRS = 1
 TELEMETRY_STEPS = 3
 # The fault drill: an env_step crash in one actor early in the first
 # unrolls, and the learner sleeping before steps 2 and 3. 12 s a sleep:
@@ -3919,6 +3939,287 @@ def phase_faults_fleet():
   return counts
 
 
+# Remote actors: the learner with no local fleet, fed over TCP by actor-
+# host processes of the CLI (--job_name=actor), each with its own envs
+# and inference on the card. It publishes at step 3 (the fleet phase's
+# cadence), so no host is mid-fetch of a blob when the learner closes: a
+# subscriber mid-reply gets no 'bye' (the JAX package's param lane
+# behaves alike) and would wait out its reconnect window.
+REMOTE_FLEET = dict(FLEET, num_actors=0)
+REMOTE_FLEET_STEPS = 4
+REMOTE_HOSTS = 2
+REMOTE_HOST_ACTORS = 16
+REMOTE_PUBLISH_REPS = 3
+# The drill: one actor host feeds a learner CLI that crashes, then the
+# learner restarted on the same port from its checkpoint.
+REMOTE_FAULTS = dict(FLEET, num_actors=0, publish_params_every=1,
+                     checkpoint_secs=0, remote_publish_secs=0.0)
+# learner_crash at the 3rd consumed batch: the checkpointer's clock starts
+# at its first check, so step 2 is the first step saved.
+REMOTE_FAULTS_PLAN = dict(wire_bitflip=[0], publish_corrupt_at=1,
+                          learner_crash_at=2)
+REMOTE_FAULTS_STEPS = 3  # the restarted learner's budget
+# The CLI with the fault plan of SA_FAULT_PLAN installed first.
+_CLI_WITH_PLAN = ('import sys; from scalable_agent_tpu_torch.runtime '
+                  'import faults; faults.install_from_env(); from '
+                  'scalable_agent_tpu_torch import experiment; '
+                  'experiment.main(sys.argv[1:])')
+
+
+def _flags(config_dict):
+  return [f'--{field}={value}' for field, value in config_dict.items()]
+
+
+def _actor_host(port, task, num_actors, logdir, plan=None, reconnect=None):
+  """An actor-host CLI process on the card, its output in a file;
+  returns (Popen, the file's path)."""
+  env = dict(os.environ)
+  env.pop(faults.PLAN_ENV_VAR, None)
+  head = [sys.executable, '-m', 'scalable_agent_tpu_torch.experiment']
+  if plan is not None:
+    env[faults.PLAN_ENV_VAR] = plan.to_json()
+    head = [sys.executable, '-c', _CLI_WITH_PLAN]
+  flags = dict(FLEET, num_actors=num_actors)
+  if reconnect is not None:
+    flags['actor_reconnect_secs'] = reconnect
+  cmd = head + ['--job_name=actor', f'--task={task}',
+                f'--learner_address=127.0.0.1:{port}',
+                f'--logdir={logdir}/actor{task}'] + _flags(flags)
+  path = os.path.join(logdir, f'actor{task}.log')
+  with open(path, 'w') as out:
+    proc = subprocess.Popen(cmd, stdout=out, stderr=out, text=True, env=env,
+                            cwd=os.path.dirname(os.path.abspath(__file__)))
+  return proc, path
+
+
+def _finish_hosts(hosts, name, timeout=60):
+  """Wait for every actor host to exit 0; kill and raise otherwise.
+  Returns their logs."""
+  logs, failed = [], []
+  for proc, path in hosts:
+    try:
+      proc.wait(timeout=timeout)
+    except subprocess.TimeoutExpired:
+      proc.kill()
+      proc.wait()
+    with open(path) as f:
+      logs.append(f.read())
+    if proc.returncode != 0:
+      failed.append((proc.returncode, logs[-1][-6000:]))
+  if failed:
+    raise RuntimeError(f'{name}: actor host(s) failed: {failed}')
+  return logs
+
+
+def _summary_values(logdir, tag):
+  with open(os.path.join(logdir, 'summaries.jsonl')) as f:
+    return [(e['step'], e['value']) for e in map(json.loads, f)
+            if e.get('tag') == tag]
+
+
+def phase_remote_fleet():
+  """The remote actors' main path at full width: driver.train with no
+  local fleet fed by REMOTE_HOSTS actor-host CLI processes of
+  REMOTE_HOST_ACTORS process-hosted actors each (see the module
+  docstring). Returns the learner's launch counts."""
+  port = _free_port()
+  with tempfile.TemporaryDirectory(prefix='chip_smoke_remote_') as logdir:
+    config = Config(**REMOTE_FLEET, logdir=logdir, remote_actor_port=port)
+    profiler = torch.profiler.profile(activities=[
+        torch.profiler.ProfilerActivity.CPU,
+        torch.profiler.ProfilerActivity.CUDA])
+    window, unrolls = [], {}
+
+    def on_step(run, step, metrics):
+      unrolls[step] = (time.perf_counter(), run.ingest.stats()['unrolls'])
+      if step == 1:
+        torch.cuda.synchronize()
+        profiler.start()
+        window.append(time.perf_counter())
+      elif step == REMOTE_FLEET_STEPS:
+        torch.cuda.synchronize()
+        window.append(time.perf_counter())
+        profiler.stop()
+
+    hosts = [_actor_host(port, task, REMOTE_HOST_ACTORS, logdir)
+             for task in range(REMOTE_HOSTS)]
+    try:
+      torch.cuda.reset_peak_memory_stats()
+      t0 = time.perf_counter()
+      run, counts = _drive('remote_fleet', lambda: driver.train(
+          config, max_steps=REMOTE_FLEET_STEPS, device='cuda',
+          stall_timeout_secs=300, on_step=on_step))
+      wall = time.perf_counter() - t0
+      peak_gib = torch.cuda.max_memory_allocated() / 2**30
+    finally:
+      host_logs = _finish_hosts(hosts, 'remote_fleet')
+    with open(os.path.join(logdir, 'traces.jsonl')) as f:
+      remote_publishes = [r['rv'] for r in map(json.loads, f)
+                          if r.get('k') == 'publish' and 'rv' in r]
+    losses = [v for _, v in _summary_values(logdir, 'total_loss')]
+  ingest = run.stats['ingest']
+  if (run.state.update_steps != REMOTE_FLEET_STEPS
+      or counts['vtrace'] != REMOTE_FLEET_STEPS
+      or not all(map(math.isfinite, losses))):
+    raise AssertionError(f'remote_fleet: {run.state.update_steps} steps, '
+                         f'launches {counts}, losses {losses}')
+  if (ingest['unrolls'] < REMOTE_FLEET_STEPS * config.batch_size
+      or run.stats['fleet']['unrolls'] != 0):
+    raise AssertionError(f'remote_fleet: not every unroll came over the '
+                         f'wire: ingest {ingest}, fleet {run.stats["fleet"]}')
+  bad = {k: ingest[k] for k in ('wire_crc_rejected', 'stale_epoch_rejected',
+                                'discarded_frames', 'publish_digest_rejected',
+                                'rejected', 'quarantined')
+         if ingest[k]}
+  if bad or ingest['hosts_joined'] != REMOTE_HOSTS:
+    raise AssertionError(f'remote_fleet: {bad}, ingest {ingest}')
+  if (run.ingest.serializations != 1 + len(remote_publishes)
+      or remote_publishes != list(range(2, 2 + len(remote_publishes)))):
+    raise AssertionError(f'remote_fleet: {run.ingest.serializations} '
+                         f'serializations for remote publishes '
+                         f'{remote_publishes}')
+  for i, text in enumerate(host_logs):
+    if 'learner finished training' not in text:
+      raise AssertionError(f'remote_fleet: actor host {i} did not end on '
+                           f'the learner\'s bye:\n{text[-4000:]}')
+  # The timed window: steps 2..REMOTE_FLEET_STEPS.
+  times = [run.step_log[i]['time'] for i in range(REMOTE_FLEET_STEPS)]
+  step_ms = statistics.median(1e3 * (b - a) for a, b in zip(times, times[1:]))
+  (t_a, u_a), (t_b, u_b) = unrolls[1], unrolls[REMOTE_FLEET_STEPS]
+  busy_ms = _device_busy_ms(profiler)
+  idle = (f'{1 - busy_ms / (1e3 * (window[1] - window[0])):.4f}'
+          if busy_ms else 'not measured (no device events)')
+  # The wire's bytes per unroll: the OOB frame of a full-width unroll
+  # with its params version, epoch and trace context.
+  unroll = _full_width_unrolls(config, 1)[0]
+  trace = telemetry.make_trace('host0:1', 7, epoch=1 << 60,
+                               behavior_version=2)
+  frame_bytes = sum(memoryview(seg).nbytes for seg in
+                    remote._oob_frame_segments(
+                        ('unroll', unroll, 2, 1 << 60, trace)))
+  serializations = run.ingest.serializations
+  host = driver.host_params(run.state.params)
+  publish_ms = []
+  for _ in range(REMOTE_PUBLISH_REPS):
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    run.ingest.publish_params(driver.host_params(run.state.params))
+    publish_ms.append(1e3 * (time.perf_counter() - t))
+  f32_bytes = sum(v.nbytes for v in host.values())
+  MEASURED['remote_step_ms'] = step_ms
+  log(f'remote_fleet: {REMOTE_FLEET_STEPS} learner steps in {wall:.2f} s '
+      f'(the actor hosts\' start-up included); losses {losses}; vtrace '
+      f'launches {counts["vtrace"]}; {REMOTE_HOSTS} actor hosts x '
+      f'{REMOTE_HOST_ACTORS} actors, both exited 0 on the learner\'s bye; '
+      f'ingest {ingest}')
+  log(f'remote_fleet: {step_ms:.2f} ms per learner step (median of steps '
+      f'2-{REMOTE_FLEET_STEPS}; the fleet phase in this run: '
+      f'{MEASURED.get("fleet_step_ms", float("nan")):.2f}); idle share '
+      f'{idle} (torch.profiler in the learner process, steps 2-'
+      f'{REMOTE_FLEET_STEPS}: the hosts\' inference runs in their own '
+      f'processes); {(u_b - u_a) / (t_b - t_a):.2f} unrolls/s over the wire '
+      f'in that window, {frame_bytes} bytes per unroll frame '
+      f'({(u_b - u_a) * frame_bytes / (t_b - t_a) / 1e6:.2f} MB/s); ack '
+      f'p50 {ingest["ack_p50_ms"]} ms p99 {ingest["ack_p99_ms"]} ms; '
+      f'param blob {run.ingest.snapshot_nbytes()} bytes bf16 '
+      f'(float32 {f32_bytes}), publish (device->host copy, cast, digest, '
+      f'frame) {[round(m, 2) for m in publish_ms]} ms; '
+      f'{len(remote_publishes)} remote publishes, {serializations} '
+      f'serializations, '
+      f'{ingest["param_blobs"]} blobs served; peak allocated '
+      f'{peak_gib:.3f} GiB')
+  return counts
+
+
+def phase_remote_faults():
+  """The drill (see the module docstring): one actor host with a
+  reconnect window feeds a learner CLI that a learner_crash SIGKILLs at
+  its third consumed batch, then the same CLI restarted on the same
+  port, resumed from its step-2 checkpoint, to REMOTE_FAULTS_STEPS. The
+  plan's wire_bitflip fires in the actor host, publish_corrupt in the
+  first learner's first publish."""
+  port = _free_port()
+  config = Config(**REMOTE_FAULTS)
+  plan = faults.FaultPlan.storm(seed=1, **REMOTE_FAULTS_PLAN)
+  root = os.path.dirname(os.path.abspath(__file__))
+  with tempfile.TemporaryDirectory(prefix='chip_smoke_remote_faults_') as logdir:
+    flags = _flags(REMOTE_FAULTS) + [
+        f'--remote_actor_port={port}', f'--logdir={logdir}',
+        f'--total_environment_frames={REMOTE_FAULTS_STEPS * config.frames_per_step}']
+    host = _actor_host(port, 0, REMOTE_HOST_ACTORS, logdir, plan=plan,
+                       reconnect=120.0)
+    try:
+      env = dict(os.environ, **{faults.PLAN_ENV_VAR: plan.to_json()})
+      t0 = time.perf_counter()
+      first = subprocess.run([sys.executable, '-c', _CLI_WITH_PLAN] + flags,
+                             capture_output=True, text=True, timeout=300,
+                             env=env, cwd=root)
+      crashed_at = time.perf_counter() - t0
+      env.pop(faults.PLAN_ENV_VAR)
+      # The restarted learner publishes nothing (no host mid-fetch when it
+      # closes; see REMOTE_FLEET).
+      second = subprocess.run(
+          [sys.executable, '-m', 'scalable_agent_tpu_torch.experiment'] +
+          flags + ['--publish_params_every=1000'], capture_output=True,
+          text=True, timeout=300, env=env, cwd=root)
+      wall = time.perf_counter() - t0
+    except BaseException:
+      host[0].kill()
+      host[0].wait()
+      raise
+    learners = []
+    if (first.returncode != -signal.SIGKILL
+        or 'learner_crash fault firing (index 2)' not in first.stderr):
+      learners.append(f'the first learner exited {first.returncode}:\n'
+                      f'{first.stderr[-6000:]}')
+    if second.returncode != 0 or 'restored checkpoint at step 2' not in (
+        second.stderr):
+      learners.append(f'the restarted learner exited {second.returncode}:'
+                      f'\n{second.stderr[-8000:]}')
+    if learners:
+      host[0].kill()
+      host[0].wait()
+      with open(host[1]) as f:
+        learners.append(f'the actor host:\n{f.read()[-4000:]}')
+      raise AssertionError('remote_faults: ' + '\n'.join(learners))
+    (actor_log,) = _finish_hosts([host], 'remote_faults')
+    summaries = {tag: _summary_values(logdir, tag) for tag in (
+        'total_loss', 'wire_crc_rejected', 'remote_unrolls',
+        'remote_reattached', 'remote_stale_epoch_rejected',
+        'publish_digest_rejected')}
+  _check_precision_line(second.stderr, 'remote_faults')
+  steps = [s for s, _ in summaries['total_loss']]
+  if steps != list(range(1, REMOTE_FAULTS_STEPS + 1)):
+    raise AssertionError(f'remote_faults: loss steps {steps}')
+  last = {tag: values[-1][1] for tag, values in summaries.items() if values}
+  crc_first = [v for s, v in summaries['wire_crc_rejected'] if s == 1]
+  before_reattach = actor_log.split('RE-ATTACHED')[0]
+  problems = []
+  if not last.get('remote_reattached', 0) >= 1:
+    problems.append('the reattach was not counted')
+  if any(v for _, v in summaries['remote_stale_epoch_rejected']):
+    problems.append('stale-epoch unrolls arrived')
+  if not (crc_first and crc_first[0] >= 1
+          and 're-sending once' in actor_log):
+    problems.append('no CRC refusal followed by a resend')
+  if ('failed its content digest' not in before_reattach
+      or 'refreshed params to v2' in before_reattach):
+    problems.append('the corrupt publish was installed or never refused')
+  if 'RE-ATTACHED' not in actor_log or 'learner finished training' not in (
+      actor_log):
+    problems.append('the actor host did not reattach and end on the bye')
+  if problems:
+    raise AssertionError(f'remote_faults: {problems}; summaries '
+                         f'{summaries}; actor host log:\n'
+                         f'{actor_log[-6000:]}')
+  report = [line for line in actor_log.splitlines()
+            if 'INTEGRITY_REPORT' in line or 'RE-ATTACHED' in line]
+  log(f'remote_faults: the first learner SIGKILLed {crashed_at:.1f} s in '
+      f'(learner_crash at its 3rd consumed batch), the restarted one resumed '
+      f'from step 2 and ended at step {steps[-1]}; {wall:.1f} s in all; '
+      f'summaries (step, value) {summaries}; actor host: {report}')
+
+
 def main():
   # Before any CUDA call: the fleet's env processes fork from this
   # server, which has this script's imports loaded.
@@ -3927,6 +4228,27 @@ def main():
     run_phases()
   finally:
     py_process.stop_forkserver()
+
+
+def _together(*calls):
+  """Run phases whose work is in subprocesses and whose checks are of
+  correctness, not time, at once: each in a thread that waits on its
+  processes. Raises the first failure after all have ended."""
+  errors = []
+
+  def run(fn, *args):
+    try:
+      fn(*args)
+    except BaseException as e:  # re-raised below
+      errors.append(e)
+
+  threads = [threading.Thread(target=run, args=call) for call in calls]
+  for t in threads:
+    t.start()
+  for t in threads:
+    t.join()
+  if errors:
+    raise errors[0]
 
 
 def run_phases():
@@ -3952,27 +4274,26 @@ def run_phases():
   paths = {}
   paths['slice'] = timed('slice', phase_slice)
   timed('slice_reference', phase_slice_reference)
-  timed('cli', phase_cli)
   paths['slice_bf16'] = timed('slice_bf16', phase_slice, 'bfloat16')
   timed('slice_bf16_reference', phase_slice_bf16_reference)
-  timed('cli_bf16', phase_cli, 'bfloat16')
   paths['conv_pool_entry'] = timed('conv_pool_entry', phase_conv_pool_entry)
   k1b = timed('vtrace_sharded', phase_vtrace_sharded)
   paths['slice_dp'] = timed('slice_dp', phase_slice_dp)
-  timed('cli_dp', phase_cli_dp)
+  # The Anakin CLIs at once (their checks are of correctness).
+  timed('cli, cli_bf16, cli_dp', _together, (phase_cli,),
+        (phase_cli, 'bfloat16'), (phase_cli_dp,))
   paths['fleet'] = timed('fleet', phase_fleet)
   timed('fleet_reference', phase_fleet_reference)
-  timed('cli_fleet', phase_cli_fleet)
   paths['resume_anakin'] = timed('resume_anakin', phase_resume_anakin)
   paths['rollback_fleet'] = timed('rollback_fleet', phase_rollback_fleet)
   timed('drain_fleet', phase_drain_fleet)
   paths['dp_fleet'] = timed('dp_fleet', phase_dp_fleet)
-  timed('cli_fleet_dp', phase_cli_fleet_dp)
   paths['unroll_fleet'] = timed('unroll_fleet', phase_unroll_fleet)
   paths['tp'] = timed('tp', phase_tp)
   paths['full_feature'] = timed('full_feature', phase_full_feature)
   timed('full_feature_reference', phase_full_feature_reference)
-  timed('cli_full_feature', phase_cli_full_feature)
+  timed('cli_fleet_dp, cli_full_feature', _together,
+        (phase_cli_fleet_dp,), (phase_cli_full_feature,))
   paths['impact_fleet'] = timed('impact_fleet', phase_impact_fleet)
   paths['extensions_anakin'] = timed('extensions_anakin',
                                      phase_extensions_anakin)
@@ -3985,7 +4306,6 @@ def run_phases():
   paths['filler_fleet'] = timed('filler_fleet', phase_filler_fleet)
   paths['deep_fast'] = timed('deep_fast', phase_deep_fast)
   paths['cores_anakin'] = timed('cores_anakin', phase_cores_anakin)
-  timed('eval_cli', phase_eval_cli)
   paths['state_cache_fleet'] = timed('state_cache_fleet',
                                      phase_state_cache_fleet)
   timed('state_cache_reference', phase_state_cache_reference)
@@ -3994,6 +4314,11 @@ def run_phases():
   paths['mixed_fleet'] = timed('mixed_fleet', phase_mixed_fleet)
   paths['telemetry_fleet'] = timed('telemetry_fleet', phase_telemetry_fleet)
   paths['faults_fleet'] = timed('faults_fleet', phase_faults_fleet)
+  paths['remote_fleet'] = timed('remote_fleet', phase_remote_fleet)
+  # The drill and the eval CLI at once: both check correctness; the
+  # eval's printed wall times then include the drill's load.
+  timed('remote_faults, eval_cli', _together, (phase_remote_faults,),
+        (phase_eval_cli,))
   log('phases: ' + ', '.join(f'{n} {s:.1f} s' for n, s in phases))
   launches = {name: {path: counts[name] for path, counts in paths.items()}
               for name in COUNTERS}

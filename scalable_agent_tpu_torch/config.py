@@ -24,6 +24,14 @@ class Config:
   mode: str = 'train'                     # train | test | anakin
   test_num_episodes: int = 10             # per level, --mode=test
 
+  # The reference's roles: job_name 'learner', or 'actor' for an
+  # actor-only host that feeds a learner over TCP (runtime/remote.py,
+  # `--job_name=actor --learner_address=host:port`); `task` is that
+  # host's index (its env seeds and level offset), and a process
+  # group's rank when process_id is -1.
+  task: int = -1
+  job_name: str = 'learner'
+
   # Process group (parallel/distributed.py). 'host:port' of rank 0; empty
   # = no group, or one joined by the caller or by torch.distributed.run.
   # In the port a process is one rank with one device: num_processes is
@@ -125,9 +133,32 @@ class Config:
   replay_capacity_unrolls: int = 0
   replay_max_staleness: int = 0
   replay_crc: bool = True
-  # The ingest admission window of remote actors (ROADMAP A7.3), in
-  # published param versions; the replay window defers to it.
+  # The ingest admission window of remote actors (runtime/remote.py),
+  # in published param versions; the replay window defers to it.
   max_unroll_staleness: int = 0
+  # Remote actors (runtime/remote.py). The learner listens on
+  # remote_actor_port (0 = no ingest) on remote_actor_bind_host
+  # (loopback by default: the wire is unauthenticated pickle); actor
+  # hosts point learner_address at it. The learner publishes a param
+  # snapshot to them at most every remote_publish_secs, cast per
+  # publish_codec (remote_params_dtype, the older spelling, wins when
+  # set; resolved_wire_dtype). An actor host retries a lost learner for
+  # actor_reconnect_secs (0 = exit on disconnect). Idle connections ping
+  # every remote_heartbeat_secs and a connection silent for
+  # remote_conn_idle_timeout_secs is reaped (0 = never; it is also every
+  # socket's stall deadline). ingest_workers validate and commit the
+  # received unrolls (0 = min(4, cpus)); wire_crc offers a CRC32C
+  # trailer on every frame of both lanes.
+  remote_actor_port: int = 0
+  remote_actor_bind_host: str = '127.0.0.1'
+  learner_address: str = ''
+  remote_publish_secs: float = 2.0
+  remote_params_dtype: str = ''
+  actor_reconnect_secs: float = 180.0
+  remote_heartbeat_secs: float = 10.0
+  remote_conn_idle_timeout_secs: float = 60.0
+  ingest_workers: int = 0
+  wire_crc: bool = True
   runtime: str = 'fleet'                  # fleet | anakin
   # The hybrid filler (fleet runtime; parallel/anakin.HybridFiller): when
   # the prefetcher has no staged batch, the learner runs one fused Anakin
@@ -186,7 +217,9 @@ class Config:
   # budget, the A/B and shadow shares of merged calls, int8-resident
   # entries (publish_codec='int8', runtime/codec.py) and the warm
   # forward per warmed bucket of a new parameter structure at publish
-  # (serving_aot). serving_replicas is routed serving (ROADMAP A7.3).
+  # (serving_aot). publish_codec is also the remote actors' wire codec
+  # (resolved_wire_dtype). serving_replicas is routed serving (ROADMAP
+  # A7.3b).
   publish_codec: str = 'bf16'             # bf16 | f32 | int8
   serving_resident_versions: int = 1
   serving_hbm_budget_mb: float = 0.0
@@ -280,6 +313,23 @@ class Config:
     return self.batch_size * self.unroll_length * self.num_action_repeats
 
   @property
+  def resolved_wire_dtype(self) -> str:
+    """The ingest server's wire_dtype: remote_params_dtype when set,
+    else publish_codec ('bf16' -> 'bfloat16', 'f32' -> '' for exact
+    float32, 'int8')."""
+    if self.remote_params_dtype:
+      return self.remote_params_dtype
+    if self.publish_codec == 'bf16':
+      return 'bfloat16'
+    if self.publish_codec == 'f32':
+      return ''
+    if self.publish_codec == 'int8':
+      return 'int8'
+    raise ValueError(
+        f"publish_codec must be 'bf16', 'f32' or 'int8', got "
+        f'{self.publish_codec!r}')
+
+  @property
   def resolved_replay_capacity(self) -> int:
     """The replay tier's capacity with the 0-auto rule (4 x batch)."""
     if self.replay_capacity_unrolls > 0:
@@ -362,7 +412,7 @@ def validate_fleet(config: Config) -> None:
   """The fleet runtime's knob group: the JAX package's hard checks on
   these fields (ValueError), and NotImplementedError, naming the ROADMAP
   item, for a setting that picks a path the port does not have yet
-  (routed serving, `serving_replicas`: A7.3)."""
+  (routed serving, `serving_replicas`: A7.3b)."""
   if config.num_actors < 0:
     raise ValueError(f'num_actors must be >= 0, got {config.num_actors}')
   for name in ('publish_params_every', 'queue_capacity_batches',
@@ -396,7 +446,7 @@ def validate_fleet(config: Config) -> None:
   if config.serving_replicas:
     raise NotImplementedError(
         'serving_replicas (routed inference replicas, which need a '
-        'learner_address) is not in the PyTorch port yet (ROADMAP A7.3)')
+        'learner_address) is not in the PyTorch port yet (ROADMAP A7.3b)')
 
 
 def validate_serving(config: Config) -> List[str]:
@@ -476,9 +526,10 @@ def validate_replay(config: Config) -> List[str]:
 
 
 def resolve_process_id(config: Config) -> int:
-  """This process's rank as the config declares it: process_id, floored
-  at 0 (the JAX package's rule with its `task` field at its default)."""
-  return max(config.process_id, 0)
+  """This process's rank as the config declares it: process_id when
+  set, else the reference's --task spelling, floored at 0."""
+  return (config.process_id if config.process_id >= 0
+          else max(config.task, 0))
 
 
 def validate_distributed(config: Config,
@@ -562,8 +613,9 @@ def validate_distributed(config: Config,
 
 
 def validate_integrity(config: Config) -> List[str]:
-  """The JAX package's `validate_integrity` for the fields the port has:
-  no hard errors, the warning of a half-enabled SDC sentinel."""
+  """The JAX package's `validate_integrity`: no hard errors, the
+  warnings of a half-enabled integrity plane (the SDC sentinel without
+  the ladder, remote ingest or the replay check without wire CRC)."""
   warnings = []
   if config.sdc_check and not config.health_watchdog:
     warnings.append(
@@ -571,6 +623,77 @@ def validate_integrity(config: Config) -> List[str]:
         'fingerprint mismatches would be computed but never escalated '
         '(no monitor, no rollback ladder) — enable the watchdog or '
         'disable the SDC sentinel')
+  if not config.wire_crc and config.remote_actor_port:
+    warnings.append(
+        'wire_crc=False with remote ingest enabled: a bit-flipped '
+        'unroll frame that still parses will train the learner on '
+        'garbage with no detection (the round-12 integrity plane is '
+        'off on the wire); param publishes keep their content digest '
+        'either way')
+  if (config.replay_crc and not config.wire_crc
+      and config.replay_ratio > 0):
+    warnings.append(
+        'replay_crc=True with wire_crc=False: replayed unrolls are '
+        'verified against their INSERT-time CRC, but a remote unroll '
+        'corrupted on the wire is inserted already-rotten and will '
+        're-serve cleanly — the replay check only covers rot AFTER '
+        'retention')
+  return warnings
+
+
+# What a learner restart from its checkpoint costs before the ingest
+# port answers hellos again (process start, imports, restore, the first
+# compiles): an actor host's reconnect window shorter than this gives up
+# on a restarting learner.
+LEARNER_RESTART_BUDGET_SECS = 90.0
+
+
+def validate_transport(config: Config) -> List[str]:
+  """The JAX package's `validate_transport`, the transport-liveness
+  knobs: raises ValueError on a negative window; returns the warnings
+  of the cross-links (a reconnect window shorter than a learner
+  restart, heartbeats that cannot keep a connection inside its reaping
+  window, one of the two off). driver.train and run_remote_actor call
+  it before spin-up."""
+  warnings = []
+  if config.remote_heartbeat_secs < 0:
+    raise ValueError(f'remote_heartbeat_secs must be >= 0, got '
+                     f'{config.remote_heartbeat_secs}')
+  if config.remote_conn_idle_timeout_secs < 0:
+    raise ValueError(f'remote_conn_idle_timeout_secs must be >= 0, '
+                     f'got {config.remote_conn_idle_timeout_secs}')
+  if config.actor_reconnect_secs < 0:
+    raise ValueError(f'actor_reconnect_secs must be >= 0, got '
+                     f'{config.actor_reconnect_secs}')
+  if 0 < config.actor_reconnect_secs < LEARNER_RESTART_BUDGET_SECS:
+    warnings.append(
+        'actor_reconnect_secs=%.1f is shorter than the learner '
+        'restart budget (~%.0fs: restore + recompile before the '
+        'ingest port answers) — the fleet will give up mid-restart '
+        'and a hard-crashed learner comes back to nobody '
+        '(docs/RUNBOOK.md §8)' %
+        (config.actor_reconnect_secs, LEARNER_RESTART_BUDGET_SECS))
+  hb = config.remote_heartbeat_secs
+  idle = config.remote_conn_idle_timeout_secs
+  if hb > 0 and idle > 0 and hb >= idle:
+    warnings.append(
+        'remote_heartbeat_secs=%.1f >= remote_conn_idle_timeout_secs'
+        '=%.1f: heartbeats cannot keep an idle-but-healthy connection '
+        'inside the reaping window — every quiet period becomes a '
+        'reap + reconnect cycle' % (hb, idle))
+  if idle > 0 and hb == 0:
+    warnings.append(
+        'remote_conn_idle_timeout_secs=%.1f with heartbeats disabled: '
+        'idle-but-healthy peers (slow envs, v5 clients) will be '
+        'reaped and must reconnect — set remote_heartbeat_secs > 0 '
+        'or size the window above the slowest unroll cadence' % idle)
+  if hb > 0 and idle == 0:
+    warnings.append(
+        'remote_heartbeat_secs=%.1f with idle reaping disabled '
+        '(remote_conn_idle_timeout_secs=0): mid-frame stalls still '
+        'abort, but a BETWEEN-frames half-open connection is never '
+        'reaped and heartbeat misses are not counted — set a nonzero '
+        'idle window to get the full liveness story' % hb)
   return warnings
 
 

@@ -49,7 +49,8 @@ from scalable_agent_tpu_torch.config import (COMPUTE_DTYPES, Config,
                                              validate_population,
                                              validate_replay,
                                              validate_runtime,
-                                             validate_serving)
+                                             validate_serving,
+                                             validate_transport)
 from scalable_agent_tpu_torch.envs import factory, suites
 from scalable_agent_tpu_torch.models import ImpalaAgent, init_params
 from scalable_agent_tpu_torch.parallel import distributed
@@ -58,6 +59,7 @@ from scalable_agent_tpu_torch.parallel import sharding
 from scalable_agent_tpu_torch.parallel import train_parallel
 from scalable_agent_tpu_torch.runtime import faults as faults_lib
 from scalable_agent_tpu_torch.runtime import inference as inference_lib
+from scalable_agent_tpu_torch.runtime import remote
 from scalable_agent_tpu_torch.runtime import ring_buffer
 from scalable_agent_tpu_torch.runtime.actor import Actor, batch_unrolls
 from scalable_agent_tpu_torch.runtime.fleet import ActorFleet
@@ -271,10 +273,11 @@ class TrainRun:
   when train() returns) and their final stats, the checkpointer, the
   health monitor and the mesh, and per learner step the host time it
   ended at and the prefetcher's cumulative blocked-get seconds then
-  (`step_log`), and the fleet's PipelineTracer when one ran (`tracer`,
-  closed; its stats() stay readable). The Anakin runtime's has no
-  server, fleet, prefetcher, buffer or tracer, and holds its final
-  AnakinCarry (`carry`)."""
+  (`step_log`), the fleet's PipelineTracer when one ran (`tracer`,
+  closed; its stats() stay readable) and the remote ingest when there
+  was one (`ingest`, closed; likewise). The Anakin runtime's has no
+  server, fleet, prefetcher, buffer, ingest or tracer, and holds its
+  final AnakinCarry (`carry`)."""
 
   def __init__(self, config, agent=None, state=None, server=None,
                fleet=None, prefetcher=None, buffer=None):
@@ -285,6 +288,7 @@ class TrainRun:
     self.fleet = fleet
     self.prefetcher = prefetcher
     self.buffer = buffer
+    self.ingest: Optional[remote.TrajectoryIngestServer] = None
     self.tracer: Optional[telemetry.PipelineTracer] = None
     self.checkpointer: Optional[checkpoint_lib.Checkpointer] = None
     self.health: Optional[health_lib.HealthMonitor] = None
@@ -607,6 +611,19 @@ def train(config: Config, max_steps: Optional[int] = None, device='cuda',
   `fault_slow_learner` incident); a health check that respawns actors
   writes `actors_respawned` with their errors.
 
+  Remote actors (runtime/remote.py): with remote_actor_port a
+  TrajectoryIngestServer listens before the inference server is built,
+  its unrolls landing in the same buffer as the local fleet's
+  (num_actors=0 trains on the wire alone). Each publish step also
+  publishes a host copy of the served params to the ingest, at most
+  every remote_publish_secs and only while a connection is live (a
+  rollback always publishes); live connections count as producers in
+  the env-plane split, and the summaries carry the remote_*/ingest_*
+  counters, with incidents for CRC and digest refusals, reaps, wedged
+  threads and membership changes. The `learner_crash` fault fires once
+  per consumed batch. A failed set-up closes the ingest without a 'bye'
+  (actors keep retrying), a clean end or a drain with one.
+
   `on_step(run, steps_done, metrics)` runs after each learner step
   (chip_smoke.py times and profiles with it). `device` defaults to CUDA
   and raises without it. Returns the TrainRun.
@@ -625,7 +642,8 @@ def train(config: Config, max_steps: Optional[int] = None, device='cuda',
                         drain_event=drain_event)
   validate_fleet(config)
   for warning in (validate_runtime(config) + validate_integrity(config) +
-                  validate_replay(config) + validate_population(config)):
+                  validate_replay(config) + validate_population(config) +
+                  validate_transport(config)):
     log.warning('%s', warning)
   device = resolve_device(device)
   set_float32_precision()
@@ -794,7 +812,7 @@ def train(config: Config, max_steps: Optional[int] = None, device='cuda',
 
   process_seed_base = rank * max(config.num_actors, 1000)
   buffer = server = fleet = prefetcher = writer = incidents = None
-  filler = tracer = None
+  filler = tracer = ingest = None
   try:
     # The replay tier retains consumed unrolls behind the FIFO; their
     # staleness counts in published param versions.
@@ -809,7 +827,28 @@ def train(config: Config, max_steps: Optional[int] = None, device='cuda',
             config.batch_size), replay=replay_tier,
         replay_ratio=config.replay_ratio)
     buffer.note_param_version(initial_steps)
+    # One copy of the served params, before the ingest branch: under TP
+    # actor_params is a collective, and remote_actor_port may be set on
+    # some ranks only.
     initial_pub = actor_params(state.params)
+    if config.remote_actor_port:
+      # Before the inference server and its warmup: actor hosts connect
+      # and fetch params meanwhile.
+      ingest = remote.TrajectoryIngestServer(
+          buffer, host_params(initial_pub),
+          host=config.remote_actor_bind_host,
+          port=config.remote_actor_port,
+          contract=remote.trajectory_contract(config, agent, num_actions),
+          wire_dtype=config.resolved_wire_dtype,
+          ingest_workers=config.ingest_workers,
+          max_unroll_staleness=config.max_unroll_staleness,
+          heartbeat_secs=config.remote_heartbeat_secs,
+          idle_timeout_secs=config.remote_conn_idle_timeout_secs,
+          wire_crc=config.wire_crc,
+          trace=config.telemetry_trace)
+      run.ingest = ingest
+      log.info('remote-actor ingest listening on port %d (session epoch '
+               '%d)', ingest.port, ingest.session_epoch)
     server = InferenceServer(
         build_agent(config, num_actions, num_tasks), initial_pub, config,
         seed=config.seed + 1000 + process_seed_base,
@@ -826,7 +865,8 @@ def train(config: Config, max_steps: Optional[int] = None, device='cuda',
       # the first batch and the first unroll are traced.
       tracer = telemetry.PipelineTracer(
           config.logdir, filename=f'traces{suffix}.jsonl',
-          flight_capacity=config.telemetry_flight_len)
+          flight_capacity=config.telemetry_flight_len,
+          epoch=ingest.session_epoch if ingest is not None else None)
       telemetry.set_tracer(tracer)
     run.tracer = tracer
     prefetcher = ring_buffer.BatchPrefetcher(
@@ -878,6 +918,12 @@ def train(config: Config, max_steps: Optional[int] = None, device='cuda',
     run.prefetcher, run.buffer = prefetcher, buffer
     fleet.start()
   except BaseException:
+    if ingest is not None:
+      # Crash semantics: actor hosts keep their reconnect window.
+      try:
+        ingest.close(graceful=False)
+      except Exception:
+        log.exception('ingest close failed')
     _teardown(fleet, prefetcher, server, buffer, writer, incidents, tracer)
     raise
 
@@ -911,6 +957,10 @@ def train(config: Config, max_steps: Optional[int] = None, device='cuda',
       telemetry.gauge('driver/env_frames', fn=lambda: run.frames),
   ]
   planes = _PlaneSplit(config.num_actors)
+  ingest_summaries = (_IngestSummaries(ingest) if ingest is not None
+                      else None)
+  last_remote_publish = float('-inf')
+  exiting_clean = False
 
   def check_fleet():
     """fleet.check_health, and an `actors_respawned` incident naming the
@@ -1005,6 +1055,11 @@ def train(config: Config, max_steps: Optional[int] = None, device='cuda',
           raise errors[0]
         raise
       last_batch_time = time.monotonic()
+      # Fault site 'learner_crash': one event per consumed batch; a
+      # fired one SIGKILLs this process.
+      crash = faults_lib.fire('learner_crash')
+      if crash is not None:
+        faults_lib.hard_crash(crash)
       errors = []
       if grouped and group_stop():
         # The drain is one process's (JAX's multi-host rule): every rank
@@ -1051,13 +1106,26 @@ def train(config: Config, max_steps: Optional[int] = None, device='cuda',
       # weights.
       if (rolled_back is not None or
           steps_done % config.publish_params_every == 0):
-        server.update_params(actor_params(state.params), version=step_now)
+        published = actor_params(state.params)
+        server.update_params(published, version=step_now)
         last_publish_step = step_now
         # The replay tier's staleness clock.
         buffer.note_param_version(step_now)
+        remote_version = None
+        if ingest is not None:
+          # Remote hosts refetch when an ack reports a newer version: a
+          # host copy of the whole tree, so time-gated and only with a
+          # connection live; a rollback always goes out.
+          if rolled_back is not None:
+            remote_version = ingest.publish_params(host_params(published))
+          elif (time.monotonic() - last_remote_publish >=
+                config.remote_publish_secs and ingest.stats()['live'] > 0):
+            last_remote_publish = time.monotonic()
+            remote_version = ingest.publish_params(host_params(published))
         if tracer is not None:
-          # The local publish clock that policy lag counts in.
-          tracer.on_publish(step_now)
+          # The local publish clock that policy lag counts in, and the
+          # ingest's version when the remote fleet got this snapshot.
+          tracer.on_publish(step_now, remote_version=remote_version)
 
       now = time.monotonic()
       if now - last_summary >= config.summary_secs:
@@ -1067,7 +1135,9 @@ def train(config: Config, max_steps: Optional[int] = None, device='cuda',
             action_counts_acc, fleet, buffer, server, prefetcher,
             last_quarantined, stall_timeout_secs)
         planes.write(writer, step_now, buffer, prefetcher, fleet,
-                     stall_timeout_secs)
+                     stall_timeout_secs, ingest)
+        if ingest_summaries is not None:
+          ingest_summaries.write(writer, incidents, step_now, run.health)
         _write_telemetry_summaries(writer, tracer, step_now)
         ladder.write_summaries(writer, step_now)
         last_filler_skipped = _write_filler_summaries(
@@ -1091,7 +1161,10 @@ def train(config: Config, max_steps: Optional[int] = None, device='cuda',
                        server, prefetcher, last_quarantined,
                        stall_timeout_secs)
       planes.write(writer, initial_steps + steps_done, buffer, prefetcher,
-                   fleet, stall_timeout_secs)
+                   fleet, stall_timeout_secs, ingest)
+      if ingest_summaries is not None:
+        ingest_summaries.write(writer, incidents,
+                               initial_steps + steps_done, run.health)
       _write_telemetry_summaries(writer, tracer, initial_steps + steps_done)
       ladder.write_summaries(writer, initial_steps + steps_done)
       _write_filler_summaries(writer, incidents, filler,
@@ -1104,10 +1177,22 @@ def train(config: Config, max_steps: Optional[int] = None, device='cuda',
     if run.state.popart is not None:
       log.info('PopArt statistics per task: %s', json.dumps(
           popart_lib.stats_summary(run.state.popart, levels)))
+    exiting_clean = True
   finally:
-    run.stats = _teardown(fleet, prefetcher, server, buffer, writer,
-                          incidents, tracer)
-    for gauge in loop_gauges + planes.gauges():
+    if ingest is not None:
+      # A clean end (or a drain) says 'bye', so actor hosts exit; an
+      # unwind keeps their reconnect window for a restart.
+      try:
+        ingest.set_draining()
+        ingest.close(graceful=exiting_clean)
+        run.stats['ingest'] = ingest.stats()
+      except Exception:
+        log.exception('ingest close failed')
+    stats = _teardown(fleet, prefetcher, server, buffer, writer, incidents,
+                      tracer)
+    run.stats.update(stats)
+    for gauge in loop_gauges + planes.gauges() + (
+        ingest_summaries.gauges() if ingest_summaries is not None else []):
       telemetry.registry().unregister(gauge.name, gauge)
     if filler is not None:
       run.stats['filler'] = filler.stats()
@@ -2116,6 +2201,7 @@ class _PlaneSplit:
   measurement would read as a dead plane)."""
 
   def __init__(self, num_actors: int):
+    self._num_actors = int(num_actors)
     self._producers = max(int(num_actors), 1)
     self._last = None  # (time, feed wait secs, put wait secs)
     self._gauges: Dict[str, telemetry.Gauge] = {}
@@ -2134,7 +2220,12 @@ class _PlaneSplit:
     gauge.set(value)
 
   def write(self, writer, step: int, buffer, prefetcher, fleet,
-            stall_timeout_secs):
+            stall_timeout_secs, ingest=None):
+    """One interval's split; live ingest connections count as producers
+    beside the local actors."""
+    producers = self._producers
+    if ingest is not None:
+      producers = max(self._num_actors + ingest.stats()['live'], 1)
     now = time.monotonic()
     snap = (now, prefetcher.stats()['wait_secs'],
             buffer.stats()['put_wait_secs'])
@@ -2146,7 +2237,7 @@ class _PlaneSplit:
       return
     learner = min(max(1.0 - (snap[1] - last[1]) / interval, 0.0), 1.0)
     env = min(max(1.0 - (snap[2] - last[2]) /
-                  (interval * self._producers), 0.0), 1.0)
+                  (interval * producers), 0.0), 1.0)
     writer.scalars({'learner_plane_utilization': learner,
                     'env_plane_utilization': env}, step)
     self._set('env', env)
@@ -2157,6 +2248,107 @@ class _PlaneSplit:
 
   def gauges(self) -> List:
     return list(self._gauges.values())
+
+
+def host_params(params) -> Dict[str, np.ndarray]:
+  """A host (numpy) copy of a parameter dict: what the remote ingest
+  publishes."""
+  return {name: value.detach().to('cpu', copy=True).numpy()
+          for name, value in params.items()}
+
+
+class _IngestSummaries:
+  """The remote ingest's summary block, as JAX driver.train writes it:
+  its counters (remote_*, the CRC, digest and discard ledger, the ack
+  percentiles, the liveness counters), per-interval rates, the
+  membership gauge `driver/remote_live_hosts` (registered only with an
+  ingest), and incidents when a refusal, reap, wedged thread or
+  membership change shows since the last interval."""
+
+  def __init__(self, ingest):
+    self._ingest = ingest
+    self._last = {'unrolls': 0, 'per_conn_unrolls': {}}
+    self._last_time = time.monotonic()
+    self._hosts = telemetry.gauge('driver/remote_live_hosts')
+
+  def gauges(self) -> List:
+    return [self._hosts]
+
+  def write(self, writer, incidents, step: int, health=None):
+    ing, last = self._ingest.stats(), self._last
+    writer.scalars({
+        'remote_unrolls': ing['unrolls'],
+        'remote_connections': ing['connections'],
+        'remote_rejected': ing['rejected'],
+        'remote_stale_rejected': ing['stale_rejected'],
+        'quarantined': ing['quarantined'],
+        'wire_crc_rejected': ing['wire_crc_rejected'],
+        'publish_digest_rejected': ing['publish_digest_rejected'],
+        'ingest_discarded_frames': ing['discarded_frames'],
+        'ingest_discarded_bytes': ing['discarded_bytes'],
+        'remote_ack_p50_ms': ing['ack_p50_ms'],
+        'remote_ack_p99_ms': ing['ack_p99_ms'],
+        'remote_param_blobs': ing['param_blobs'],
+        'remote_conns_reaped': ing['conns_reaped'],
+        'remote_heartbeat_misses': ing['heartbeat_misses'],
+        'param_subs_dropped': ing['param_subs_dropped'],
+        'remote_stale_epoch_rejected': ing['stale_epoch_rejected'],
+        'remote_reattached': ing['reattached'],
+        'remote_reattach_latency_secs': ing['reattach_latency_secs'],
+        'ingest_threads_wedged': ing['ingest_threads_wedged'],
+        'remote_live_hosts': ing['live_hosts'],
+    }, step)
+    if ing['wire_crc_rejected'] > last.get('wire_crc_rejected', 0):
+      incidents.event('wire_crc_rejected', step=step,
+                      total=ing['wire_crc_rejected'],
+                      delta=(ing['wire_crc_rejected'] -
+                             last.get('wire_crc_rejected', 0)))
+    if (ing['publish_digest_rejected'] >
+        last.get('publish_digest_rejected', 0)):
+      incidents.event('publish_digest_rejected', step=step,
+                      total=ing['publish_digest_rejected'])
+      if health is not None:
+        health.note_external('publish_digest_rejected')
+    if ing['conns_reaped'] > last.get('conns_reaped', 0):
+      incidents.event('remote_conn_reaped', step=step,
+                      total=ing['conns_reaped'],
+                      delta=ing['conns_reaped'] -
+                      last.get('conns_reaped', 0))
+    wedged = ing['ingest_threads_wedged']
+    if wedged > last.get('ingest_threads_wedged', 0):
+      names = ing['wedged_thread_names']
+      incidents.event('ingest_threads_wedged', step=step, count=wedged,
+                      names=names)
+      if health is not None:
+        health.note_external('ingest_threads_wedged')
+      log.error('ingest watchdog: %d wedged thread(s): %s', wedged,
+                ', '.join(names))
+    live_hosts = ing['live_hosts']
+    self._hosts.set(live_hosts)
+    for event in self._ingest.drain_membership_events():
+      if event.get('kind') == 'host_left':
+        incidents.event('host_left', step=step, host=event.get('host'),
+                        reason=event.get('reason'))
+        log.warning('pod membership: host %s left (%s); %d host(s) '
+                    'remain — continuing at reduced topology',
+                    event.get('host'), event.get('reason'), live_hosts)
+      else:
+        incidents.event('host_joined', step=step, host=event.get('host'),
+                        reattach=event.get('reattach', False))
+        log.info('pod membership: host %s joined (%d live)',
+                 event.get('host'), live_hosts)
+    now = time.monotonic()
+    dt = now - self._last_time
+    writer.scalar('remote_unrolls_per_sec',
+                  (ing['unrolls'] - last['unrolls']) / dt if dt else 0.0,
+                  step)
+    per_conn, prev = ing['per_conn_unrolls'], last['per_conn_unrolls']
+    rates = ([(per_conn[k] - prev.get(k, 0)) / dt for k in per_conn]
+             if dt else [])
+    if rates:
+      writer.scalars({'remote_conn_unrolls_per_sec_min': min(rates),
+                      'remote_conn_unrolls_per_sec_max': max(rates)}, step)
+    self._last, self._last_time = ing, now
 
 
 def _write_telemetry_summaries(writer, tracer, step: int):

@@ -70,6 +70,20 @@ final save; under `--mode=anakin` the first one does. Float32 layers run
 with TF32 off (logged once as `float32 precision: tf32 off (cudnn,
 matmul)`).
 
+Remote actors (runtime/remote.py): a learner started with
+`--remote_actor_port=PORT` (and `--num_actors=0` for no local fleet)
+takes unrolls over TCP from actor-only hosts, each one
+
+  python -m scalable_agent_tpu_torch.experiment --job_name=actor \
+      --task=0 --learner_address=HOST:PORT --num_actors=16 [...same
+      env and model flags as the learner...]
+
+which runs its envs and its inference on `--device` (cuda by default,
+`--device=cpu` for a host without a card) and exits 0 when the learner
+ends training. It takes no process group (no `--coordinator_address`).
+Its first SIGTERM drains: the fleet stops, the host announces its
+departure to the learner and exits.
+
 The env processes are forked from a forkserver, which `main` starts
 before its first CUDA call (runtime/py_process.py).
 """
@@ -177,6 +191,11 @@ def main(argv: Optional[List[str]] = None):
 
 def _run(config: Config, device: str, drain_event: threading.Event):
   from scalable_agent_tpu_torch import driver
+  if config.job_name == 'actor':
+    return _remote_actor(config, device)
+  if config.job_name != 'learner':
+    raise ValueError(f'unknown --job_name={config.job_name!r} (learner | '
+                     'actor)')
   if config.mode == 'train' and config.pbt_population >= 2:
     topology = distributed.declared_topology(config)
     if topology is not None and topology.world_size > 1:
@@ -225,6 +244,23 @@ def _run(config: Config, device: str, drain_event: threading.Event):
   logging.info('anakin training done at %d frames',
                carry.train_state.update_steps * config.frames_per_step)
   return carry
+
+
+def _remote_actor(config: Config, device: str):
+  """An actor-only host feeding the learner at --learner_address."""
+  if config.coordinator_address:
+    raise ValueError(
+        '--job_name=actor joins no process group (actor hosts feed over '
+        '--learner_address TCP ingest); drop --coordinator_address on '
+        'actor hosts')
+  if not config.learner_address:
+    raise ValueError('--job_name=actor needs --learner_address')
+  if config.mode != 'train':
+    raise ValueError('--job_name=actor only makes sense with --mode=train '
+                     '(--mode=test runs its own envs)')
+  from scalable_agent_tpu_torch.runtime import remote
+  return remote.run_remote_actor(config, config.learner_address,
+                                 task=max(config.task, 0), device=device)
 
 
 def _evaluate(config: Config, device: str):

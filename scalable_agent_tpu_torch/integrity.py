@@ -82,6 +82,12 @@ def _leaves(tree) -> Iterator:
     yield tree
 
 
+def count_tree_digest() -> None:
+  """Count one tree digest made elsewhere (the remote param lane's
+  digest of its wire form, runtime/remote.py)."""
+  _TREE_DIGESTS.inc()
+
+
 def tree_digest(tree) -> int:
   """Content CRC of a tree of host arrays in flatten order. Each leaf
   adds its dtype name and shape to the stream, so a reshaped or recast

@@ -11,13 +11,16 @@ writes. Episode statistics travel through the trajectory as
 batch the learner consumes.
 
 `LatencyReservoir` is the seconds-native veneer over
-`telemetry.Histogram` (the inference server's admission waits).
+`telemetry.Histogram` (the inference server's admission waits), and
+`ThreadWatchdog` the liveness ledger of the remote ingest's service
+threads (runtime/remote.py).
 `cuda_median_ms` and `profiled_device_us` are the port's own: the kernel
 timers of chip_smoke.py and the port's scripts.
 """
 
 import collections
 import statistics
+import threading
 import time
 from typing import Dict, List, Optional, Tuple
 
@@ -172,6 +175,37 @@ class EpisodeStats:
     if self._writer is not None:
       self._writer.scalars(self.last_scores, step)
     self._level_returns = {name: [] for name in self._level_names}
+
+
+class ThreadWatchdog:
+  """Liveness ledger of long-running service threads: each thread
+  `beat()`s once per loop iteration, idle poll timeouts included (an
+  idle thread is not a wedged one); `wedged(stall_secs)` names the
+  threads with no beat for that long. The remote ingest's stats()
+  reports the count (`ingest_threads_wedged`), which the driver writes
+  as a summary and an incident. Thread-safe; a beat registers."""
+
+  def __init__(self):
+    self._beats: Dict[str, float] = {}
+    self._lock = threading.Lock()
+
+  def beat(self, name: str):
+    with self._lock:
+      self._beats[name] = time.monotonic()
+
+  def unregister(self, name: str):
+    with self._lock:
+      self._beats.pop(name, None)
+
+  def names(self) -> List[str]:
+    with self._lock:
+      return sorted(self._beats)
+
+  def wedged(self, stall_secs: float) -> List[str]:
+    """Registered threads with no beat for `stall_secs` (sorted)."""
+    cutoff = time.monotonic() - stall_secs
+    with self._lock:
+      return sorted(n for n, t in self._beats.items() if t < cutoff)
 
 
 class LatencyReservoir:

@@ -16,8 +16,19 @@ Quantization is lossy, by at most scale / 2 per element
 (`max_abs_error`); `greedy_agreement` scores argmax-action agreement of
 two policies' logits, the serving plane's parity measure. Trees are
 (nested) dicts of numpy arrays or torch tensors, as the port's parameter
-dicts are. The wire form (the JAX package's 'params_int8' publish to
-remote actors) waits for routed serving (ROADMAP A7.3).
+dicts are.
+
+The wire forms of the remote actors' param lane (runtime/remote.py):
+'params_int8' ships `quantize_np` trees (Int8Leaf pickles as its q and
+scale, so pickle protocol 5 still hands q out of band) and the client
+decodes with `dequantize_np`; 'params_bf16' ships `to_bf16_np` trees,
+whose `Bf16Leaf`s hold the bfloat16 bit patterns as uint16 (numpy has no
+bfloat16 without ml_dtypes), rounded to nearest even as
+`tensor.to(torch.bfloat16)` and the JAX package's ml_dtypes cast round,
+and the client upcasts with `from_bf16_np`. `wire_leaves` /
+`wire_rebuild` flatten such a tree in the JAX package's order (dict keys
+sorted; an Int8Leaf is its q then its scale; a Bf16Leaf is one leaf), for
+the publish digest and the publish_corrupt fault site.
 """
 
 from typing import Tuple
@@ -41,6 +52,33 @@ class Int8Leaf:
 
   def __repr__(self):
     return f'Int8Leaf(shape={tuple(self.q.shape)}, scale={self.scale!r})'
+
+  # __slots__ classes need explicit pickle state; numpy still hands q's
+  # buffer out of band under protocol 5.
+  def __getstate__(self):
+    return (self.q, self.scale)
+
+  def __setstate__(self, state):
+    self.q, self.scale = state
+
+
+class Bf16Leaf:
+  """One bfloat16 wire leaf: `bits`, the bfloat16 bit patterns as a
+  uint16 array of the original leaf's shape."""
+
+  __slots__ = ('bits',)
+
+  def __init__(self, bits):
+    self.bits = bits
+
+  def __repr__(self):
+    return f'Bf16Leaf(shape={tuple(self.bits.shape)})'
+
+  def __getstate__(self):
+    return (self.bits,)
+
+  def __setstate__(self, state):
+    (self.bits,) = state
 
 
 def tree_map(fn, tree):
@@ -126,6 +164,88 @@ def dequantize_tree(tree):
         np.float32)
 
   return tree_map(one, tree)
+
+
+def dequantize_np(tree):
+  """Host decode of a 'params_int8' blob: Int8Leaf -> np.float32
+  (`q * scale` in float32, as the JAX package's dequantize_np)."""
+
+  def one(x):
+    if not isinstance(x, Int8Leaf):
+      return x
+    return (np.asarray(x.q, np.float32) * np.float32(x.scale)).astype(
+        np.float32)
+
+  return tree_map(one, tree)
+
+
+def to_bf16_np(tree):
+  """The 'params_bf16' wire form: every float32 leaf -> Bf16Leaf of its
+  round-to-nearest-even bfloat16 bits; other leaves pass through."""
+
+  def one(x):
+    if not _is_f32(x):
+      return x
+    t = torch.as_tensor(np.ascontiguousarray(x)).to(torch.bfloat16)
+    return Bf16Leaf(t.view(torch.int16).numpy().view(np.uint16))
+
+  return tree_map(one, tree)
+
+
+def from_bf16_np(tree):
+  """Upcast a 'params_bf16' tree: Bf16Leaf -> np.float32 (exact)."""
+
+  def one(x):
+    if not isinstance(x, Bf16Leaf):
+      return x
+    bits = np.asarray(x.bits, np.uint16).astype(np.uint32) << 16
+    return bits.view(np.float32)
+
+  return tree_map(one, tree)
+
+
+def wire_leaves(tree):
+  """The leaves of a wire tree in the JAX package's flatten order (see
+  the module docstring): a list of numpy arrays, Bf16Leaf bits as
+  uint16."""
+  out = []
+
+  def visit(x):
+    if isinstance(x, dict):
+      for key in sorted(x):
+        visit(x[key])
+    elif isinstance(x, (tuple, list)):
+      for child in x:
+        visit(child)
+    elif isinstance(x, Int8Leaf):
+      out.extend((x.q, x.scale))
+    elif isinstance(x, Bf16Leaf):
+      out.append(x.bits)
+    elif x is not None:
+      out.append(x)
+  visit(tree)
+  return out
+
+
+def wire_rebuild(tree, leaves):
+  """`tree` with its `wire_leaves` replaced, in order, by `leaves`."""
+  it = iter(leaves)
+
+  def visit(x):
+    if isinstance(x, dict):
+      return {key: visit(x[key]) for key in sorted(x)}
+    if isinstance(x, (tuple, list)):
+      children = [visit(child) for child in x]
+      return (type(x)(*children) if hasattr(x, '_fields')
+              else type(x)(children))
+    if isinstance(x, Int8Leaf):
+      return Int8Leaf(next(it), next(it))
+    if isinstance(x, Bf16Leaf):
+      return Bf16Leaf(next(it))
+    if x is None:
+      return None
+    return next(it)
+  return visit(tree)
 
 
 def is_quantized(tree) -> bool:

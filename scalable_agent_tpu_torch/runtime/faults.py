@@ -46,10 +46,35 @@ The sites this port fires, each on the real code path:
                     fault perturbs one replica's lane of the fingerprint
                     probe (replica `index % replicas`), so the real
                     detection -> incident -> rollback path runs.
+  transport_send    RemoteActorClient._rpc (runtime/remote.py): 'drop'
+                    closes the socket; 'garbage' and 'truncate' first
+                    ship a frame the ingest must survive and quarantine.
+                    Each raises the ConnectionError the actor host's
+                    reconnect path expects.
+  conn_partition    RemoteActorClient._rpc: 'blackhole' goes silent for
+                    `param` seconds without closing the socket, the
+                    half-open shape of a partition; the learner's idle
+                    reaper must reap the connection.
+  conn_delay        RemoteActorClient._rpc: 'delay' sleeps `param`
+                    seconds before the send, 'jitter' a seeded
+                    U[0, param].
+  learner_crash     driver.train's loop, one event per consumed batch:
+                    'kill' SIGKILLs the process (no unwind, no drain, no
+                    'bye'), so remote actors must reattach to the
+                    restarted learner.
+  wire_bitflip      the OOB sends of remote.py (the unroll frames): one
+                    seeded bit of the frame's largest raw buffer flips
+                    after the CRC trailer was computed; the frame still
+                    parses and only the learner's CRC check sees it. The
+                    damaged segment is a copy, so a resend is clean.
+  publish_corrupt   TrajectoryIngestServer._make_blob: one seeded bit of
+                    the snapshot's largest leaf flips after its content
+                    digest was computed and before serialization, so
+                    only the client's digest check before install can
+                    catch it.
 
-`SITES` is the JAX package's full tuple, so a plan validates the same
-way in both packages; `install` refuses a plan that schedules a fault at
-a site the port does not fire yet (the transport sites: ROADMAP A7.3),
+`SITES` is the JAX package's full tuple, and the port fires every one of
+them; `install` still refuses a plan with a site outside `PORTED_SITES`
 rather than accept it and never fire it.
 
 Event counters are global per site: when several actor threads share
@@ -61,6 +86,9 @@ import dataclasses
 import json
 import logging
 import os
+import signal
+import socket
+import struct
 import threading
 import time
 from typing import Dict, List, Optional
@@ -79,11 +107,16 @@ SITES = ('env_step', 'transport_send', 'checkpoint_save', 'nan_burst',
          'replica_divergence')
 
 # The sites this port fires (see the module docstring).
-PORTED_SITES = ('checkpoint_save', 'ckpt_bitrot', 'env_step', 'nan_burst',
-                'preempt_signal', 'replica_divergence', 'slot_exhaustion',
-                'slow_learner')
+PORTED_SITES = ('checkpoint_save', 'ckpt_bitrot', 'conn_delay',
+                'conn_partition', 'env_step', 'learner_crash', 'nan_burst',
+                'preempt_signal', 'publish_corrupt', 'replica_divergence',
+                'slot_exhaustion', 'slow_learner', 'transport_send',
+                'wire_bitflip')
 
 PLAN_ENV_VAR = 'SA_FAULT_PLAN'
+
+# The wire's length prefix (runtime/remote.py's _LEN).
+_LEN = struct.Struct('>Q')
 
 
 class InjectedFault(RuntimeError):
@@ -248,8 +281,8 @@ def install(plan: Optional[FaultPlan]) -> None:
     unported = sorted({f.site for f in plan.faults()} - set(PORTED_SITES))
     if unported:
       raise NotImplementedError(
-          f'fault sites {unported} are not fired by the PyTorch port yet '
-          f'(ROADMAP A7.3); it fires {list(PORTED_SITES)}')
+          f'fault sites {unported} are not fired by the PyTorch port; it '
+          f'fires {list(PORTED_SITES)}')
   global _active
   with _active_lock:
     _active = plan
@@ -411,3 +444,118 @@ def maybe_poison_batch(batch):
   if fire('nan_burst') is not None:
     return poison_batch(batch), True
   return batch, False
+
+
+# --- site: transport_send ---
+
+
+def apply_transport_fault(fault: Fault, sock: socket.socket,
+                          seed: int = 0) -> None:
+  """Damage `sock` per `fault`, close it and raise ConnectionError.
+  'garbage' ships a well-framed message of 256 seeded random bytes (the
+  receiver must fail the parse and quarantine the connection);
+  'truncate' claims four times the 128 bytes it sends (the receiver
+  sees EOF mid-message); 'drop' and unknown kinds send nothing."""
+  try:
+    if fault.kind == 'garbage':
+      rng = np.random.RandomState((seed + fault.index) % (2 ** 31))
+      payload = rng.bytes(256)
+      sock.sendall(_LEN.pack(len(payload)) + payload)
+    elif fault.kind == 'truncate':
+      rng = np.random.RandomState((seed + fault.index) % (2 ** 31))
+      payload = rng.bytes(128)
+      sock.sendall(_LEN.pack(len(payload) * 4) + payload)
+  except OSError:
+    pass  # the peer may be gone already; the raise below still runs
+  try:
+    sock.close()
+  except OSError:
+    pass
+  raise ConnectionError(
+      f'injected transport fault: {fault.kind} (index {fault.index})')
+
+
+# --- sites: conn_partition and conn_delay ---
+
+
+def apply_conn_partition(fault: Fault) -> None:
+  """Blackhole the caller for `fault.param` seconds: no send, no recv,
+  no close, so the peer's socket stays established with nothing
+  flowing. The caller then goes on and finds what the other side did
+  meanwhile (an idle reap shows on its next send)."""
+  time.sleep(float(fault.param))
+
+
+def apply_conn_delay(fault: Fault, seed: int = 0) -> float:
+  """Transport latency: 'delay' sleeps exactly `param` seconds,
+  'jitter' a seeded U[0, param]. Returns the seconds slept."""
+  if fault.kind == 'jitter':
+    rng = np.random.RandomState((seed + fault.index) % (2 ** 31))
+    secs = float(rng.uniform(0.0, float(fault.param)))
+  else:
+    secs = float(fault.param)
+  time.sleep(secs)
+  return secs
+
+
+# --- site: learner_crash ---
+
+
+def hard_crash(fault: Fault) -> None:
+  """SIGKILL this process: no exception unwind, no finally block, no
+  drain, no 'bye' frame (the OOM-killer shape). Logged first, so a
+  scheduled crash is told from an organic one."""
+  log.error('learner_crash fault firing (index %d): hard-killing pid %d',
+            fault.index, os.getpid())
+  os.kill(os.getpid(), signal.SIGKILL)
+
+
+# --- site: wire_bitflip ---
+
+
+def apply_wire_bitflip(fault: Fault, segments, seed: int = 0):
+  """One seeded bit flip in the largest raw-buffer segment of an
+  outgoing OOB frame (segments[1:]; segment 0 is the frame's head).
+  Returns a new segment list whose damaged segment is a copy, so the
+  sender's unroll is never touched. A frame with no raw buffer passes
+  unchanged."""
+  if len(segments) < 2:
+    return segments
+  idx = max(range(1, len(segments)),
+            key=lambda i: memoryview(segments[i]).nbytes)
+  damaged = bytearray(segments[idx])
+  rng = np.random.RandomState((seed + fault.index) % (2 ** 31))
+  byte, bit = integrity.flip_bit(
+      damaged, int(rng.randint(0, max(len(damaged) * 8, 1))))
+  log.warning('wire_bitflip fault firing (index %d): flipped bit %d of '
+              'byte %d in a %d-byte frame segment', fault.index, bit, byte,
+              len(damaged))
+  return list(segments[:idx]) + [memoryview(damaged)] + list(
+      segments[idx + 1:])
+
+
+# --- site: publish_corrupt ---
+
+
+def corrupt_params_tree(fault: Fault, params, seed: int = 0):
+  """`params` (a wire-form tree, runtime/codec.py) with one seeded bit
+  flipped in its largest leaf, in the JAX package's flatten order; the
+  other leaves are the input's."""
+  from scalable_agent_tpu_torch.runtime import codec
+  leaves = codec.wire_leaves(params)
+  candidates = [i for i, leaf in enumerate(leaves)
+                if np.asarray(leaf).size > 0]
+  if not candidates:
+    return params
+  victim = max(candidates, key=lambda i: np.asarray(leaves[i]).nbytes)
+  arr = np.array(leaves[victim], copy=True)
+  raw = bytearray(arr.tobytes())
+  rng = np.random.RandomState((seed + fault.index) % (2 ** 31))
+  integrity.flip_bit(raw, int(rng.randint(0, len(raw) * 8)))
+  leaves = list(leaves)
+  leaves[victim] = np.frombuffer(bytes(raw),
+                                 dtype=arr.dtype).reshape(arr.shape)
+  log.warning('publish_corrupt fault firing (index %d): flipped one bit '
+              'in a %d-byte param leaf after digest', fault.index,
+              len(raw))
+  return codec.wire_rebuild(params, leaves)

@@ -23,13 +23,13 @@ Trajectories of a respawned actor restart from a fresh episode.
 """
 
 import logging
-import random
 import threading
 import time
 from typing import Callable, Dict, List, Optional
 
 from scalable_agent_tpu_torch.analysis.runtime import guarded_by, make_lock
 from scalable_agent_tpu_torch.runtime.actor import Actor, run_actor_loop
+from scalable_agent_tpu_torch.runtime.remote import Backoff
 
 log = logging.getLogger('scalable_agent_tpu_torch')
 
@@ -40,33 +40,6 @@ def _is_admission_error(e: BaseException) -> bool:
   from scalable_agent_tpu_torch.runtime.inference import (InferenceClosed,
                                                           SlotUnavailable)
   return isinstance(e, (SlotUnavailable, InferenceClosed))
-
-
-class Backoff:
-  """Capped exponential backoff with full jitter: the n-th delay is
-  uniform in [0, min(cap, base * 2**n)], which keeps a fleet of retrying
-  slots from moving in lockstep. `rng` is injectable for tests."""
-
-  def __init__(self, base: float = 0.2, cap: float = 5.0, rng=None):
-    if base <= 0 or cap <= 0:
-      raise ValueError('base and cap must be > 0')
-    self._base = base
-    self._cap = cap
-    self._rng = rng if rng is not None else random
-    self._attempt = 0
-
-  @property
-  def attempt(self) -> int:
-    return self._attempt
-
-  def next_delay(self) -> float:
-    ceiling = min(self._cap, self._base * (2 ** self._attempt))
-    if self._base * (2 ** self._attempt) < self._cap:
-      self._attempt += 1
-    return self._rng.uniform(0.0, ceiling)
-
-  def reset(self):
-    self._attempt = 0
 
 
 class _Slot:

@@ -75,7 +75,9 @@ structure (an int8 entry after float32 ones), runs one warm forward per
 warmed bucket on a scratch generator; `aot_misses` counts the serves of
 a (bucket, structure) pair that was not warmed.
 
-Routed serving (`serve_remote`, `serving_replicas`) is ROADMAP A7.3.
+Routed serving (`serve_remote`, `serving_replicas`, runtime/routing.py)
+is ROADMAP A7.3b; the remote ingest's 'infer' kind it would answer
+through is runtime/remote.py's, with nothing attached until then.
 """
 
 import collections

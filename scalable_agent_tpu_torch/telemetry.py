@@ -26,7 +26,10 @@ recorder.
    minus each unroll's behaviour version); `scripts/trace_report.py`
    reads the file. The wire hops (`send`, `wire`, `commit`), the
    commit-time version clock `'cv'` and the `install` records belong to
-   remote actors (ROADMAP A7.3); the tracer carries them already.
+   remote actors (runtime/remote.py): an actor host stamps `done` and
+   `send` (`configure_actor_tracing`), the learner's ingest `wire` and
+   `commit`, and the install notice riding an unroll becomes the
+   tracer's install record.
 
    Hop times are `time.time()` (wall clock), as in the JAX package:
    spans cross process boundaries, where monotonic clocks do not

@@ -31,8 +31,12 @@ def test_every_port_field_has_the_jax_default():
   # level_cache_dir, sticky_action_prob, inference_state_slots and
   # inference_admission_timeout_secs; the telemetry plane (A7.4's first
   # part, with A7.5's lock primitives) telemetry_trace,
-  # telemetry_flight_len and lock_order_check.
-  assert len(port) == 115
+  # telemetry_flight_len and lock_order_check; remote actors (A7.3's
+  # first part) task, job_name, remote_actor_port, remote_actor_bind_host,
+  # learner_address, remote_publish_secs, remote_params_dtype,
+  # actor_reconnect_secs, remote_heartbeat_secs,
+  # remote_conn_idle_timeout_secs, ingest_workers and wire_crc.
+  assert len(port) == 127
 
 
 def test_the_checkpoint_and_health_fields_reach_the_cli():
@@ -63,7 +67,7 @@ def test_the_tp_and_sdc_fields_reach_the_cli():
 def test_the_serving_fields_validate_as_in_jax():
   """validate_serving's hard errors and warning are JAX's; the one
   fleet setting still refused is routed serving (serving_replicas,
-  ROADMAP A7.3)."""
+  ROADMAP A7.3b)."""
   import pytest
 
   from scalable_agent_tpu.config import validate_serving as jax_validate

@@ -256,10 +256,14 @@ def test_fault_plans_fire_as_in_jax():
   assert fired == [False, False, True, True, True, False]
   faults.clear()
   assert faults.fire('nan_burst') is None
-  # A site the port does not fire (the transport sites): refused, never
-  # silently idle.
-  with pytest.raises(NotImplementedError, match='A7.3'):
-    faults.install(faults.FaultPlan.storm(seed=0, transport=['drop']))
+  # The transport sites are fired too now: their storm installs, and
+  # fires on JAX's schedule.
+  transport = faults.FaultPlan.storm(seed=0, transport=['drop'])
+  faults.install(transport)
+  assert faults.active() is transport
+  fired = [faults.fire('transport_send') for _ in range(5)]
+  assert [(f.index, f.kind) for f in fired if f is not None] == [(3, 'drop')]
+  faults.clear()
   with pytest.raises(ValueError, match='unknown fault site'):
     faults.Fault('no_such_site', 0, 'x')
 

@@ -61,7 +61,7 @@ def test_install_accepts_the_sites_and_their_schedule_is_jax(kw):
   assert faults.active() is plan
   site = 'slow_learner' if 'slow_learner_at' in kw else 'env_step'
   assert plan.covers(site) and site in faults.PORTED_SITES
-  assert len(faults.PORTED_SITES) == 8
+  assert len(faults.PORTED_SITES) == 14
 
 
 class _CountingEnv:

@@ -292,7 +292,7 @@ def test_padded_buckets_answer_only_the_real_rows():
     {'serving_replicas': 'localhost:1'}])
 def test_unported_server_settings_raise(setting):
   """The serving settings ported in A7.2 build a server; routed serving
-  (serving_replicas) still raises, naming its ROADMAP item (A7.3)."""
+  (serving_replicas) still raises, naming its ROADMAP item (A7.3b)."""
   if setting == {'serving_replicas': 'localhost:1'}:
     with pytest.raises(NotImplementedError, match='ROADMAP A7.3'):
       _shallow_server(**setting)

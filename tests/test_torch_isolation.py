@@ -1,5 +1,6 @@
-"""The port stands alone: importing any of its modules loads no JAX, no
-module of the port (nor chip_smoke.py) imports the JAX package, no code of
+"""The port stands alone: importing any of its modules loads no JAX and no
+ml_dtypes (the card's machine has neither), no module of the port (nor
+chip_smoke.py) imports the JAX package or ml_dtypes, no code of
 the port names a path inside it (so nothing of it, such as its batcher
 library, is loaded), and the port holds its own batcher source."""
 
@@ -38,11 +39,14 @@ def test_importing_every_port_module_loads_no_jax():
   # And evaluation's and the serving plane's.
   assert {f'scalable_agent_tpu_torch.{name}' for name in (
       'runtime.codec', 'envs.dmlab', 'envs.atari')} <= set(modules)
+  # And the remote actors'.
+  assert 'scalable_agent_tpu_torch.runtime.remote' in modules
   script = ('import importlib, sys\n'
             f'for name in {modules!r}:\n'
             '  importlib.import_module(name)\n'
             'bad = sorted(m for m in sys.modules if m.split(".")[0] in '
-            '("jax", "jaxlib", "flax", "optax", "scalable_agent_tpu"))\n'
+            '("jax", "jaxlib", "flax", "optax", "ml_dtypes", '
+            '"scalable_agent_tpu"))\n'
             'assert not bad, bad\n')
   proc = subprocess.run([sys.executable, '-c', script], cwd=REPO,
                         capture_output=True, text=True, timeout=120)
@@ -62,7 +66,8 @@ def _imported_roots(path):
 
 def test_no_port_source_imports_the_jax_package():
   sources = _port_sources() + [os.path.join(REPO, 'chip_smoke.py')]
-  forbidden = {'scalable_agent_tpu', 'jax', 'jaxlib', 'flax', 'optax'}
+  forbidden = {'scalable_agent_tpu', 'jax', 'jaxlib', 'flax', 'optax',
+               'ml_dtypes'}
   for path in sources:
     found = forbidden & set(_imported_roots(path))
     assert not found, f'{os.path.relpath(path, REPO)} imports {found}'

@@ -262,7 +262,7 @@ def test_watchdog_keeps_old_state_on_a_nan_batch():
 
 
 def test_unported_settings_raise():
-  # Mixed fleets are ported (A7.2); routed serving is not (A7.3).
+  # Mixed fleets are ported (A7.2); routed serving is not (A7.3b).
   validate_fleet(Config(fleet_tasks='bandit,gridworld'))
   with pytest.raises(NotImplementedError, match='A7.3'):
     validate_fleet(Config(serving_replicas='localhost:1'))

@@ -8,7 +8,9 @@ the serving_aot flip. Beyond JAX: shadow traffic does not move the
 sampling generator (the same seed gives the same live actions with
 shadow 0 and 0.5), and the int8 version's logits stay within the
 first-order bound its per-tensor max_abs_error gives. Routed serving
-(JAX's :375-533) waits for ROADMAP A7.3."""
+(JAX's :375-533: routing.py and serve_remote) waits for ROADMAP A7.3b;
+the ingest's 'infer' seam it plugs into is runtime/remote.py's
+(tests/test_torch_remote.py)."""
 
 import threading
 import time

@@ -19,9 +19,9 @@ inputs through both packages.
 - Name parity: the literal names the two packages register through
   `telemetry.counter/gauge/histogram` (and the bare calls inside
   telemetry.py and analysis/runtime.py) are equal, but for the names
-  only the remote, routing, SLO and controller modules register (ROADMAP
-  A7.3, A7.4's second part) and `driver/remote_live_hosts` (registered
-  by JAX only when an ingest exists).
+  only the routing, SLO and controller modules register (ROADMAP A7.3b,
+  A7.4's second part); every ingest/* name of JAX's runtime/remote.py,
+  and the driver's `driver/remote_live_hosts`, is the port's too.
 """
 
 import ast
@@ -567,11 +567,9 @@ def test_the_drain_manifest_holds_the_registry_snapshot(tmp_path):
 # --------------------------------------------------------------------
 
 _METRIC = re.compile(r'[a-z0-9_]+(?:/[a-z0-9_]+)+')
-# Registered only by modules the port has not yet: the remote ingest and
-# routed serving (ROADMAP A7.3), the SLO engine and the controller
-# (A7.4's second part); and the ingest's live-host gauge of the driver.
-_REMOTE_ONLY = ('runtime/remote.py', 'runtime/routing.py', 'slo.py',
-                'controller.py')
+# Registered only by modules the port has not yet: routed serving
+# (ROADMAP A7.3b), the SLO engine and the controller (A7.4's second part).
+_REMOTE_ONLY = ('runtime/routing.py', 'slo.py', 'controller.py')
 
 
 def _registered_names(package, exclude=()):
@@ -613,11 +611,16 @@ def test_the_port_registers_every_jax_name_outside_the_remote_planes():
                                     exclude=_REMOTE_ONLY))
   remote_only = set(jax_all) - jax_names
   assert {n.split('/')[0] for n in remote_only} == {
-      'ingest', 'serving', 'slo', 'controller'}
+      'serving', 'slo', 'controller'}
   assert all(n.startswith('serving/route_')
              for n in remote_only if n.startswith('serving/'))
-  jax_names.discard('driver/remote_live_hosts')
   port_names = set(_registered_names('scalable_agent_tpu_torch'))
+  jax_remote = {n for n, path in jax_all.items()
+                if path == os.path.join('runtime', 'remote.py')}
+  assert jax_remote and all(n.split('/')[0] in ('ingest', 'remote')
+                            for n in jax_remote)
+  assert jax_remote <= port_names
+  assert 'driver/remote_live_hosts' in port_names
   assert port_names == jax_names, (sorted(jax_names - port_names),
                                    sorted(port_names - jax_names))
   assert len(port_names) >= 55
