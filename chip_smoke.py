@@ -87,7 +87,8 @@ Phases, each of which raises (exit code != 0) when it fails:
              water, peak device memory, and the device's busy time per
              learner step and idle share by torch.profiler over steps 7-8
              (the union of every stream's device events, the server's
-             inference kernels included).
+             inference kernels included), which must not read empty, and
+             the SLO engine's verdict.
 14. fleet_reference — the inference server on the card against the same
              server on the CPU, same params, 32 concurrent callers at
              [72, 96] frames with random carries: logits, baseline and new
@@ -113,7 +114,10 @@ Phases, each of which raises (exit code != 0) when it fails:
              health_rollback_after=2 for 7 steps: exactly one rollback, the
              params right after it bit-equal to the LAST_GOOD payload, the
              server's live version the rollback step, a monotone step
-             counter, finite params, one V-trace launch per learner step.
+             counter, finite params, one V-trace launch per learner step;
+             the SLO verdict lists rollbacks_zero as burned; the
+             operator's profile_dir window over learner step 2 writes a
+             Chrome trace holding exactly one V-trace kernel.
 18. drain_fleet — the fleet CLI with a budget of 4 learner steps: SIGTERM
              once step 2 is summarised; the process exits 0 within
              preempt_drain_timeout_secs + 60 s with a resume manifest whose
@@ -122,12 +126,13 @@ Phases, each of which raises (exit code != 0) when it fails:
              the two runs' summary steps are 1..4, each with a finite
              total_loss and env_frames_per_sec; the manifest's metrics
              are the registry's snapshot (buffer/*, staging/*,
-             checkpoint/*, driver/* names; slo and controller null). It
-             prints the drain latency.
+             checkpoint/*, driver/* names; slo the SLO engine's verdict so
+             far, controller null), and both runs write SLO_VERDICT.json.
+             It prints the drain latency.
 
 19. dp_fleet — the data-parallel fleet: 2 gloo ranks sharing the card,
              each with 16 process-hosted actors feeding its 16 rows of the
-             global batch of 32, at the slice's widths, for 6 learner steps:
+             global batch of 32, at the slice's widths, for 5 learner steps:
              K1b once per learner step per rank (K1 never), the ranks'
              params bit-equal after every step, the SDC sentinel armed with
              0 mismatches; then the `replica_divergence` drill (health_
@@ -135,7 +140,7 @@ Phases, each of which raises (exit code != 0) when it fails:
              rollback per rank, the ranks still bit-equal. The first run's
              tail save (at D=2) restored on one rank: bit-equal. It prints
              global env-frames/s, ms per learner step and the blocked-get
-             share per rank over steps 3-6, and the gloo gradient
+             share per rank over steps 3-5, and the gloo gradient
              all-reduce's ms per step.
 20. cli_fleet_dp — `python -m torch.distributed.run --standalone
              --nproc_per_node=1 -m scalable_agent_tpu_torch.experiment
@@ -160,7 +165,7 @@ Phases, each of which raises (exit code != 0) when it fails:
              the 30 fake DMLab-30 levels at the fleet phase's widths in
              bfloat16, with PopArt over the 30 tasks, pixel control at
              0.01 and the instruction encoder, 32 process-hosted actors
-             stamping level ids i % 30, for 6 learner steps (4 timed):
+             stamping level ids i % 30, for 5 learner steps (3 timed):
              K1 once per learner step, finite losses, every task's PopArt
              statistics moved; env-frames/s, ms per learner step, the
              blocked-get share, device busy and idle share (torch.profiler,
@@ -215,7 +220,7 @@ Phases, each of which raises (exit code != 0) when it fails:
              step per rank, the ranks' score and visit tables bit-equal,
              CURRICULUM_LEVELS.json and the curriculum summaries.
 34. filler_fleet — the hybrid filler on the fleet phase's run with the
-             host procgen env in the 32 actors' processes and IMPACT, 6
+             host procgen env in the 32 actors' processes and IMPACT, 5
              learner steps: the fleet's clocks as without the filler
              (update_steps, frames, the RMSProp count, the LR per step),
              filler updates > 0, K1 once per learner step and per filler
@@ -296,25 +301,48 @@ Phases, each of which raises (exit code != 0) when it fails:
              fleet phase's, the learner process's idle share
              (torch.profiler, steps 2-4), unrolls/s and MB/s over the wire
              and the bytes of one unroll's frame, the ack p50/p99, the bf16
-             param blob's bytes and a publish's ms, and peak memory.
+             param blob's bytes and a publish's ms, and peak memory; the
+             idle share must not read empty.
 46. remote_faults — the drill: one actor host (16 actors,
              actor_reconnect_secs=120) feeds the learner CLI (num_actors=0,
              a checkpoint every step) whose fault plan from the
              environment holds wire_bitflip once (it fires in the actor
-             host, which gets the same plan), publish_corrupt at the first
-             publish and learner_crash at the 3rd consumed batch; the
-             learner dies by SIGKILL, the same CLI restarted on the same
-             port resumes from step 2 and reaches its 3-step budget
+             host, which gets the same plan), publish_corrupt at each of
+             its 4 publishes and learner_crash at the 5th consumed batch;
+             the learner dies by SIGKILL, the same CLI restarted on the
+             same port resumes from step 4 and reaches its 5-step budget
              publishing nothing, the
              host reattaches (counted) and exits 0 on the bye; no
              stale-epoch unroll arrives, a CRC refusal was followed by a
-             resend, the corrupt publish was refused and never installed.
+             resend, the corrupt publishes were refused and none was
+             installed;
+             the refusal burned wire_crc_rejected_zero (a durable
+             slo_violation incident: the SIGKILLed learner writes no
+             verdict), and the restarted learner's SLO_VERDICT.json ends
+             clean at step 5.
+47. routed_serving — routed serving at the fleet phase's widths: two
+             in-process replicas (an ingest listener with its own
+             InferenceServer on the card, serve_remote attached) behind
+             a ServingRouter; 24 batches of 32 (more, up to 48, until the
+             router has picked the closed replica once), replica 0 closed
+             without a 'bye' before batch 10: both served before, the
+             survivor every batch after (a failover, zero
+             NoReplicasAvailable),
+             its drain notice then empties the rotation; 9 routed results
+             against the CPU's forward (rtol 1e-4 / atol 1e-5); the
+             routed-latency objective and serving_latency_p99_ms judged
+             by the port's SloEvaluator, never burning.
+
+The SLO engine (slo.py) runs at its default, on, in every fleet, Anakin
+and population run here; the phases' own profiler windows refuse to start
+over another session, and the engine's captures never start under one.
 
 Every CLI phase checks that its process logged `float32 precision: tf32 off
 (cudnn, matmul)`: the port's entry points run float32 layers without TF32.
 Phases whose work is in subprocesses and whose checks are of correctness
 run at once, to keep the script inside its time limit: cli, cli_bf16 and
-cli_dp; cli_fleet_dp and cli_full_feature; remote_faults and eval_cli.
+cli_dp; and, last, drain_fleet, cli_fleet_dp, cli_full_feature,
+remote_faults and eval_cli.
 
 The forkserver that env processes fork from is started before the first
 CUDA call. Every kernel's launch count is set to 0 just before each path
@@ -322,8 +350,8 @@ CUDA call. Every kernel's launch count is set to 0 just before each path
 call, rollback_fleet, unroll_fleet, full_feature, impact_fleet and
 extensions_anakin, procgen_anakin, pbt_vectorized, pbt_serial,
 filler_fleet, deep_fast, cores_anakin, state_cache_fleet, admission's shed
-run, mixed_fleet, telemetry_fleet, faults_fleet and remote_fleet; the
-ranks of slice_dp,
+run, mixed_fleet, telemetry_fleet, faults_fleet, remote_fleet and
+routed_serving (which launches none); the ranks of slice_dp,
 dp_fleet, tp, popart_dp and curriculum_dp count their own and report
 them)
 and read just after; a kernel that its
@@ -362,6 +390,7 @@ from scalable_agent_tpu_torch import driver
 from scalable_agent_tpu_torch import integrity
 from scalable_agent_tpu_torch import learner
 from scalable_agent_tpu_torch import popart as popart_lib
+from scalable_agent_tpu_torch import slo
 from scalable_agent_tpu_torch import telemetry
 from scalable_agent_tpu_torch.analysis import runtime as lock_check
 from scalable_agent_tpu_torch.config import Config
@@ -383,6 +412,7 @@ from scalable_agent_tpu_torch.runtime import faults
 from scalable_agent_tpu_torch.runtime import py_process
 from scalable_agent_tpu_torch.runtime import remote
 from scalable_agent_tpu_torch.runtime import ring_buffer
+from scalable_agent_tpu_torch.runtime import routing
 from scalable_agent_tpu_torch.runtime.actor import batch_unrolls
 from scalable_agent_tpu_torch.runtime.inference import InferenceServer
 from scalable_agent_tpu_torch.scripts import conv_pool as conv_pool_script
@@ -416,6 +446,7 @@ FLEET = dict(SLICE, num_actors=32, use_py_process=True, episode_length=100,
 FLEET_STEPS = 8
 FLEET_TIMED_FROM = 2     # steps 3..8 are timed
 FLEET_PROFILED_FROM = 6  # steps 7..8 are profiled
+SLO_OBSERVE_REPS = 20
 PUBLISH_RACE_CALLERS = 8
 PUBLISH_RACE_ROUNDS = 40
 
@@ -1078,6 +1109,50 @@ def _device_busy_ms(prof):
   return busy_us / 1e3
 
 
+def _start_own_profiler(profiler, name):
+  """Start a phase's own profiler window, never over another session:
+  torch.profiler's CUDA collection is process-wide, and a second start
+  ends the first one's (the SLO engine's captures and the operator's
+  window refuse to start under this one for the same reason)."""
+  if driver.profiler_running():
+    raise AssertionError(f'{name}: another profiler session was running '
+                         'when the phase\'s own window started')
+  profiler.start()
+
+
+def _busy_ms_or_fail(name, profiler):
+  """The phase's device-busy sum, which must not read empty."""
+  busy_ms = _device_busy_ms(profiler)
+  if not busy_ms > 0:
+    raise AssertionError(f'{name}: the phase\'s own profiler window read no '
+                         'device time (a collision with another session?)')
+  return busy_ms
+
+
+_VERDICT_KEYS = {'pass', 'violations', 'wall_time', 'objectives', 'captures',
+                 'clean_exit', 'update_steps'}
+
+
+def _slo_verdict(name, logdir, burned=()):
+  """The run's SLO_VERDICT.json (the engine at its default, on): JAX's
+  keys, every default objective judged, and `burned` among its
+  violations. Returns it."""
+  verdict = slo.read_verdict(logdir)
+  if (verdict is None or not _VERDICT_KEYS <= set(verdict) or
+      set(verdict['objectives']) != {o.name for o in slo.DEFAULT_OBJECTIVES}):
+    raise AssertionError(f'{name}: SLO verdict {verdict}')
+  missing = sorted(set(burned) - set(verdict['violations']))
+  if missing:
+    raise AssertionError(f'{name}: {missing} not burned; verdict '
+                         f'violations {verdict["violations"]}')
+  return verdict
+
+
+def _verdict_line(verdict):
+  return (f'SLO verdict pass={verdict["pass"]} violations '
+          f'{verdict["violations"]} captures {sorted(verdict["captures"])}')
+
+
 def phase_fleet():
   """The fleet runtime at full width through driver.train (see the
   module docstring); returns its kernel launch counts."""
@@ -1095,15 +1170,24 @@ def _fleet_run(config):
   profiler = torch.profiler.profile(activities=[
       torch.profiler.ProfilerActivity.CPU,
       torch.profiler.ProfilerActivity.CUDA])
+  observe_ms = []
 
   def on_step(run, step, metrics):
+    if step == FLEET_TIMED_FROM:
+      # The SLO engine's per-observe cost on the live registry: a
+      # snapshot and the default objectives judged, SLO_OBSERVE_REPS times.
+      evaluator = slo.SloEvaluator(slo.load_objectives())
+      for _ in range(SLO_OBSERVE_REPS):
+        t = time.perf_counter()
+        evaluator.observe(telemetry.registry().snapshot())
+        observe_ms.append(1e3 * (time.perf_counter() - t))
     if step % config.publish_params_every == 0:
       published[step] = _param_snapshot(run.state.params)
     elif step > FLEET_PROFILED_FROM:
       learner_after[step] = _param_snapshot(run.state.params)
     if step == FLEET_PROFILED_FROM:
       torch.cuda.synchronize()
-      profiler.start()
+      _start_own_profiler(profiler, 'fleet')
       window.append(time.perf_counter())
     elif step == FLEET_STEPS:
       torch.cuda.synchronize()
@@ -1158,10 +1242,10 @@ def _fleet_run(config):
   timed_steps = FLEET_STEPS - FLEET_TIMED_FROM
   fps = timed_steps * config.frames_per_step / timed_s
   profiled_steps = FLEET_STEPS - FLEET_PROFILED_FROM
-  busy_ms = _device_busy_ms(profiler)
+  busy_ms = _busy_ms_or_fail('fleet', profiler)
   busy = (f'{busy_ms / profiled_steps:.2f} ms per learner step, idle share '
-          f'{1 - busy_ms / (1e3 * (window[1] - window[0])):.4f}'
-          if busy_ms else 'not measured (no device events)')
+          f'{1 - busy_ms / (1e3 * (window[1] - window[0])):.4f}')
+  verdict = _slo_verdict('fleet', config.logdir)
   log(f'fleet: {FLEET_STEPS} learner steps in {wall:.2f} s (set-up '
       f'included); losses {losses}; max |param change| {moved:.3e}; vtrace '
       f'launches {counts["vtrace"]}; server snapshot bit-equal to the '
@@ -1179,8 +1263,12 @@ def _fleet_run(config):
       f'{run.stats["buffer"]["capacity"]}; peak allocated {peak_gib:.3f} '
       f'GiB; device busy {busy} (torch.profiler, union of the device '
       f'events of every stream over steps {FLEET_PROFILED_FROM + 1}-'
-      f'{FLEET_STEPS}, inference kernels included); fleet '
-      f'{run.stats["fleet"]}; prefetcher {run.stats["prefetcher"]}')
+      f'{FLEET_STEPS}, inference kernels included, the SLO engine '
+      f'running); fleet {run.stats["fleet"]}; prefetcher '
+      f'{run.stats["prefetcher"]}; {_verdict_line(verdict)}; an SLO observe '
+      f'(registry snapshot + the default objectives) p50 '
+      f'{statistics.median(observe_ms):.3f} ms max {max(observe_ms):.3f} ms '
+      f'over {SLO_OBSERVE_REPS} in step {FLEET_TIMED_FROM}')
   return counts
 
 
@@ -1415,10 +1503,14 @@ def phase_rollback_fleet():
   health_rollback_after=2: one rollback, at step 6, to LAST_GOOD (step 4)
   — the params right after it bit-equal to that payload, the server's
   live version the rollback step — a monotone update counter, finite
-  params at the end, K1 once per learner step."""
+  params at the end, K1 once per learner step; the SLO verdict lists
+  rollbacks_zero as burned; the operator's profile_dir window over
+  learner step 2 writes a Chrome trace holding the V-trace kernel."""
   with tempfile.TemporaryDirectory(prefix='chip_smoke_rollback_') as logdir:
+    profile_dir = os.path.join(logdir, 'profile')
     config = Config(**FLEET, logdir=logdir, checkpoint_secs=0,
-                    health_rollback_after=2)
+                    health_rollback_after=2, profile_dir=profile_dir,
+                    profile_start_step=1, profile_num_steps=1)
     seen = {'steps': []}
 
     def on_step(run, step, metrics):
@@ -1442,6 +1534,16 @@ def phase_rollback_fleet():
                                       'state.pt'), weights_only=True)
     with open(os.path.join(logdir, 'incidents.jsonl')) as f:
       kinds = [e['kind'] for e in map(json.loads, f)]
+    verdict = _slo_verdict('rollback_fleet', logdir, burned=['rollbacks_zero'])
+    trace_path = os.path.join(profile_dir, 'trace.json')
+    trace_mb = os.path.getsize(trace_path) / 1e6
+    with open(trace_path) as f:
+      events = json.load(f)['traceEvents']
+    vtrace_events = [e for e in events if e.get('cat') == 'kernel'
+                     and 'vtrace_kernel' in e.get('name', '')]
+    if len(vtrace_events) != 1:
+      raise AssertionError(f'rollback_fleet: the profile_dir trace holds '
+                           f'{len(vtrace_events)} V-trace kernel events')
   stats = run.health.stats()
   if stats['rollbacks'] != 1 or kinds.count('rollback') != 1:
     raise AssertionError(f'rollbacks {stats}, incidents {kinds}')
@@ -1461,7 +1563,10 @@ def phase_rollback_fleet():
   log(f'rollback_fleet: rolled back at step {seen["step"]} to checkpoint step '
       f'{seen["last_good"]} (params bit-equal to its payload, live version '
       f'{seen["version"]}); health {stats}; update_steps {seen["steps"]}; '
-      f'vtrace launches {counts["vtrace"]}; incidents {kinds}')
+      f'vtrace launches {counts["vtrace"]}; incidents {kinds}; '
+      f'{_verdict_line(verdict)}; profile_dir trace of learner step 2: '
+      f'{trace_mb:.1f} MB, {len(events)} events, V-trace kernel '
+      f'{vtrace_events[0]["dur"]} us')
   return counts
 
 
@@ -1518,7 +1623,8 @@ def phase_drain_fleet():
   runs' summary steps are 1..4, each with a finite total_loss and
   env_frames_per_sec (the fleet CLI's check). The manifest's `metrics` is the
   registry's snapshot with the buffer/*, staging/*, checkpoint/* and
-  driver/* names; `slo` and `controller` are null."""
+  driver/* names; `slo` is the SLO engine's verdict so far and
+  `controller` null; each run writes its SLO_VERDICT.json."""
   config = Config(**FLEET)
   with tempfile.TemporaryDirectory(prefix='chip_smoke_drain_') as logdir:
     cmd = [sys.executable, '-m', 'scalable_agent_tpu_torch.experiment',
@@ -1532,14 +1638,17 @@ def phase_drain_fleet():
             manifest['checkpoint_step'] == manifest['update_steps'] and
             manifest['drain_source'] == 'signal'):
       raise AssertionError(f'drain manifest {manifest}')
-    # The manifest's metrics are the registry's snapshot; the SLO engine
-    # and the controller are not ported (ROADMAP A7.4's second part).
+    # The manifest's metrics are the registry's snapshot, its slo the
+    # verdict so far; the controller is not ported (ROADMAP A7.4).
     metrics = manifest['metrics']
     planes = sorted({k.split('/')[0] for k in metrics or {}})
+    drained_verdict = _slo_verdict('drain_fleet', logdir)
     if (not isinstance(metrics, dict) or
         not {'buffer', 'staging', 'checkpoint', 'driver'} <= set(planes) or
         metrics.get('driver/update_steps') != manifest['update_steps'] or
-        manifest['slo'] is not None or manifest['controller'] is not None):
+        not isinstance(manifest['slo'], dict) or
+        set(manifest['slo']) != _VERDICT_KEYS - {'clean_exit', 'update_steps'}
+        or manifest['controller'] is not None):
       raise AssertionError(f'drain manifest metrics {metrics}, slo '
                            f'{manifest["slo"]}, controller '
                            f'{manifest["controller"]}')
@@ -1562,13 +1671,20 @@ def phase_drain_fleet():
         os.path.join(logdir, 'checkpoints')).last_good_step()
     if last_good != DRAIN_STEPS:
       raise AssertionError(f'LAST_GOOD {last_good}')
+    resumed_verdict = _slo_verdict('drain_fleet', logdir)
+    if (resumed_verdict['update_steps'] != DRAIN_STEPS
+        or not resumed_verdict['clean_exit']):
+      raise AssertionError(f'drain_fleet: the resumed run\'s verdict '
+                           f'{resumed_verdict}')
   log(f'drain_fleet: SIGTERM at step >= 2, drained at step {drained_at} in '
       f'{manifest["drain_latency_secs"]} s (drain latency, the manifest), '
       f'exit {exit_secs:.1f} s after the signal; {manifest["buffer"]} left; '
       f'the manifest\'s metrics: {len(metrics)} registry names of the planes '
       f'{planes}; '
       f'run 1 {t1 - t0:.1f} s, the resumed run {time.perf_counter() - t1:.1f}'
-      f' s; summary steps {steps}')
+      f' s; summary steps {steps}; the drained run\'s '
+      f'{_verdict_line(drained_verdict)}, the resumed run\'s '
+      f'{_verdict_line(resumed_verdict)}')
 
 # --- multi-process training: the data-parallel fleet, unroll staging and
 # tensor parallelism ------------------------------------------------------
@@ -1576,7 +1692,7 @@ def phase_drain_fleet():
 # The data-parallel fleet: 2 gloo ranks sharing the card, each with 16
 # process-hosted actors, global B=32 (16 rows per rank).
 DP_FLEET = dict(FLEET, num_actors=16)
-DP_FLEET_STEPS = 6
+DP_FLEET_STEPS = 5
 SDC_DRILL_STEPS = 5
 # The tensor-parallel phase: the sharded step at a cut T*B (see phase_tp),
 # and a short TP fleet with 16 actors per rank.
@@ -1740,7 +1856,8 @@ def _dp_fleet_rank(rank, world, port, outdir):
 def phase_dp_fleet():
   """The data-parallel fleet: 2 gloo ranks sharing the card, each with 16
   process-hosted actors feeding its 16 rows of the global batch of 32, at
-  the slice's widths, for 8 learner steps, then the SDC drill; the tail
+  the slice's widths, for DP_FLEET_STEPS learner steps, then the SDC
+  drill; the tail
   save of the first run restored on one rank. Returns the launch counts
   of the first run, summed over the ranks."""
   with tempfile.TemporaryDirectory(prefix='chip_smoke_dp_fleet_') as outdir:
@@ -2224,7 +2341,7 @@ IMPACT_FLEET = dict(FULL_FEATURE, compute_dtype='float32',
 EXTENSIONS_ANAKIN = dict(SLICE, use_popart=True, pixel_control_cost=0.01,
                          use_instruction=True)
 EXTENSIONS_ANAKIN_STEPS = 3
-FULL_FEATURE_STEPS = 6
+FULL_FEATURE_STEPS = 5
 POPART_DP_FLEET = dict(DP_FLEET, env_backend='fake', level_name='dmlab30',
                        use_popart=True, pixel_control_cost=0.01,
                        use_instruction=True)
@@ -2244,7 +2361,7 @@ def _extension_run(name, config, steps=FLEET_STEPS):
   def on_step(run, step, metrics):
     if step == steps - 2:
       torch.cuda.synchronize()
-      profiler.start()
+      _start_own_profiler(profiler, name)
       window.append(time.perf_counter())
     elif step == steps:
       torch.cuda.synchronize()
@@ -2268,22 +2385,21 @@ def _extension_run(name, config, steps=FLEET_STEPS):
   if len(losses) != steps or not all(map(math.isfinite, losses)):
     raise AssertionError(f'{name} losses: {losses}')
   timed_s, waited_s = _step_times(run, FLEET_TIMED_FROM)
-  busy_ms = _device_busy_ms(profiler)
+  busy_ms = _busy_ms_or_fail(name, profiler)
+  log(f'{name}: {_verdict_line(_slo_verdict(name, config.logdir))}')
   timing = dict(
       steps=steps,
       step_ms=1e3 * timed_s / (steps - FLEET_TIMED_FROM),
       blocked=waited_s / timed_s,
-      busy_ms=busy_ms / 2 if busy_ms else None,
-      idle=(1 - busy_ms / (1e3 * (window[1] - window[0]))
-            if busy_ms else None),
+      busy_ms=busy_ms / 2,
+      idle=1 - busy_ms / (1e3 * (window[1] - window[0])),
       peak_gib=torch.cuda.max_memory_allocated() / 2**30)
   return run, counts, last, losses, timing
 
 
 def _timing_line(timing):
-  busy = ('not measured (no device events)' if timing['busy_ms'] is None
-          else f'{timing["busy_ms"]:.2f} ms per learner step, idle share '
-               f'{timing["idle"]:.4f}')
+  busy = (f'{timing["busy_ms"]:.2f} ms per learner step, idle share '
+          f'{timing["idle"]:.4f}')
   return (f'{timing["step_ms"]:.2f} ms per learner step over steps '
           f'{FLEET_TIMED_FROM + 1}-{timing["steps"]}; learner blocked in '
           f'prefetcher.get {timing["blocked"]:.4f} of that time; device '
@@ -2292,7 +2408,7 @@ def _timing_line(timing):
 
 
 def phase_full_feature():
-  """The full-feature fleet (FULL_FEATURE) for 6 learner steps, 4 timed:
+  """The full-feature fleet (FULL_FEATURE) for 5 learner steps, 3 timed:
   one K1 launch per learner step, finite losses, PopArt statistics over
   the 30 tasks that every task's actors moved, a finite pixel-control
   loss; env-frames/s, ms per learner step, device busy and idle share,
@@ -2667,7 +2783,7 @@ PBT_SERIAL = dict(SLICE, env_backend='procgen', num_actions=4,
 PBT_SERIAL_ROUNDS = 3
 CURRICULUM_DP = dict(PROCGEN, curriculum='td')
 CURRICULUM_DP_STEPS = 3
-FILLER_FLEET_STEPS = 6
+FILLER_FLEET_STEPS = 5
 FILLER_FLEET = dict(FLEET, env_backend='procgen', num_actions=4,
                     anakin_filler=True, surrogate='impact')
 DEEP_FAST_STEPS = 3
@@ -2976,7 +3092,7 @@ def phase_curriculum_dp():
 
 def phase_filler_fleet():
   """The hybrid filler on the fleet at the fleet phase's widths: 32
-  process-hosted actors on the host procgen env, IMPACT, 6 learner steps.
+  process-hosted actors on the host procgen env, IMPACT, 5 learner steps.
   The fleet's clocks are those of a run without the filler (update_steps
   6, its frame clock 6 x frames_per_step, the RMSProp count 6, the LR at
   the fleet's count); filler updates > 0, counted apart; K1 once per
@@ -3464,6 +3580,199 @@ def phase_serving():
       f'greedy agreement {agreement:.4f} over {len(calls)} callers; '
       f'serving_aot: aot_misses {stats8["aot_misses"]}, warmed pairs '
       f'{stats8["aot_compiled"]}')
+
+
+# Routed serving: two in-process replicas at the fleet's widths, each an
+# ingest listener answering 'infer' with its own InferenceServer on the
+# card, behind one ServingRouter; batches of ROUTED_BATCH rows (the bucket
+# each server warms, so no routed call pays a first-use set-up), replica 0
+# closed without a 'bye' before batch ROUTED_KILL_AT.
+ROUTED_BATCH = 32
+ROUTED_BATCHES = 24
+ROUTED_KILL_AT = 10
+# The pump goes on past ROUTED_BATCHES until the router has picked the
+# closed replica once (a failover): a slow first reply can leave it at
+# the floor weight, 1/11 of the picks.
+ROUTED_MAX_BATCHES = 48
+# The batches held against the CPU's forward: both replicas before the
+# kill, the survivor after it.
+ROUTED_CHECKED = (0, 1, 2, 3, 10, 11, 22, 23)
+
+
+def _routed_payloads(config, hidden, count):
+  rng = np.random.RandomState(7)
+  b = ROUTED_BATCH
+  return [{
+      'prev_action': rng.randint(0, config.num_actions, b).astype(np.int32),
+      'reward': rng.randn(b).astype(np.float32),
+      'done': rng.rand(b) < 0.2,
+      'frame': rng.randint(0, 256, (b, config.height, config.width,
+                                    3)).astype(np.uint8),
+      'instr': np.zeros((b, 16), np.int32),
+      'core_c': (rng.randn(b, hidden) * 0.3).astype(np.float32),
+      'core_h': (rng.randn(b, hidden) * 0.3).astype(np.float32),
+  } for _ in range(count)]
+
+
+def _serves(router):
+  return {r['address']: r['serves'] for r in router.stats()['replicas']}
+
+
+def _routed_pump(router, payloads, replicas, evaluator):
+  """Pump payloads through the router, closing replica 0's ingest
+  without a 'bye' before batch ROUTED_KILL_AT, ROUTED_BATCHES of them and
+  then on until the router failed over; returns (results, the address
+  that served each, the serve counts at the kill, the
+  NoReplicasAvailable count after it, the routed ms per batch)."""
+  results, served_by, starved, ms = [], [], 0, []
+  at_kill = None
+  for i, payload in enumerate(payloads):
+    if i >= ROUTED_BATCHES and router.stats()['route_failovers']:
+      break
+    if i == ROUTED_KILL_AT:
+      at_kill = _serves(router)
+      replicas[0][1].close(graceful=False)
+    before = _serves(router)
+    t = time.perf_counter()
+    try:
+      result, _ = router.infer(payload)
+    except routing.NoReplicasAvailable:
+      starved += 1
+      results.append(None)
+      served_by.append(None)
+      continue
+    ms.append(1e3 * (time.perf_counter() - t))
+    after = _serves(router)
+    results.append(result)
+    served_by.append(next(a for a in after if after[a] != before[a]))
+    evaluator.observe(telemetry.registry().snapshot())
+  return results, served_by, at_kill, starved, ms
+
+
+def phase_routed_serving():
+  """Routed serving at the deep agent's full width (72x96 frames, LSTM
+  256), after JAX's routed drill (scripts/chaos.py run_routed_storm):
+  two replicas serve before replica 0 is closed mid-pump without a 'bye';
+  every later batch is served by the survivor (the router fails over once
+  it picks the closed one, zero NoReplicasAvailable); the survivor's drain
+  notice then takes it
+  out of new picks; the routed results at ROUTED_CHECKED hold to the same
+  params' forward on the CPU (rtol 1e-4 / atol 1e-5, fleet_reference's
+  float32 bar); the routed-latency objective (serving/route_ms p99 <=
+  5 s, JAX's drill's) and the default serving_latency_p99_ms, judged by
+  the port's SloEvaluator over the pump, never burn. Returns the launch
+  counts (the path runs no hand-written kernel)."""
+  config = Config(**dict(FLEET, inference_timeout_ms=1))
+  num_actions = SLICE['num_actions']
+  agent = driver.build_agent(config, num_actions)
+  params = init_params(agent, torch.Generator().manual_seed(config.seed))
+  contract = remote.trajectory_contract(config, agent, num_actions)
+  payloads = _routed_payloads(config, agent.hidden_size,
+                              ROUTED_MAX_BATCHES + 2)
+  obs_spec = {'frame': (config.height, config.width, 3), 'instr_len': 16}
+  objectives = [
+      slo.Objective(name='routed_latency_p99_ms', metric='serving/route_ms',
+                    field='p99', comparison='<=', target=5000.0,
+                    severity='ticket', fast_window_secs=2.0,
+                    slow_window_secs=30.0),
+      next(dataclasses.replace(o, fast_window_secs=2.0, slow_window_secs=30.0)
+           for o in slo.DEFAULT_OBJECTIVES
+           if o.name == 'serving_latency_p99_ms')]
+  evaluator = slo.SloEvaluator(objectives)
+  replicas, router = [], None
+  t0 = time.perf_counter()
+
+  def drive():
+    nonlocal router
+    for k in range(2):
+      buffer = ring_buffer.TrajectoryBuffer(2)
+      replicas.append([buffer, None, None])
+      replicas[-1][1] = remote.TrajectoryIngestServer(
+          buffer, driver.host_params(params), host='127.0.0.1',
+          contract=contract)
+      server = replicas[-1][2] = InferenceServer(
+          agent, {n: v.to('cuda') for n, v in params.items()}, config,
+          seed=10 + k, fleet_size=ROUTED_BATCH)
+      server.warmup(obs_spec, sizes=[ROUTED_BATCH])
+      replicas[-1][1].attach_serving(server.serve_remote)
+    addresses = [f'127.0.0.1:{r[1].port}' for r in replicas]
+    router = routing.ServingRouter(
+        addresses, lambda a: routing.connect_serving(
+            a, contract, connect_timeout_secs=30), probation_secs=600.0)
+    evaluator.observe(telemetry.registry().snapshot())
+    pumped = _routed_pump(router, payloads[:ROUTED_MAX_BATCHES], replicas,
+                          evaluator)
+    # The survivor's drain notice: its reply is valid, and no new pick
+    # lands on it.
+    replicas[1][1].set_draining()
+    drained, _ = router.infer(payloads[ROUTED_MAX_BATCHES])
+    refused = False
+    try:
+      router.infer(payloads[ROUTED_MAX_BATCHES + 1])
+    except routing.NoReplicasAvailable:
+      refused = True
+    return addresses, pumped, drained, refused, router.stats()
+
+  try:
+    (addresses, (results, served_by, at_kill, starved, ms), drained, refused,
+     stats), counts = _drive('routed_serving', drive)
+  finally:
+    if router is not None:
+      router.close()
+    for buffer, ingest, server in replicas:
+      if ingest is not None:
+        ingest.close(graceful=False)
+      if server is not None:
+        server.close()
+      buffer.close()
+  wall = time.perf_counter() - t0
+  problems = []
+  if not at_kill or not all(at_kill[a] > 0 for a in addresses):
+    problems.append(f'a replica served nothing before the kill: {at_kill}')
+  after = served_by[ROUTED_KILL_AT:]
+  if starved or set(after) != {addresses[1]}:
+    problems.append(f'{starved} NoReplicasAvailable after the kill; served '
+                    f'by {after}')
+  if stats['route_failovers'] < 1:
+    problems.append(f'the kill took no failover: {stats}')
+  by_addr = {r['address']: r for r in stats['replicas']}
+  if not (by_addr[addresses[1]]['draining'] and stats['available'] == 0
+          and refused and drained['logits'].shape == (ROUTED_BATCH,
+                                                      num_actions)):
+    problems.append(f'the drain notice did not empty the rotation: {stats}')
+  if any(counts.values()):
+    problems.append(f'routed serving launched kernels: {counts}')
+  verdict = evaluator.verdict()
+  if not verdict['pass'] or any(
+      e['state'] != slo.OK for e in verdict['objectives'].values()):
+    problems.append(f'routed SLO verdict {verdict}')
+  if problems:
+    raise AssertionError(f'routed_serving: {problems}')
+  cpu = InferenceServer(agent, params, config, seed=1,
+                        fleet_size=ROUTED_BATCH)
+  err = 0.0
+  try:
+    for i in ROUTED_CHECKED + (ROUTED_MAX_BATCHES,):
+      got = drained if i == ROUTED_MAX_BATCHES else results[i]
+      ref = cpu.serve_remote(payloads[i])
+      for key in ('logits', 'baseline', 'core_c', 'core_h'):
+        np.testing.assert_allclose(got[key], ref[key], rtol=1e-4, atol=1e-5,
+                                   err_msg=f'routed batch {i} {key}')
+        err = max(err, float(np.max(np.abs(got[key] - ref[key]))))
+  finally:
+    cpu.close()
+  objective_values = {n: e['value'] for n, e in verdict['objectives'].items()}
+  log(f'routed_serving: {len(results)} batches of {ROUTED_BATCH} at '
+      f'{config.height}x{config.width} through 2 replicas in {wall:.1f} s '
+      f'(set-up included, the CPU check not); served before the kill '
+      f'{at_kill}, after it {len(after)} of {len(after)} by the survivor, '
+      f'{stats["route_failovers"]} failover(s), {starved} '
+      f'NoReplicasAvailable; the drain notice left {stats["available"]} '
+      f'available; routed ms per batch p50 {statistics.median(ms):.2f} max '
+      f'{max(ms):.2f} (wire both ways, the card\'s forward, host copies); '
+      f'card vs CPU max |diff| {err:.3e} over {len(ROUTED_CHECKED) + 1} '
+      f'batches; SLO {objective_values} (ok); launches {counts}')
+  return counts
 
 
 def phase_admission():
@@ -3954,11 +4263,18 @@ REMOTE_PUBLISH_REPS = 3
 # learner restarted on the same port from its checkpoint.
 REMOTE_FAULTS = dict(FLEET, num_actors=0, publish_params_every=1,
                      checkpoint_secs=0, remote_publish_secs=0.0)
-# learner_crash at the 3rd consumed batch: the checkpointer's clock starts
-# at its first check, so step 2 is the first step saved.
+# learner_crash at the 5th consumed batch, after steps 1-4 (the
+# checkpointer's clock starts at its first check, so step 2 is the first
+# step saved, step 4 the last), and every one of the first learner's 4
+# publishes corrupt: up to 3 batches are staged ahead of a step, so the
+# host acks unrolls of a corrupt version before the crash whatever the
+# staging (a page burn's profiler capture before step 1 lets all 3 stage,
+# and then steps 1-3 take no unroll acked after the first publish).
+REMOTE_FAULTS_CRASH = 4
 REMOTE_FAULTS_PLAN = dict(wire_bitflip=[0], publish_corrupt_at=1,
-                          learner_crash_at=2)
-REMOTE_FAULTS_STEPS = 3  # the restarted learner's budget
+                          publish_corrupt_len=REMOTE_FAULTS_CRASH,
+                          learner_crash_at=REMOTE_FAULTS_CRASH)
+REMOTE_FAULTS_STEPS = REMOTE_FAULTS_CRASH + 1  # the restarted one's budget
 # The CLI with the fault plan of SA_FAULT_PLAN installed first.
 _CLI_WITH_PLAN = ('import sys; from scalable_agent_tpu_torch.runtime '
                   'import faults; faults.install_from_env(); from '
@@ -4034,7 +4350,7 @@ def phase_remote_fleet():
       unrolls[step] = (time.perf_counter(), run.ingest.stats()['unrolls'])
       if step == 1:
         torch.cuda.synchronize()
-        profiler.start()
+        _start_own_profiler(profiler, 'remote_fleet')
         window.append(time.perf_counter())
       elif step == REMOTE_FLEET_STEPS:
         torch.cuda.synchronize()
@@ -4057,6 +4373,7 @@ def phase_remote_fleet():
       remote_publishes = [r['rv'] for r in map(json.loads, f)
                           if r.get('k') == 'publish' and 'rv' in r]
     losses = [v for _, v in _summary_values(logdir, 'total_loss')]
+    verdict = _slo_verdict('remote_fleet', logdir)
   ingest = run.stats['ingest']
   if (run.state.update_steps != REMOTE_FLEET_STEPS
       or counts['vtrace'] != REMOTE_FLEET_STEPS
@@ -4086,9 +4403,8 @@ def phase_remote_fleet():
   times = [run.step_log[i]['time'] for i in range(REMOTE_FLEET_STEPS)]
   step_ms = statistics.median(1e3 * (b - a) for a, b in zip(times, times[1:]))
   (t_a, u_a), (t_b, u_b) = unrolls[1], unrolls[REMOTE_FLEET_STEPS]
-  busy_ms = _device_busy_ms(profiler)
-  idle = (f'{1 - busy_ms / (1e3 * (window[1] - window[0])):.4f}'
-          if busy_ms else 'not measured (no device events)')
+  busy_ms = _busy_ms_or_fail('remote_fleet', profiler)
+  idle = f'{1 - busy_ms / (1e3 * (window[1] - window[0])):.4f}'
   # The wire's bytes per unroll: the OOB frame of a full-width unroll
   # with its params version, epoch and trace context.
   unroll = _full_width_unrolls(config, 1)[0]
@@ -4127,17 +4443,18 @@ def phase_remote_fleet():
       f'{len(remote_publishes)} remote publishes, {serializations} '
       f'serializations, '
       f'{ingest["param_blobs"]} blobs served; peak allocated '
-      f'{peak_gib:.3f} GiB')
+      f'{peak_gib:.3f} GiB; the learner\'s {_verdict_line(verdict)}')
   return counts
 
 
 def phase_remote_faults():
   """The drill (see the module docstring): one actor host with a
   reconnect window feeds a learner CLI that a learner_crash SIGKILLs at
-  its third consumed batch, then the same CLI restarted on the same
-  port, resumed from its step-2 checkpoint, to REMOTE_FAULTS_STEPS. The
-  plan's wire_bitflip fires in the actor host, publish_corrupt in the
-  first learner's first publish."""
+  its (REMOTE_FAULTS_CRASH + 1)th consumed batch, then the same CLI
+  restarted on the same port, resumed from its last checkpoint (step
+  REMOTE_FAULTS_CRASH), to REMOTE_FAULTS_STEPS. The plan's wire_bitflip
+  fires in the actor host, publish_corrupt in every publish of the first
+  learner."""
   port = _free_port()
   config = Config(**REMOTE_FAULTS)
   plan = faults.FaultPlan.storm(seed=1, **REMOTE_FAULTS_PLAN)
@@ -4169,11 +4486,13 @@ def phase_remote_faults():
       raise
     learners = []
     if (first.returncode != -signal.SIGKILL
-        or 'learner_crash fault firing (index 2)' not in first.stderr):
+        or f'learner_crash fault firing (index {REMOTE_FAULTS_CRASH})'
+        not in first.stderr):
       learners.append(f'the first learner exited {first.returncode}:\n'
                       f'{first.stderr[-6000:]}')
-    if second.returncode != 0 or 'restored checkpoint at step 2' not in (
-        second.stderr):
+    if second.returncode != 0 or (
+        f'restored checkpoint at step {REMOTE_FAULTS_CRASH}'
+        not in second.stderr):
       learners.append(f'the restarted learner exited {second.returncode}:'
                       f'\n{second.stderr[-8000:]}')
     if learners:
@@ -4187,6 +4506,12 @@ def phase_remote_faults():
         'total_loss', 'wire_crc_rejected', 'remote_unrolls',
         'remote_reattached', 'remote_stale_epoch_rejected',
         'publish_digest_rejected')}
+    # The restarted learner's verdict; the SIGKILLed one writes none, and
+    # its burns live in the durable slo_violation incidents the two share.
+    verdict = _slo_verdict('remote_faults', logdir)
+    with open(os.path.join(logdir, 'incidents.jsonl')) as f:
+      burned = [e['objective'] for e in map(json.loads, f)
+                if e['kind'] == 'slo_violation']
   _check_precision_line(second.stderr, 'remote_faults')
   steps = [s for s, _ in summaries['total_loss']]
   if steps != list(range(1, REMOTE_FAULTS_STEPS + 1)):
@@ -4203,11 +4528,18 @@ def phase_remote_faults():
           and 're-sending once' in actor_log):
     problems.append('no CRC refusal followed by a resend')
   if ('failed its content digest' not in before_reattach
-      or 'refreshed params to v2' in before_reattach):
-    problems.append('the corrupt publish was installed or never refused')
+      or 'refreshed params to v' in before_reattach):
+    problems.append('a corrupt publish was installed or none was refused')
   if 'RE-ATTACHED' not in actor_log or 'learner finished training' not in (
       actor_log):
     problems.append('the actor host did not reattach and end on the bye')
+  if 'wire_crc_rejected_zero' not in burned + verdict['violations']:
+    problems.append(f'the CRC refusal burned no wire_crc_rejected_zero '
+                    f'(slo_violation incidents {burned}, the restarted '
+                    f'learner\'s verdict {verdict["violations"]})')
+  if (verdict['update_steps'] != REMOTE_FAULTS_STEPS
+      or not verdict['clean_exit']):
+    problems.append(f'the restarted learner\'s verdict {verdict}')
   if problems:
     raise AssertionError(f'remote_faults: {problems}; summaries '
                          f'{summaries}; actor host log:\n'
@@ -4215,9 +4547,12 @@ def phase_remote_faults():
   report = [line for line in actor_log.splitlines()
             if 'INTEGRITY_REPORT' in line or 'RE-ATTACHED' in line]
   log(f'remote_faults: the first learner SIGKILLed {crashed_at:.1f} s in '
-      f'(learner_crash at its 3rd consumed batch), the restarted one resumed '
-      f'from step 2 and ended at step {steps[-1]}; {wall:.1f} s in all; '
-      f'summaries (step, value) {summaries}; actor host: {report}')
+      f'(learner_crash at its {REMOTE_FAULTS_CRASH + 1}th consumed batch), the '
+      f'restarted one resumed from step {REMOTE_FAULTS_CRASH} and ended at '
+      f'step {steps[-1]}; {wall:.1f} s in all; '
+      f'summaries (step, value) {summaries}; actor host: {report}; '
+      f'slo_violation incidents of both learners {burned}; the restarted '
+      f'learner\'s {_verdict_line(verdict)}')
 
 
 def main():
@@ -4286,14 +4621,11 @@ def run_phases():
   timed('fleet_reference', phase_fleet_reference)
   paths['resume_anakin'] = timed('resume_anakin', phase_resume_anakin)
   paths['rollback_fleet'] = timed('rollback_fleet', phase_rollback_fleet)
-  timed('drain_fleet', phase_drain_fleet)
   paths['dp_fleet'] = timed('dp_fleet', phase_dp_fleet)
   paths['unroll_fleet'] = timed('unroll_fleet', phase_unroll_fleet)
   paths['tp'] = timed('tp', phase_tp)
   paths['full_feature'] = timed('full_feature', phase_full_feature)
   timed('full_feature_reference', phase_full_feature_reference)
-  timed('cli_fleet_dp, cli_full_feature', _together,
-        (phase_cli_fleet_dp,), (phase_cli_full_feature,))
   paths['impact_fleet'] = timed('impact_fleet', phase_impact_fleet)
   paths['extensions_anakin'] = timed('extensions_anakin',
                                      phase_extensions_anakin)
@@ -4310,14 +4642,19 @@ def run_phases():
                                      phase_state_cache_fleet)
   timed('state_cache_reference', phase_state_cache_reference)
   timed('serving', phase_serving)
+  paths['routed_serving'] = timed('routed_serving', phase_routed_serving)
   paths['admission'] = timed('admission', phase_admission)
   paths['mixed_fleet'] = timed('mixed_fleet', phase_mixed_fleet)
   paths['telemetry_fleet'] = timed('telemetry_fleet', phase_telemetry_fleet)
   paths['faults_fleet'] = timed('faults_fleet', phase_faults_fleet)
   paths['remote_fleet'] = timed('remote_fleet', phase_remote_fleet)
-  # The drill and the eval CLI at once: both check correctness; the
-  # eval's printed wall times then include the drill's load.
-  timed('remote_faults, eval_cli', _together, (phase_remote_faults,),
+  # The fleet's CLI phases at once: their checks are of correctness, and
+  # the wall times and the drain latency they print include the others'
+  # load. The parent's cached blocks go back to the card first.
+  _free_the_card('the fleet CLIs')
+  timed('drain_fleet, cli_fleet_dp, cli_full_feature, remote_faults, '
+        'eval_cli', _together, (phase_drain_fleet,), (phase_cli_fleet_dp,),
+        (phase_cli_full_feature,), (phase_remote_faults,),
         (phase_eval_cli,))
   log('phases: ' + ', '.join(f'{n} {s:.1f} s' for n, s in phases))
   launches = {name: {path: counts[name] for path, counts in paths.items()}

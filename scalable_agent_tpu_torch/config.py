@@ -218,8 +218,9 @@ class Config:
   # entries (publish_codec='int8', runtime/codec.py) and the warm
   # forward per warmed bucket of a new parameter structure at publish
   # (serving_aot). publish_codec is also the remote actors' wire codec
-  # (resolved_wire_dtype). serving_replicas is routed serving (ROADMAP
-  # A7.3b).
+  # (resolved_wire_dtype). serving_replicas names the routed-inference
+  # replicas of an actor host (runtime/routing.py); the learner role
+  # ignores it.
   publish_codec: str = 'bf16'             # bf16 | f32 | int8
   serving_resident_versions: int = 1
   serving_hbm_budget_mb: float = 0.0
@@ -272,6 +273,30 @@ class Config:
   # lock_order_inversion incident and on the analysis/lock_cycles
   # counter. driver.train arms it before it builds any component.
   lock_order_check: bool = False
+  # The SLO engine (slo.py): the default objectives (or the slo_spec JSON
+  # list) judged over the metrics registry on fast and slow burn windows
+  # by a `slo-engine` thread (every slo_interval_secs; 0 = derived from
+  # summary_secs and the fast window) and the summary block; each burn is
+  # an slo_violation incident, a page-severity one also captures the
+  # flight recorder, a trace slice and (slo_capture) a torch.profiler
+  # trace of the next slo_capture_steps learner steps into
+  # <logdir>/diagnostics/; SLO_VERDICT.json at the end. slo_fps_baseline:
+  # the per-host baseline file of the fps floor ('' = none).
+  slo_engine: bool = True
+  slo_spec: str = ''
+  slo_fast_window_secs: float = 30.0
+  slo_slow_window_secs: float = 300.0
+  slo_interval_secs: float = 0.0
+  slo_capture: bool = True
+  slo_capture_steps: int = 5
+  slo_fps_baseline: str = ''
+  # The operator's profiler window: with profile_dir set, a torch.profiler
+  # trace (CPU and CUDA) of learner steps [profile_start_step,
+  # profile_start_step + profile_num_steps), written there as a Chrome
+  # trace.
+  profile_dir: str = ''
+  profile_start_step: int = 20            # past the warmup
+  profile_num_steps: int = 5
   # The population engine (population.py). The level curriculum over the
   # procgen level set, inside the fused step (Anakin and the filler):
   # 'uniform' keeps the plain draw; 'regret' EMAs the positive value loss
@@ -410,9 +435,7 @@ _STAGING_MODES = ('batch', 'unroll')
 
 def validate_fleet(config: Config) -> None:
   """The fleet runtime's knob group: the JAX package's hard checks on
-  these fields (ValueError), and NotImplementedError, naming the ROADMAP
-  item, for a setting that picks a path the port does not have yet
-  (routed serving, `serving_replicas`: A7.3b)."""
+  these fields (ValueError)."""
   if config.num_actors < 0:
     raise ValueError(f'num_actors must be >= 0, got {config.num_actors}')
   for name in ('publish_params_every', 'queue_capacity_batches',
@@ -443,10 +466,6 @@ def validate_fleet(config: Config) -> None:
     raise ValueError(f'inference_admission_timeout_secs must be >= 0, got '
                      f'{config.inference_admission_timeout_secs}')
   validate_serving(config)
-  if config.serving_replicas:
-    raise NotImplementedError(
-        'serving_replicas (routed inference replicas, which need a '
-        'learner_address) is not in the PyTorch port yet (ROADMAP A7.3b)')
 
 
 def validate_serving(config: Config) -> List[str]:
@@ -471,6 +490,11 @@ def validate_serving(config: Config) -> List[str]:
         'serving_resident_versions=1: there is never a non-live '
         'resident candidate, so A/B and shadow traffic will not fire '
         '— raise serving_resident_versions')
+  if config.serving_replicas and not config.learner_address:
+    warnings.append(
+        'serving_replicas set without learner_address: routed '
+        'inference replicas are an ACTOR-host knob — the learner '
+        'role ignores it')
   return warnings
 
 
@@ -700,8 +724,7 @@ def validate_transport(config: Config) -> List[str]:
 def validate_runtime(config: Config) -> List[str]:
   """The JAX package's `validate_runtime`: the runtime axis and the
   filler's knobs. Raises ValueError on a hard error; returns the
-  warnings. Its warning for the filler with the SLO engine off is not
-  here: the port has no SLO engine yet (ROADMAP A7.4)."""
+  warnings."""
   warnings = []
   if config.runtime not in ('fleet', 'anakin'):
     raise ValueError(f'runtime must be fleet|anakin, got '
@@ -742,6 +765,68 @@ def validate_runtime(config: Config) -> List[str]:
         'off-cadence relative to the fleet stream and plain V-trace '
         'has no clipped-target anchor against them (IMPACT, '
         'arXiv 1912.00167) — consider --surrogate=impact')
+  if not config.slo_engine:
+    warnings.append(
+        'anakin_filler=True with slo_engine=False: the filler lifts '
+        'learner_plane_utilization to ~1.0 by construction, and with '
+        'the engine off nothing watches env_plane_utilization — the '
+        'dead-env-plane signal the filler could otherwise mask '
+        '(docs/OBSERVABILITY.md)')
+  return warnings
+
+
+def validate_slo(config: Config) -> List[str]:
+  """The JAX package's `validate_slo`: the SLO knob group. Raises
+  ValueError on a hard error; returns the warnings. The spec file itself
+  is loaded (so validated) by slo.load_objectives when the engine is
+  built."""
+  warnings = []
+  if config.slo_fast_window_secs <= 0:
+    raise ValueError(f'slo_fast_window_secs must be > 0, got '
+                     f'{config.slo_fast_window_secs}')
+  if config.slo_slow_window_secs <= 0:
+    raise ValueError(f'slo_slow_window_secs must be > 0, got '
+                     f'{config.slo_slow_window_secs}')
+  if config.slo_capture_steps < 1:
+    raise ValueError(f'slo_capture_steps must be >= 1, got '
+                     f'{config.slo_capture_steps}')
+  if config.slo_interval_secs < 0:
+    raise ValueError(f'slo_interval_secs must be >= 0, got '
+                     f'{config.slo_interval_secs}')
+  if not config.slo_engine:
+    if config.slo_spec:
+      warnings.append(
+          'slo_spec=%r with slo_engine=False: the objective set is '
+          'loaded by the engine — nothing will judge it' %
+          config.slo_spec)
+    return warnings
+  if config.slo_fast_window_secs >= config.slo_slow_window_secs:
+    warnings.append(
+        'slo_fast_window_secs=%.1f >= slo_slow_window_secs=%.1f: the '
+        'slow window no longer confirms a sustained burn — every '
+        'fast-window blip escalates straight to a violation' %
+        (config.slo_fast_window_secs, config.slo_slow_window_secs))
+  if (config.slo_interval_secs > 0 and
+      config.slo_interval_secs * 3 > config.slo_fast_window_secs):
+    warnings.append(
+        'slo_interval_secs=%.1f leaves fewer than the 3 samples the '
+        'fast window (%.1fs) needs before a value objective can '
+        'burn — the policy-lag/utilization/fleet objectives would be '
+        'structurally unable to fire; lower the interval or widen '
+        'slo_fast_window_secs' %
+        (config.slo_interval_secs, config.slo_fast_window_secs))
+  if not config.telemetry_trace:
+    warnings.append(
+        'slo_engine=True with telemetry_trace=False: the policy-lag '
+        'and end-to-end-span objectives will evaluate as no_data '
+        '(their histograms never fill), and page captures lose the '
+        'flight/trace-slice artifacts — the verdict only judges the '
+        'counter planes')
+  if config.slo_capture and not config.health_watchdog:
+    warnings.append(
+        'slo_capture=True with health_watchdog=False: SLO burns '
+        'cannot feed the external-incident ledger (no monitor), so '
+        'drain manifests and halt bundles will not name them')
   return warnings
 
 

@@ -41,6 +41,7 @@ from scalable_agent_tpu_torch import learner as learner_lib
 from scalable_agent_tpu_torch import observability
 from scalable_agent_tpu_torch import popart as popart_lib
 from scalable_agent_tpu_torch import population as population_lib
+from scalable_agent_tpu_torch import slo as slo_lib
 from scalable_agent_tpu_torch import telemetry
 from scalable_agent_tpu_torch.analysis import runtime as lock_check
 from scalable_agent_tpu_torch.config import (COMPUTE_DTYPES, Config,
@@ -50,6 +51,7 @@ from scalable_agent_tpu_torch.config import (COMPUTE_DTYPES, Config,
                                              validate_replay,
                                              validate_runtime,
                                              validate_serving,
+                                             validate_slo,
                                              validate_transport)
 from scalable_agent_tpu_torch.envs import factory, suites
 from scalable_agent_tpu_torch.models import ImpalaAgent, init_params
@@ -500,6 +502,156 @@ def _periodic_save(config: Config, checkpointer, ladder, state,
     checkpointer.maybe_save(state, decision=decision)
 
 
+def _start_slo_engine(config: Config, writer, incidents, flight=None,
+                      health=None) -> Optional[slo_lib.SloEngine]:
+  """The run's SLO engine (slo.py), started; None with slo_engine off.
+  Its cadence defaults to the summary cadence, clamped to [1, 30] s and
+  to a quarter of the fast window, so a value objective always gets the
+  3 fast-window samples it needs to burn."""
+  if not config.slo_engine:
+    return None
+  objectives = slo_lib.load_objectives(
+      config.slo_spec, fast_window_secs=config.slo_fast_window_secs,
+      slow_window_secs=config.slo_slow_window_secs)
+  interval = (config.slo_interval_secs if config.slo_interval_secs > 0 else
+              min(max(float(config.summary_secs), 1.0), 30.0,
+                  config.slo_fast_window_secs / 4.0))
+  engine = slo_lib.SloEngine(
+      objectives, config.logdir, writer=writer, incidents=incidents,
+      flight=flight, health=health, capture=config.slo_capture,
+      interval_secs=interval,
+      baseline=slo_lib.load_baseline(config.slo_fps_baseline))
+  engine.start()
+  return engine
+
+
+def _finish_slo(engine: slo_lib.SloEngine, path: str, extra: Dict) -> None:
+  """Stop the engine's thread and write its verdict to `path` (every
+  exit path: a crashed run's verdict is what its postmortem reads)."""
+  try:
+    engine.stop()
+    verdict = engine.finalize(path, extra=extra)
+    (log.info if verdict['pass'] else log.warning)(
+        'SLO verdict: %s (%d objective(s), violations: %s) -> %s',
+        'PASS' if verdict['pass'] else 'FAIL', len(verdict['objectives']),
+        verdict['violations'] or 'none', os.path.basename(path))
+  except Exception:
+    log.exception('SLO verdict write failed')
+
+
+def profiler_running() -> bool:
+  """True while a torch.profiler session is enabled anywhere in this
+  process (its CUDA collection is process-wide: a second session would
+  end the first one's)."""
+  from torch.autograd import profiler as autograd_profiler
+  return bool(getattr(autograd_profiler, '_is_profiler_enabled', False)
+              or torch._C._autograd._profiler_enabled())
+
+
+class _ProfileWindows:
+  """The loop's profiler, one capture at a time over torch.profiler (CPU
+  and, on the card, CUDA activities), each written as a Chrome trace
+  (trace.json) when it stops:
+
+  - the operator's window (`profile_dir`, when `operator` is True):
+    learner steps [profile_start_step, profile_start_step +
+    profile_num_steps); it defers past an in-flight SLO capture and
+    wins over a queued one;
+  - the SLO engine's captures: a page burn's queued request traces the
+    next slo_capture_steps steps into diagnostics/slo_profile_<name>/.
+
+  Neither starts while another profiler is enabled in the process (a
+  caller's own window): the operator's stays pending, and an SLO request
+  takes the engine's failure path, note_profile(name, None). Only a
+  profiler this object started is ever stopped."""
+
+  def __init__(self, config: Config, engine, device, operator=True):
+    self._config = config
+    self._engine = engine
+    self._activities = [torch.profiler.ProfilerActivity.CPU]
+    if torch.device(device).type == 'cuda':
+      self._activities.append(torch.profiler.ProfilerActivity.CUDA)
+    self._prof = None
+    self._owner = None       # 'operator', or the SLO objective's name
+    self._out_dir = None
+    self._stop_step = None
+    self.pending = bool(operator and config.profile_dir)
+
+  def _start(self, out_dir: str) -> bool:
+    if profiler_running():
+      return False
+    os.makedirs(out_dir, exist_ok=True)
+    prof = torch.profiler.profile(activities=self._activities)
+    prof.start()
+    self._prof, self._out_dir = prof, out_dir
+    return True
+
+  def _stop(self) -> Optional[str]:
+    prof, self._prof, self._owner = self._prof, None, None
+    if torch.profiler.ProfilerActivity.CUDA in self._activities:
+      torch.cuda.synchronize()  # the window's kernels complete inside it
+    prof.stop()
+    path = os.path.join(self._out_dir, 'trace.json')
+    prof.export_chrome_trace(path)
+    return path
+
+  def step(self, steps_done: int) -> None:
+    """After learner step `steps_done`: stop a window that ran its
+    steps, or start the operator's window or the next SLO capture."""
+    config = self._config
+    if self._prof is not None and steps_done >= self._stop_step:
+      owner = self._owner
+      path = self._stop()
+      if owner == 'operator':
+        log.info('profiler trace written to %s', path)
+      else:
+        log.info('SLO diagnostic profile for %r complete: %s', owner, path)
+    if self._prof is not None:
+      return
+    if self.pending and steps_done >= config.profile_start_step:
+      if self._start(config.profile_dir):
+        self.pending = False
+        self._owner = 'operator'
+        self._stop_step = steps_done + config.profile_num_steps
+      return
+    if self._engine is None:
+      return
+    req = self._engine.take_profile_request()
+    if req is None:
+      return
+    out_dir = os.path.join(config.logdir, 'diagnostics', f'slo_profile_{req}')
+    try:
+      started = self._start(out_dir)
+    except Exception:
+      log.exception('SLO profiler capture failed to start')
+      started = False
+    if not started:
+      log.warning('SLO page (%s): no profiler capture (another profiler is '
+                  'running in this process)', req)
+      self._engine.note_profile(req, None)
+      return
+    self._owner = req
+    self._stop_step = steps_done + config.slo_capture_steps
+    self._engine.note_profile(req, out_dir)
+    log.warning('SLO page (%s): capturing a %d-step profiler trace into %s',
+                req, config.slo_capture_steps, out_dir)
+
+  def close(self, steps_done: int) -> None:
+    """The run's end: stop and write a window still open; warn when the
+    operator's never started."""
+    if self._prof is not None:
+      try:
+        log.info('profiler trace written to %s', self._stop())
+      except Exception:
+        log.exception('profiler stop failed')
+    if self.pending:
+      log.warning(
+          'profile_dir set but the run ended at step %d before the window '
+          'could start (profile_start_step=%d, or another profiler held '
+          'the process) — no operator trace was captured', steps_done,
+          self._config.profile_start_step)
+
+
 def _final_save(checkpointer, ladder, state, grouped: bool = False):
   """The tail save: forced, unless training was unhealthy at exit (the
   retained last good step covers the resume), or, under a group, an
@@ -622,7 +774,19 @@ def train(config: Config, max_steps: Optional[int] = None, device='cuda',
   counters, with incidents for CRC and digest refusals, reaps, wedged
   threads and membership changes. The `learner_crash` fault fires once
   per consumed batch. A failed set-up closes the ingest without a 'bye'
-  (actors keep retrying), a clean end or a drain with one.
+  (actors keep retrying), a clean end or a drain with one. After the
+  server's warmup the ingest's 'infer' kind is attached to
+  `server.serve_remote` (routed serving: actor hosts with a
+  runtime/routing.ServingRouter), and its drain notice goes up first at
+  the end.
+
+  The SLO engine (slo.py, slo_engine): started before the fleet, judged
+  again in every summary block, its verdict written to
+  SLO_VERDICT.json (SLO_VERDICT_p{r}.json off rank 0) on every exit path
+  before the components close, and carried by the drain manifest under
+  'slo'. A page burn's profiler capture and the operator's profile_dir
+  window run in this loop (`_ProfileWindows`), one at a time, and never
+  while another torch.profiler session is enabled in the process.
 
   `on_step(run, steps_done, metrics)` runs after each learner step
   (chip_smoke.py times and profiles with it). `device` defaults to CUDA
@@ -643,7 +807,8 @@ def train(config: Config, max_steps: Optional[int] = None, device='cuda',
   validate_fleet(config)
   for warning in (validate_runtime(config) + validate_integrity(config) +
                   validate_replay(config) + validate_population(config) +
-                  validate_transport(config)):
+                  validate_transport(config) + validate_slo(config) +
+                  validate_serving(config)):
     log.warning('%s', warning)
   device = resolve_device(device)
   set_float32_precision()
@@ -812,7 +977,7 @@ def train(config: Config, max_steps: Optional[int] = None, device='cuda',
 
   process_seed_base = rank * max(config.num_actors, 1000)
   buffer = server = fleet = prefetcher = writer = incidents = None
-  filler = tracer = ingest = None
+  filler = tracer = ingest = slo_engine = None
   try:
     # The replay tier retains consumed unrolls behind the FIFO; their
     # staleness counts in published param versions.
@@ -856,6 +1021,11 @@ def train(config: Config, max_steps: Optional[int] = None, device='cuda',
     server.update_params(initial_pub, version=initial_steps)
     if config.num_actors > 0:
       server.warmup(spec0.obs_spec, max_size=config.num_actors)
+    if ingest is not None:
+      # Routed serving: the ingest answers 'infer' requests with this
+      # server, attached after the warmup so a routed batch of a warm size
+      # pays no first-use set-up.
+      ingest.attach_serving(server.serve_remote)
     fleet = make_fleet(config, server.policy, buffer, levels,
                        server.initial_core_state,
                        seed_base=process_seed_base, tasks=fleet_tasks)
@@ -916,8 +1086,16 @@ def train(config: Config, max_steps: Optional[int] = None, device='cuda',
         json.dump(dataclasses.asdict(config), f, indent=2, sort_keys=True)
     run.server, run.fleet = server, fleet
     run.prefetcher, run.buffer = prefetcher, buffer
+    # The SLO engine judges the registry from here on: its t0 sample is
+    # taken before the fleet starts.
+    slo_engine = _start_slo_engine(
+        config, writer, incidents,
+        flight=tracer.flight if tracer is not None else None,
+        health=run.health)
     fleet.start()
   except BaseException:
+    if slo_engine is not None:
+      slo_engine.stop()  # no verdict: the run never started
     if ingest is not None:
       # Crash semantics: actor hosts keep their reconnect window.
       try:
@@ -961,6 +1139,7 @@ def train(config: Config, max_steps: Optional[int] = None, device='cuda',
                       else None)
   last_remote_publish = float('-inf')
   exiting_clean = False
+  profiles = _ProfileWindows(config, slo_engine, device)
 
   def check_fleet():
     """fleet.check_health, and an `actors_respawned` incident naming the
@@ -1070,6 +1249,8 @@ def train(config: Config, max_steps: Optional[int] = None, device='cuda',
                     'is single-process, exiting the loop at step %d',
                     initial_steps + steps_done)
         break
+      # The operator's profiler window and the SLO engine's captures.
+      profiles.step(steps_done)
       # Fault site 'nan_burst': NaN rewards on the staged batch.
       batch, poisoned = faults_lib.maybe_poison_batch(batch)
       if poisoned:
@@ -1144,6 +1325,10 @@ def train(config: Config, max_steps: Optional[int] = None, device='cuda',
             writer, incidents, filler, step_now, last_filler_skipped,
             run.health)
         action_counts_acc[:] = 0
+        # Step-synchronous judging where summaries are frequent; the
+        # engine's thread covers long summary gaps.
+        if slo_engine is not None:
+          slo_engine.observe()
       _periodic_save(config, checkpointer, ladder, state, steps_done,
                      grouped)
       # Respawn dead or stalled actors, and spawn slots a resize
@@ -1173,12 +1358,22 @@ def train(config: Config, max_steps: Optional[int] = None, device='cuda',
     if draining:
       _finish_drain(config, run, ladder, checkpointer, incidents, writer,
                     initial_steps + steps_done, last_publish_step,
-                    drain_source, drain_t0, drain_deadline, filler)
+                    drain_source, drain_t0, drain_deadline, filler,
+                    slo_engine)
     if run.state.popart is not None:
       log.info('PopArt statistics per task: %s', json.dumps(
           popart_lib.stats_summary(run.state.popart, levels)))
     exiting_clean = True
   finally:
+    # The verdict before the components close, so its last observation
+    # still reads their gauges.
+    if slo_engine is not None:
+      _finish_slo(slo_engine, os.path.join(
+          config.logdir, 'SLO_VERDICT.json' if rank == 0 else
+          f'SLO_VERDICT_p{rank}.json'),
+                  {'clean_exit': exiting_clean,
+                   'update_steps': initial_steps + steps_done})
+    profiles.close(steps_done)
     if ingest is not None:
       # A clean end (or a drain) says 'bye', so actor hosts exit; an
       # unwind keeps their reconnect window for a restart.
@@ -1224,7 +1419,7 @@ def _write_filler_summaries(writer, incidents, filler, step: int,
 
 def _finish_drain(config, run, ladder, checkpointer, incidents, writer,
                   step_final, last_publish_step, drain_source, drain_t0,
-                  drain_deadline, filler=None):
+                  drain_deadline, filler=None, slo_engine=None):
   """The drain's end: join the fleet (bounded), close the prefetcher
   (its partial batch's unrolls go back to the buffer), take a verified
   save (withheld mid-burst, as every save is) and write the manifest."""
@@ -1259,10 +1454,12 @@ def _finish_drain(config, run, ladder, checkpointer, incidents, writer,
       # The filler's ledger when one ran.
       'filler': filler.stats() if filler is not None else None,
       # The registry's snapshot: the one source the flight recorder
-      # reads too. The SLO engine and the controller are ROADMAP
-      # A7.4's second part.
+      # reads too.
       'metrics': dict(metrics, **telemetry.registry().snapshot()),
-      'slo': None, 'controller': None,
+      # The verdict so far: which objectives were burning at the drain.
+      # The controller is the next part of ROADMAP A7.4.
+      'slo': slo_engine.verdict() if slo_engine is not None else None,
+      'controller': None,
       'drain_source': drain_source,
       'drain_latency_secs': round(latency, 3),
       'wall_time': round(time.time(), 3),
@@ -1310,11 +1507,14 @@ def train_anakin(config: Config, max_steps: Optional[int] = None,
   from the all-reduced metrics, so every rank rolls back in the same
   step. The loop's clocks are registry gauges (`driver/*`; both planes
   pinned at 1.0, since acting and learning are one fused step), and with
-  a curriculum the latest summarised `curriculum/*` digests. The JAX
-  runtime's SLO engine and profiler capture (ROADMAP A7.4) are not here.
+  a curriculum the latest summarised `curriculum/*` digests. The SLO
+  engine runs as in `train` (on rank 0, which writes the logdir): judged
+  in each summary block, a page burn's profiler capture taken in this
+  loop, SLO_VERDICT.json (with runtime 'anakin') on every exit path.
   Returns a TrainRun whose fleet, server and prefetcher are None."""
   from scalable_agent_tpu_torch.parallel import anakin as anakin_lib
-  for warning in validate_runtime(config) + validate_population(config):
+  for warning in (validate_runtime(config) + validate_population(config) +
+                  validate_slo(config)):
     log.warning('%s', warning)
   _, agent, step, carry = anakin_lib.build_run(config, device=device,
                                                mesh=mesh)
@@ -1385,6 +1585,21 @@ def train_anakin(config: Config, max_steps: Optional[int] = None,
                                              0.0)),
     ]
 
+  slo_engine = None
+  if primary:
+    try:
+      slo_engine = _start_slo_engine(config, writer, incidents,
+                                     health=run.health)
+    except BaseException:
+      for stream in (writer, incidents):
+        stream.close()
+      for gauge in loop_gauges:
+        telemetry.registry().unregister(gauge.name, gauge)
+      checkpointer.close()
+      raise
+  profiles = _ProfileWindows(config, slo_engine,
+                             next(agent.parameters()).device, operator=False)
+
   def flush(step_now):
     if writer is None:
       return
@@ -1397,6 +1612,8 @@ def train_anakin(config: Config, max_steps: Optional[int] = None,
     writer.scalars({k: float(metrics[k]) for k in keys}, step_now)
     writer.scalar('env_frames_per_sec', fps_meter.fps(), step_now)
     ladder.write_summaries(writer, step_now)
+    if slo_engine is not None:
+      slo_engine.observe()
 
   def stop_requested():
     stop = faults_lib.fire('preempt_signal') is not None or (
@@ -1430,6 +1647,9 @@ def train_anakin(config: Config, max_steps: Optional[int] = None,
       steps_done += 1
       step_now = initial_steps + steps_done
       fps_meter.update(config.frames_per_step)
+      # A page burn's profiler capture rides the loop that launches the
+      # device work.
+      profiles.step(steps_done)
       train_state, _ = ladder.after_step(steps_done, step_now, metrics,
                                          carry.train_state)
       carry = carry._replace(train_state=train_state)
@@ -1443,6 +1663,12 @@ def train_anakin(config: Config, max_steps: Optional[int] = None,
     if steps_done and initial_steps + steps_done > summarised_step:
       flush(initial_steps + steps_done)  # a short run's one window
   finally:
+    if slo_engine is not None:
+      _finish_slo(slo_engine, os.path.join(config.logdir, 'SLO_VERDICT.json'),
+                  {'clean_exit': sys.exc_info()[0] is None,
+                   'update_steps': initial_steps + steps_done,
+                   'runtime': 'anakin'})
+    profiles.close(steps_done)
     try:
       _final_save(checkpointer, ladder, run.state, grouped)
       if curriculum and primary:
@@ -1800,7 +2026,9 @@ def _train_population_fused(config: Config, max_steps: Optional[int] = None,
   force-saved at each round boundary after the exploits, so its
   directory resumes in either path, and its own summaries; the parent
   logdir holds the population's record (PBT_LOG.json with
-  vectorized=true). One suite, one device. Returns the winner's
+  vectorized=true) and, with slo_engine, the population's SLO verdict
+  (judged in each summary block; runtime 'anakin', vectorized, the
+  population's size). One suite, one device. Returns the winner's
   TrainRun."""
   from scalable_agent_tpu_torch.parallel import anakin as anakin_lib
   device = resolve_device(device)
@@ -1823,6 +2051,9 @@ def _train_population_fused(config: Config, max_steps: Optional[int] = None,
                           vectorized=True)
   member_writers = []
   loop_gauges: List = []
+  slo_engine = None
+  steps_done = 0
+  initial_steps = 0
   try:
     for c in member_configs:
       with open(os.path.join(c.logdir, 'config.json'), 'w') as f:
@@ -1847,6 +2078,7 @@ def _train_population_fused(config: Config, max_steps: Optional[int] = None,
         telemetry.gauge('driver/learner_plane_utilization',
                         fn=lambda: 1.0),
     ])
+    slo_engine = _start_slo_engine(config, record.writer, record.incidents)
 
     def flush_members(step_now):
       values = {key: v.tolist() for key, v in metrics.items()}
@@ -1875,6 +2107,8 @@ def _train_population_fused(config: Config, max_steps: Optional[int] = None,
           flush_members(step_now + 1)
           record.writer.scalar('env_frames_per_sec', fps_meter.fps(),
                                step_now + 1)
+          if slo_engine is not None:
+            slo_engine.observe()
       if metrics is not None:
         # This round's tail, so the scoring reads it.
         flush_members(initial_steps + steps_done)
@@ -1901,6 +2135,12 @@ def _train_population_fused(config: Config, max_steps: Optional[int] = None,
     run.members = carries
     return run
   finally:
+    if slo_engine is not None:
+      _finish_slo(slo_engine, os.path.join(config.logdir, 'SLO_VERDICT.json'),
+                  {'clean_exit': sys.exc_info()[0] is None,
+                   'update_steps': initial_steps + steps_done,
+                   'runtime': 'anakin', 'vectorized': True,
+                   'population': n})
     for writer in member_writers:
       writer.close()
     record.close()

@@ -75,9 +75,16 @@ structure (an int8 entry after float32 ones), runs one warm forward per
 warmed bucket on a scratch generator; `aot_misses` counts the serves of
 a (bucket, structure) pair that was not warmed.
 
-Routed serving (`serve_remote`, `serving_replicas`, runtime/routing.py)
-is ROADMAP A7.3b; the remote ingest's 'infer' kind it would answer
-through is runtime/remote.py's, with nothing attached until then.
+Routed serving (`serve_remote`). driver.train attaches it to the remote
+ingest's 'infer' kind (runtime/remote.py), which actor hosts reach
+through a `runtime/routing.ServingRouter`. A routed batch is carry-
+passing even on a state-arena server (the remote caller owns its carry:
+no slot is taken or written), is served by the version table's live (or
+A/B) entry, int8 entries included, and samples from a generator of its
+own, seeded apart from the fleet's and advanced per call, so routed
+traffic never moves the local fleet's random sequence. Its batch sizes
+are the caller's, not the warmed buckets: a size's first call pays its
+first-use set-up.
 """
 
 import collections
@@ -133,6 +140,9 @@ _CARRY_INPUTS = ('prev_action', 'reward', 'done', 'frame', 'instr',
                  'core_c', 'core_h')
 _CACHE_INPUTS = ('slot_id', 'prev_action', 'reward', 'done', 'frame',
                  'instr')
+# A routed batch's dtypes, in _CARRY_INPUTS order (serve_remote).
+_REMOTE_DTYPES = (np.int32, np.float32, bool, np.uint8, np.int32, np.float32,
+                  np.float32)
 
 
 class SlotUnavailable(RuntimeError):
@@ -315,6 +325,11 @@ class InferenceServer:
 
     self._stream = torch.cuda.Stream(self._device) if self._cuda else None
     self._generator = torch.Generator(self._device).manual_seed(seed)
+    # Routed serving's own generator (the JAX server's dedicated base key,
+    # seed + 424_243), advanced by each serve_remote call under its lock.
+    self._remote_lock = make_lock('inference._remote_lock')
+    self._remote_generator = torch.Generator(self._device).manual_seed(
+        seed + 424_243)
     # The version table and the stats: what the JAX server splits
     # between _params_lock and _stats_lock, under its name.
     self._lock = make_lock('inference._params_lock')
@@ -646,11 +661,10 @@ class InferenceServer:
       return self._newest_nonlive_locked()
     return self._versions.get(key)
 
-  def _pick_locked(self):
-    """This merged call's snapshots under _lock: the live entry's, or
-    (serving_ab_fraction of calls, by a deterministic accumulator) the
-    A/B candidate's; and the shadow version's at
-    serving_shadow_fraction, else None. Each is held (inflight)."""
+  def _pick_live_locked(self):
+    """One call's serving entry under _lock: the live entry, or
+    (serving_ab_fraction of calls, by a deterministic accumulator) the A/B
+    candidate; its serve count and LRU tick are bumped."""
     self._serve_tick += 1
     entry = self._versions[self._live_key]
     if self._ab_fraction > 0.0:
@@ -664,6 +678,13 @@ class InferenceServer:
           _AB_CALLS.inc()
     entry.serves += 1
     entry.tick = self._serve_tick
+    return entry
+
+  def _pick_locked(self):
+    """This merged call's snapshots under _lock: the `_pick_live_locked`
+    entry's, and the shadow version's at serving_shadow_fraction, else
+    None. Each is held (inflight)."""
+    entry = self._pick_live_locked()
     shadow = None
     if self._shadow_fraction > 0.0:
       other = self._entry_for_locked(self._shadow_key)
@@ -850,6 +871,47 @@ class InferenceServer:
       new_state = (new_c, new_h)
     return (AgentOutput(action=action[0], policy_logits=logits[0],
                         baseline=baseline[0]), new_state)
+
+  @torch.no_grad()
+  def serve_remote(self, payload):
+    """Serve one carry-passing batch of routed inference (the remote
+    ingest's 'infer' requests; driver.train attaches this).
+
+    `payload` holds batch-leading arrays: prev_action [B] int32, reward
+    [B] float32, done [B] bool, frame [B, H, W, C] uint8, instr [B, L]
+    int32, core_c and core_h [B, hidden] float32. Returns numpy action,
+    logits, baseline, core_c and core_h, and the serving version's label
+    under 'version'. No arena slot is taken or written, and the actions
+    are drawn from the routed generator, advanced per call."""
+    t0 = time.perf_counter()
+    inputs = [torch.from_numpy(np.ascontiguousarray(
+        np.asarray(payload[k], dtype)))
+              for k, dtype in zip(_CARRY_INPUTS, _REMOTE_DTYPES)]
+    with self._lock:
+      entry = self._pick_live_locked()
+      snapshot, label = entry.snapshot, entry.label()
+      snapshot.inflight += 1
+    try:
+      with self._remote_lock:
+        if self._cuda:
+          with torch.cuda.device(self._device), torch.cuda.stream(
+              self._stream):
+            self._stream.wait_event(snapshot.ready)
+            inputs = [t.to(self._device) for t in inputs]
+            results = self._apply(snapshot, inputs[:5], tuple(inputs[5:]),
+                                  self._remote_generator)
+            # A blocking copy: the stream's work (this forward's reads of
+            # the snapshot included) is complete when it returns.
+            results = [r.cpu() for r in results]
+        else:
+          results = self._apply(snapshot, inputs[:5], tuple(inputs[5:]),
+                                self._remote_generator)
+    finally:
+      self._release((snapshot,), None)
+    action, logits, baseline, new_c, new_h = (r.numpy() for r in results)
+    _SERVE_LATENCY.observe((time.perf_counter() - t0) * 1e3)
+    return {'action': action, 'logits': logits, 'baseline': baseline,
+            'core_c': new_c, 'core_h': new_h, 'version': label}
 
   def _padded_size(self, n):
     """Bucket of a merged batch of n: the next power of two of n (at

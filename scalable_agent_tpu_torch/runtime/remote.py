@@ -55,9 +55,10 @@ Protocol versions 5..10 interoperate: each extension (heartbeats and the
 epoch in 6, CRC and digests in 7, trace stamps in 8, membership in 9,
 int8 blobs and the 'infer' kind in 10) is negotiated per connection at
 hello and is off for an older peer. Routed inference ('infer',
-`attach_serving`, the client's side and runtime/routing.py) answers
-('error', 'serving not attached') until something is attached; the
-driver attaches nothing yet (ROADMAP A7.3b).
+`attach_serving`; the client's `remote_infer`, which runtime/routing.py
+spreads over replicas) answers ('error', 'serving not attached') until
+something is attached; driver.train attaches its InferenceServer's
+`serve_remote` after the warmup.
 
 Trust: pickle over cluster-internal sockets, the reference's trust in
 its unauthenticated gRPC runtime. Never expose the ingest port outside
@@ -2390,6 +2391,27 @@ class RemoteActorClient:
     if reply[0] != 'stats':
       raise ProtocolError(f'expected stats, got {reply[0]!r}')
     return reply[1]
+
+  def supports_infer(self) -> bool:
+    """True when the handshaken server advertised protocol >= 10: the
+    routed-inference capability (routing.py skips an older replica
+    instead of spending a request on its 'error' reply)."""
+    return int(self.server_info.get('protocol') or 0) >= 10
+
+  def remote_infer(self, payload: dict) -> Tuple[dict, dict]:
+    """One routed inference batch: ship `payload` (InferenceServer.
+    serve_remote's dict of batch-leading numpy arrays) out of band and
+    return (result dict, notice dict); the notice carries 'draining',
+    which routing.py turns into no new picks. Raises RuntimeError against
+    a server with nothing attached (or one older than protocol 10)."""
+    reply = self._rpc(('infer', payload), oob=True)
+    if reply[0] == 'error':
+      raise RuntimeError(f'routed inference refused: {reply[1]}')
+    if reply[0] != 'infer_ok':
+      raise ProtocolError(f'expected infer_ok, got {reply[0]!r}')
+    notice = reply[2] if len(reply) > 2 and isinstance(reply[2], dict) \
+        else {}
+    return reply[1], notice
 
   def send_leave(self) -> bool:
     """Announce a deliberate exit (the learner records

@@ -35,8 +35,10 @@ def test_every_port_field_has_the_jax_default():
   # first part) task, job_name, remote_actor_port, remote_actor_bind_host,
   # learner_address, remote_publish_secs, remote_params_dtype,
   # actor_reconnect_secs, remote_heartbeat_secs,
-  # remote_conn_idle_timeout_secs, ingest_workers and wire_crc.
-  assert len(port) == 127
+  # remote_conn_idle_timeout_secs, ingest_workers and wire_crc; routed
+  # serving and the SLO engine (A7.3b, A7.4's second part) the eight slo_*
+  # fields and profile_dir, profile_start_step and profile_num_steps.
+  assert len(port) == 138
 
 
 def test_the_checkpoint_and_health_fields_reach_the_cli():
@@ -65,9 +67,9 @@ def test_the_tp_and_sdc_fields_reach_the_cli():
 
 
 def test_the_serving_fields_validate_as_in_jax():
-  """validate_serving's hard errors and warning are JAX's; the one
-  fleet setting still refused is routed serving (serving_replicas,
-  ROADMAP A7.3b)."""
+  """validate_serving's hard errors and warnings are JAX's, routed
+  serving's serving_replicas among them (ROADMAP A7.3b: on a learner,
+  a warning), and every fleet setting validates."""
   import pytest
 
   from scalable_agent_tpu.config import validate_serving as jax_validate
@@ -89,7 +91,11 @@ def test_the_serving_fields_validate_as_in_jax():
                  dict(serving_resident_versions=3, serving_aot=True),
                  dict(fleet_tasks='gridworld:2,procgen')):
     validate_fleet(Config(**ported))
-  with pytest.raises(NotImplementedError, match='A7.3'):
-    validate_fleet(Config(serving_replicas='localhost:1'))
+  routed = dict(serving_replicas='localhost:1')
+  validate_fleet(Config(**routed))
+  assert validate_serving(Config(**routed)) == jax_validate(
+      JaxConfig(**routed))
+  assert len(validate_serving(Config(**routed))) == 1
+  assert validate_serving(Config(learner_address='h:1', **routed)) == []
   with pytest.raises(ValueError):
     validate_fleet(Config(inference_state_slots=-1))

@@ -291,12 +291,15 @@ def test_padded_buckets_answer_only_the_real_rows():
     {'serving_aot': True}, {'staging_mode': 'unroll'},
     {'serving_replicas': 'localhost:1'}])
 def test_unported_server_settings_raise(setting):
-  """The serving settings ported in A7.2 build a server; routed serving
-  (serving_replicas) still raises, naming its ROADMAP item (A7.3b)."""
+  """Every serving setting builds a server now: those of A7.2, and
+  routed serving's serving_replicas (A7.3b), which on a learner is JAX's
+  warning from validate_serving, an actor-host knob the server ignores."""
   if setting == {'serving_replicas': 'localhost:1'}:
-    with pytest.raises(NotImplementedError, match='ROADMAP A7.3'):
-      _shallow_server(**setting)
-    return
+    from scalable_agent_tpu.config import validate_serving as jax_validate
+    from scalable_agent_tpu_torch.config import validate_serving
+    warnings = validate_serving(Config(**setting))
+    assert warnings == jax_validate(JaxConfig(**setting))
+    assert len(warnings) == 1 and 'learner_address' in warnings[0]
   _, _, server = _shallow_server(**setting)
   try:
     assert server.stats()['state_cache'] == bool(

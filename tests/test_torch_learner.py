@@ -262,10 +262,14 @@ def test_watchdog_keeps_old_state_on_a_nan_batch():
 
 
 def test_unported_settings_raise():
-  # Mixed fleets are ported (A7.2); routed serving is not (A7.3b).
+  # Mixed fleets (A7.2) and routed serving (A7.3b) are ported: on a
+  # learner serving_replicas is JAX's validate_serving warning.
   validate_fleet(Config(fleet_tasks='bandit,gridworld'))
-  with pytest.raises(NotImplementedError, match='A7.3'):
-    validate_fleet(Config(serving_replicas='localhost:1'))
+  validate_fleet(Config(serving_replicas='localhost:1'))
+  from scalable_agent_tpu.config import validate_serving as jax_validate
+  from scalable_agent_tpu_torch.config import validate_serving
+  assert validate_serving(Config(serving_replicas='localhost:1')) == (
+      jax_validate(JaxConfig(serving_replicas='localhost:1')))
   # The curriculum and deep_fast are ported: the config takes them and a
   # train step runs with them.
   for kw in ({'curriculum': 'regret'}, {'torso': 'deep_fast'}):
