@@ -116,8 +116,14 @@ Phases, each of which raises (exit code != 0) when it fails:
              server's live version the rollback step, a monotone step
              counter, finite params, one V-trace launch per learner step;
              the SLO verdict lists rollbacks_zero as burned; the
-             operator's profile_dir window over learner step 2 writes a
-             Chrome trace holding exactly one V-trace kernel.
+             controller acts under a policy that maps rollbacks_zero to
+             admission block->shed (a 4 s fast window): in the rollback's
+             step the server's admission reads shed, then block after the
+             revert, with two applied rows in CONTROLLER_LOG.json, two
+             controller_action incidents and controller_admission 2 in
+             the health ledger; the operator's profile_dir window over
+             learner step 2 writes a Chrome trace holding exactly one
+             V-trace kernel.
 18. drain_fleet — the fleet CLI with a budget of 4 learner steps: SIGTERM
              once step 2 is summarised; the process exits 0 within
              preempt_drain_timeout_secs + 60 s with a resume manifest whose
@@ -127,7 +133,8 @@ Phases, each of which raises (exit code != 0) when it fails:
              total_loss and env_frames_per_sec; the manifest's metrics
              are the registry's snapshot (buffer/*, staging/*,
              checkpoint/*, driver/* names; slo the SLO engine's verdict so
-             far, controller null), and both runs write SLO_VERDICT.json.
+             far, controller the observing controller's counts, nothing
+             applied), and both runs write SLO_VERDICT.json.
              It prints the drain latency.
 
 19. dp_fleet — the data-parallel fleet: 2 gloo ranks sharing the card,
@@ -336,6 +343,16 @@ Phases, each of which raises (exit code != 0) when it fails:
 The SLO engine (slo.py) runs at its default, on, in every fleet, Anakin
 and population run here; the phases' own profiler windows refuse to start
 over another session, and the engine's captures never start under one.
+The self-healing controller (controller.py) runs at its default, observe,
+in every fleet run but rollback_fleet's, which acts: each such phase
+reads its CONTROLLER_LOG.json (every rank's, every run's) and its
+controller_action incidents, and fails on an applied move or on a
+virtual one that the phase's known burns do not imply (a virtual
+replay_k move of learner_plane_utilization anywhere; admission
+block->shed of unroll_e2e_p99_ms in remote_faults; fleet_size up of
+fleet_healthy_fraction's thin margin in admission's shed run, which
+quarantines half its actors). The fleet phase also
+prints a controller tick's cost on this host, idle and acting.
 
 Every CLI phase checks that its process logged `float32 precision: tf32 off
 (cudnn, matmul)`: the port's entry points run float32 layers without TF32.
@@ -386,9 +403,11 @@ import torch.multiprocessing as mp
 
 # The port first: outside the repo this import fails before any output.
 from scalable_agent_tpu_torch import checkpoint as checkpoint_lib
+from scalable_agent_tpu_torch import controller as controller_lib
 from scalable_agent_tpu_torch import driver
 from scalable_agent_tpu_torch import integrity
 from scalable_agent_tpu_torch import learner
+from scalable_agent_tpu_torch import observability
 from scalable_agent_tpu_torch import popart as popart_lib
 from scalable_agent_tpu_torch import slo
 from scalable_agent_tpu_torch import telemetry
@@ -1153,6 +1172,143 @@ def _verdict_line(verdict):
           f'{verdict["violations"]} captures {sorted(verdict["captures"])}')
 
 
+# The controller's observe-mode moves a phase may log, by the objective
+# that drives them: the one rule of the default table over each burn (or
+# thin margin) the phases raise (PERF.md section 6). The other burns
+# (rollbacks_zero, sdc_mismatch_zero, wire_crc_rejected_zero) drive no
+# rule. learner_plane_utilization (info, >= 0.05) burns wherever the
+# learner idles 0.95 of a window, so every phase allows its virtual
+# replay_k move; fleet_healthy_fraction's grow rule triggers at a margin
+# of 0.25 (a healthy fraction of 0.5), which admission's shed run holds
+# on purpose.
+CONTROLLER_MOVES = {
+    'learner_plane_utilization': 'replay_k',
+    'unroll_e2e_p99_ms': 'admission',
+    'fleet_healthy_fraction': 'fleet_size',
+}
+CONTROLLER_ANYWHERE = ('learner_plane_utilization',)
+
+
+def _expected_move(action, allowed):
+  """Whether one CONTROLLER_LOG.json row is a virtual move that a burn in
+  `allowed` implies: unapplied, over the rule's actuator, one step."""
+  objective = action['objective']
+  if (action['applied'] or action['mode'] != 'observe' or
+      objective not in allowed or
+      action['actuator'] != CONTROLLER_MOVES.get(objective)):
+    return False
+  step = {'escalate': 1, 'revert': -1}.get(action['kind'])
+  if action['actuator'] != 'admission':  # the numeric rules step up by 1
+    return step is not None and action['to'] == action['from'] + step
+  moves = {'escalate': ('block', 'shed'), 'revert': ('shed', 'block')}
+  return (action['from'], action['to']) == moves.get(action['kind'])
+
+
+def _controller_logs(name, logdir, allowed=CONTROLLER_ANYWHERE):
+  """Every CONTROLLER_LOG*.json of a fleet run in `logdir` (the controller
+  at its default, observe): nothing applied or failed, no row dropped,
+  and every logged move one that a burn in `allowed` implies; likewise
+  every controller_action incident in the logdir's incident streams (a
+  SIGKILLed learner's moves live only there). An unexpected move fails
+  the phase with its row. Returns a line for the phase's log."""
+  files = sorted(os.listdir(logdir))
+  paths = [f for f in files
+           if f.startswith('CONTROLLER_LOG') and f.endswith('.json')]
+  if not paths:
+    raise AssertionError(f'{name}: no CONTROLLER_LOG.json in {logdir}')
+  incidents = 0
+  for path in (f for f in files
+               if f.startswith('incidents') and f.endswith('.jsonl')):
+    with open(os.path.join(logdir, path)) as f:
+      for event in map(json.loads, f):
+        if event['kind'] != 'controller_action':
+          continue
+        action = dict(event, kind=event['action'])
+        if not _expected_move(action, allowed):
+          raise AssertionError(f'{name}: unexpected controller_action '
+                               f'incident in {path}: {json.dumps(event)}')
+        incidents += 1
+  moves = []
+  for path in paths:
+    with open(os.path.join(logdir, path)) as f:
+      record = json.load(f)
+    counts = record['counts']
+    if (record['mode'] != 'observe' or counts['applied'] or
+        counts['apply_errors'] or record['dropped_actions'] or
+        counts['actions'] != len(record['actions'])):
+      raise AssertionError(f'{name}: {path} mode {record["mode"]}, counts '
+                           f'{counts}, dropped {record["dropped_actions"]}')
+    for action in record['actions']:
+      if not _expected_move(action, allowed):
+        raise AssertionError(f'{name}: unexpected controller action in '
+                             f'{path}: {json.dumps(action)}')
+      moves.append(f'{action["objective"]} {action["actuator"]} '
+                   f'{action["from"]}->{action["to"]}')
+  return (f'controller observe, {len(paths)} log(s): {len(moves)} virtual '
+          f'move(s) {moves}, {incidents} controller_action incident(s), '
+          f'applied 0')
+
+
+def _controller_tick_costs(engine, reps=200, acting_reps=20):
+  """The controller's cost on this host. Idle: a tick of the default
+  table in observe mode over the fleet's own SLO engine (its locked
+  control_snapshot of every objective, the rules judged; a tick that
+  moves a knob is counted apart; observe sets nothing). Acting: a tick
+  that applies one move (the knob's set, the fsync'd controller_action
+  incident, the CONTROLLER_LOG.json rewrite) over an always-burning
+  stub. Returns
+  (idle us p50, idle us max, ticks that moved, acting ms p50, acting ms
+  max)."""
+  actuators = [
+      controller_lib.Actuator('replay_k', kind='int', get_fn=lambda: 1,
+                              set_fn=None, minimum=1, maximum=4),
+      controller_lib.Actuator('admission', kind='enum',
+                              get_fn=lambda: 'block', set_fn=None,
+                              values=('block', 'shed', 'grow')),
+      controller_lib.Actuator('fleet_size', kind='int', get_fn=lambda: 32,
+                              set_fn=None, minimum=1, maximum=32)]
+
+  class Burning:
+    def control_snapshot(self):
+      return {'load': {'state': slo.BURNING, 'margin': -1.0, 'value': 2.0}}
+
+  with tempfile.TemporaryDirectory(prefix='chip_smoke_ticks_') as logdir:
+    idle = controller_lib.Controller(engine, controller_lib.DEFAULT_RULES,
+                                     actuators, logdir, mode='observe',
+                                     log_name='IDLE_LOG.json')
+    idle_us, moved = [], 0
+    for i in range(reps):
+      t = time.perf_counter()
+      taken = idle.tick(now=float(i))
+      dt = 1e6 * (time.perf_counter() - t)
+      if taken:
+        moved += 1
+      else:
+        idle_us.append(dt)
+    idle.stop()
+    incidents = observability.EventLog(logdir)
+    level = {'v': 1}
+    acting = controller_lib.Controller(
+        Burning(), [controller_lib.Rule(objective='load', actuator='replay_k',
+                                        cooldown_secs=0.0)],
+        [controller_lib.Actuator('replay_k', kind='int',
+                                 get_fn=lambda: level['v'],
+                                 set_fn=lambda v: level.update(v=v),
+                                 minimum=1, maximum=10**9)],
+        logdir, mode='act', incidents=incidents)
+    acting_ms = []
+    for i in range(acting_reps):
+      t = time.perf_counter()
+      taken = acting.tick(now=float(i))
+      acting_ms.append(1e3 * (time.perf_counter() - t))
+      if len(taken) != 1 or not taken[0]['applied']:
+        raise AssertionError(f'acting tick {i}: {taken}')
+    acting.stop()
+    incidents.close()
+  return (statistics.median(idle_us), max(idle_us), moved,
+          statistics.median(acting_ms), max(acting_ms))
+
+
 def phase_fleet():
   """The fleet runtime at full width through driver.train (see the
   module docstring); returns its kernel launch counts."""
@@ -1246,6 +1402,15 @@ def _fleet_run(config):
   busy = (f'{busy_ms / profiled_steps:.2f} ms per learner step, idle share '
           f'{1 - busy_ms / (1e3 * (window[1] - window[0])):.4f}')
   verdict = _slo_verdict('fleet', config.logdir)
+  controller_line = _controller_logs('fleet', config.logdir)
+  idle_us, idle_max_us, moved, acting_ms, acting_max_ms = (
+      _controller_tick_costs(run.controller._engine))
+  log(f'fleet: {controller_line}; a controller tick on this host: idle '
+      f'(the default table over the fleet\'s SLO engine) p50 {idle_us:.2f} '
+      f'us max {idle_max_us:.2f} us over {200 - moved} ticks ({moved} that '
+      f'moved apart), acting (one applied move, its fsync\'d incident and '
+      f'the log rewrite) p50 {acting_ms:.3f} ms max {acting_max_ms:.3f} ms '
+      f'over 20')
   log(f'fleet: {FLEET_STEPS} learner steps in {wall:.2f} s (set-up '
       f'included); losses {losses}; max |param change| {moved:.3e}; vtrace '
       f'launches {counts["vtrace"]}; server snapshot bit-equal to the '
@@ -1498,19 +1663,80 @@ def phase_resume_anakin():
 ROLLBACK_STEPS = 7
 
 
+# rollback_fleet's controller acts: its rollback burns rollbacks_zero,
+# which this policy maps to admission block->shed, reverted once the
+# burn leaves the fast window (4 s here, so the revert lands inside the
+# run).
+ROLLBACK_POLICY = [dict(objective='rollbacks_zero', actuator='admission',
+                        to='shed', revert_to='block', cooldown_secs=0.0,
+                        clear_margin=0.0)]
+ROLLBACK_SLO_WINDOWS = dict(slo_fast_window_secs=4.0,
+                            slo_slow_window_secs=20.0)
+CONTROLLER_WAIT_SECS = 20.0
+
+
+def _await(condition, secs):
+  """Poll `condition` every 50 ms for up to `secs`; its last value."""
+  deadline = time.monotonic() + secs
+  while not condition() and time.monotonic() < deadline:
+    time.sleep(0.05)
+  return condition()
+
+
+def _acting_controller(logdir, run, seen):
+  """rollback_fleet's act-mode checks: the server's admission really
+  moved to shed and back to block (read in the step of the rollback, while
+  the loop waits for the controller's thread), and the log rows, the
+  controller_action incidents and the health ledger's entries are the
+  two applied moves. Returns a line for the phase's log."""
+  want = [('escalate', 'block', 'shed'), ('revert', 'shed', 'block')]
+  with open(os.path.join(logdir, 'CONTROLLER_LOG.json')) as f:
+    record = json.load(f)
+  with open(os.path.join(logdir, 'incidents.jsonl')) as f:
+    events = [e for e in map(json.loads, f)
+              if e['kind'] == 'controller_action']
+  rows = [(a['kind'], a['from'], a['to']) for a in record['actions']
+          if a['applied'] and a['objective'] == 'rollbacks_zero'
+          and a['actuator'] == 'admission']
+  incident_rows = [(e['action'], e['from'], e['to']) for e in events
+                   if e['applied'] and e['mode'] == 'act']
+  ledger = run.health.external_incidents.get('controller_admission')
+  counts = run.controller.counts()
+  if (seen.get('admission') != ['shed', 'block'] or record['mode'] != 'act'
+      or rows != want or len(record['actions']) != 2
+      or incident_rows != want or len(events) != 2 or ledger != 2
+      or counts['applied'] != 2 or counts['apply_errors']):
+    raise AssertionError(
+        f'rollback_fleet: acting controller: admission after the rollback '
+        f'{seen.get("admission")}, log {json.dumps(record["actions"])}, '
+        f'incidents {events}, ledger {ledger}, counts {counts}')
+  return (f'the acting controller moved admission block->shed '
+          f'{seen["shed_secs"]:.2f} s after the rollback step\'s burn and '
+          f'back {seen["block_secs"]:.2f} s after it (log rows, '
+          f'controller_action incidents and the health ledger\'s '
+          f'controller_admission {ledger} agree)')
+
+
 def phase_rollback_fleet():
   """The fleet at full width with a NaN burst on learner steps 4-6 and
   health_rollback_after=2: one rollback, at step 6, to LAST_GOOD (step 4)
   — the params right after it bit-equal to that payload, the server's
   live version the rollback step — a monotone update counter, finite
   params at the end, K1 once per learner step; the SLO verdict lists
-  rollbacks_zero as burned; the operator's profile_dir window over
-  learner step 2 writes a Chrome trace holding the V-trace kernel."""
+  rollbacks_zero as burned; the controller acts (ROLLBACK_POLICY): the
+  burn flips the server's admission to shed and its end back to block
+  (`_acting_controller`); the operator's profile_dir window over learner
+  step 2 writes a Chrome trace holding the V-trace kernel."""
   with tempfile.TemporaryDirectory(prefix='chip_smoke_rollback_') as logdir:
     profile_dir = os.path.join(logdir, 'profile')
-    config = Config(**FLEET, logdir=logdir, checkpoint_secs=0,
-                    health_rollback_after=2, profile_dir=profile_dir,
-                    profile_start_step=1, profile_num_steps=1)
+    policy = os.path.join(logdir, 'policy.json')
+    with open(policy, 'w') as f:
+      json.dump(ROLLBACK_POLICY, f)
+    config = Config(**FLEET, **ROLLBACK_SLO_WINDOWS, logdir=logdir,
+                    checkpoint_secs=0, health_rollback_after=2,
+                    profile_dir=profile_dir, profile_start_step=1,
+                    profile_num_steps=1, controller='act',
+                    controller_policy=policy)
     seen = {'steps': []}
 
     def on_step(run, step, metrics):
@@ -1520,6 +1746,16 @@ def phase_rollback_fleet():
         seen['params'] = _param_snapshot(run.state.params)
         seen['version'] = run.server.stats()['live_version']
         seen['last_good'] = run.checkpointer.last_good_step()
+        # The summary block's observe judged the burn; the controller's
+        # thread applies the move, then reverts it once the burn has left
+        # the fast window.
+        t0 = time.monotonic()
+        seen['admission'] = []
+        for applied, key in ((1, 'shed_secs'), (2, 'block_secs')):
+          _await(lambda: run.controller.counts()['applied'] >= applied,
+                 CONTROLLER_WAIT_SECS)
+          seen['admission'].append(run.server.admission)
+          seen[key] = time.monotonic() - t0
 
     faults.install(faults.FaultPlan.storm(seed=0, nan_burst_at=3,
                                           nan_burst_len=3))
@@ -1535,6 +1771,7 @@ def phase_rollback_fleet():
     with open(os.path.join(logdir, 'incidents.jsonl')) as f:
       kinds = [e['kind'] for e in map(json.loads, f)]
     verdict = _slo_verdict('rollback_fleet', logdir, burned=['rollbacks_zero'])
+    controller_line = _acting_controller(logdir, run, seen)
     trace_path = os.path.join(profile_dir, 'trace.json')
     trace_mb = os.path.getsize(trace_path) / 1e6
     with open(trace_path) as f:
@@ -1564,9 +1801,9 @@ def phase_rollback_fleet():
       f'{seen["last_good"]} (params bit-equal to its payload, live version '
       f'{seen["version"]}); health {stats}; update_steps {seen["steps"]}; '
       f'vtrace launches {counts["vtrace"]}; incidents {kinds}; '
-      f'{_verdict_line(verdict)}; profile_dir trace of learner step 2: '
-      f'{trace_mb:.1f} MB, {len(events)} events, V-trace kernel '
-      f'{vtrace_events[0]["dur"]} us')
+      f'{_verdict_line(verdict)}; {controller_line}; profile_dir trace of '
+      f'learner step 2: {trace_mb:.1f} MB, {len(events)} events, V-trace '
+      f'kernel {vtrace_events[0]["dur"]} us')
   return counts
 
 
@@ -1624,7 +1861,8 @@ def phase_drain_fleet():
   env_frames_per_sec (the fleet CLI's check). The manifest's `metrics` is the
   registry's snapshot with the buffer/*, staging/*, checkpoint/* and
   driver/* names; `slo` is the SLO engine's verdict so far and
-  `controller` null; each run writes its SLO_VERDICT.json."""
+  `controller` the observing controller's counts, nothing applied; each
+  run writes its SLO_VERDICT.json and its CONTROLLER_LOG.json."""
   config = Config(**FLEET)
   with tempfile.TemporaryDirectory(prefix='chip_smoke_drain_') as logdir:
     cmd = [sys.executable, '-m', 'scalable_agent_tpu_torch.experiment',
@@ -1639,16 +1877,20 @@ def phase_drain_fleet():
             manifest['drain_source'] == 'signal'):
       raise AssertionError(f'drain manifest {manifest}')
     # The manifest's metrics are the registry's snapshot, its slo the
-    # verdict so far; the controller is not ported (ROADMAP A7.4).
+    # verdict so far, its controller the observing controller's counts.
     metrics = manifest['metrics']
     planes = sorted({k.split('/')[0] for k in metrics or {}})
     drained_verdict = _slo_verdict('drain_fleet', logdir)
+    drained_controller = _controller_logs('drain_fleet', logdir)
+    controller = manifest['controller'] or {}
     if (not isinstance(metrics, dict) or
         not {'buffer', 'staging', 'checkpoint', 'driver'} <= set(planes) or
         metrics.get('driver/update_steps') != manifest['update_steps'] or
         not isinstance(manifest['slo'], dict) or
         set(manifest['slo']) != _VERDICT_KEYS - {'clean_exit', 'update_steps'}
-        or manifest['controller'] is not None):
+        or controller.get('mode') != 'observe' or controller.get('applied')
+        or set(controller) != {'actions', 'escalations', 'reverts',
+                               'applied', 'apply_errors', 'mode'}):
       raise AssertionError(f'drain manifest metrics {metrics}, slo '
                            f'{manifest["slo"]}, controller '
                            f'{manifest["controller"]}')
@@ -1672,6 +1914,7 @@ def phase_drain_fleet():
     if last_good != DRAIN_STEPS:
       raise AssertionError(f'LAST_GOOD {last_good}')
     resumed_verdict = _slo_verdict('drain_fleet', logdir)
+    resumed_controller = _controller_logs('drain_fleet', logdir)
     if (resumed_verdict['update_steps'] != DRAIN_STEPS
         or not resumed_verdict['clean_exit']):
       raise AssertionError(f'drain_fleet: the resumed run\'s verdict '
@@ -1683,8 +1926,8 @@ def phase_drain_fleet():
       f'{planes}; '
       f'run 1 {t1 - t0:.1f} s, the resumed run {time.perf_counter() - t1:.1f}'
       f' s; summary steps {steps}; the drained run\'s '
-      f'{_verdict_line(drained_verdict)}, the resumed run\'s '
-      f'{_verdict_line(resumed_verdict)}')
+      f'{_verdict_line(drained_verdict)}, {drained_controller}, the resumed '
+      f'run\'s {_verdict_line(resumed_verdict)}, {resumed_controller}')
 
 # --- multi-process training: the data-parallel fleet, unroll staging and
 # tensor parallelism ------------------------------------------------------
@@ -1862,6 +2105,11 @@ def phase_dp_fleet():
   of the first run, summed over the ranks."""
   with tempfile.TemporaryDirectory(prefix='chip_smoke_dp_fleet_') as outdir:
     ranks = _run_ranks('dp_fleet', _dp_fleet_rank, outdir)
+    # Both ranks' logs of both runs (the drill's rollbacks_zero and
+    # sdc_mismatch_zero drive no rule).
+    controller_lines = [_controller_logs(f'dp_fleet {run}',
+                                         os.path.join(outdir, run))
+                        for run in ('plain', 'sdc')]
     # The save at D=2 (the tail save, rank 0's write) on one rank.
     config = Config(**DP_FLEET)
     target = learner.make_train_state(_seeded_agent(config, 'cuda'), config)
@@ -1902,7 +2150,8 @@ def phase_dp_fleet():
       f'{[r["counts"] for r in ranks]}); params bit-equal across the ranks '
       f'after each of the {DP_FLEET_STEPS} steps; SDC armed, 0 mismatches; '
       f'drill incidents {ranks[0]["drill"]["kinds"]}; the tail save at D=2 '
-      f'restored on one rank bit-equal in {restore_ms:.1f} ms')
+      f'restored on one rank bit-equal in {restore_ms:.1f} ms; the first '
+      f'run\'s {controller_lines[0]}; the drill\'s {controller_lines[1]}')
   for rank, r in enumerate(ranks):
     reduce = r['all_reduce_ms']
     log(f'dp_fleet rank {rank}: {r["fps"]:.1f} global env-frames/s, '
@@ -1938,10 +2187,11 @@ def phase_cli_fleet_dp():
     with open(os.path.join(logdir, 'summaries.jsonl')) as f:
       losses = [e['value'] for e in map(json.loads, f)
                 if e['tag'] == 'total_loss']
+    controller_line = _controller_logs('cli_fleet_dp', logdir)
   if len(losses) != 1 or not all(map(math.isfinite, losses)):
     raise AssertionError(f'fleet CLI total_loss {losses}')
   log(f'cli_fleet_dp: 1 step in {time.perf_counter() - t0:.1f} s in an NCCL '
-      f'group of one, total_loss {losses}')
+      f'group of one, total_loss {losses}; {controller_line}')
 
 
 def _full_width_unrolls(config, num, seed=0):
@@ -2000,6 +2250,7 @@ def phase_unroll_fleet():
     run, counts = _drive('unroll_fleet', lambda: driver.train(
         Config(**FLEET, staging_mode='unroll', logdir=logdir),
         max_steps=UNROLL_FLEET_STEPS, device='cuda', stall_timeout_secs=300))
+    controller_line = _controller_logs('unroll_fleet', logdir)
   if counts['vtrace'] != UNROLL_FLEET_STEPS or counts['vtrace_sharded']:
     raise AssertionError(f'unroll_fleet launches {counts}')
   prefetch = run.stats['prefetcher']
@@ -2018,7 +2269,7 @@ def phase_unroll_fleet():
       f'{MEASURED.get("fleet_step_ms", float("nan")):.2f} ms with batch '
       f'staging (the fleet phase, this run); blocked in prefetcher.get '
       f'{waited_s / timed_s:.4f}; vtrace launches {counts["vtrace"]}; '
-      f'prefetcher {prefetch}')
+      f'prefetcher {prefetch}; {controller_line}')
   return counts
 
 
@@ -2273,6 +2524,8 @@ def phase_tp():
     restored = checkpointer.restore_resharded(
         target, registry, mesh_lib.Mesh(0, 1, torch.device('cuda')))
     restore_ms = 1e3 * checkpointer.last_restore_secs
+    controller_line = _controller_logs('tp fleet',
+                                       os.path.join(outdir, 'fleet'))
   if saved_mesh != {'data': 1, 'model': 2}:
     raise AssertionError(f'tp: the manifest\'s mesh {saved_mesh}')
   fleet0 = ranks[0]['fleet']
@@ -2321,7 +2574,7 @@ def phase_tp():
       f'{cut["torso.linear.weight"]}; save at {{data 1, model 2}} '
       f'{fleet0["save_ms"]:.1f} ms (gather + write; the write '
       f'{fleet0["write_ms"]:.1f} ms), restore at {{data 1, model 1}} '
-      f'{restore_ms:.1f} ms, bit-equal')
+      f'{restore_ms:.1f} ms, bit-equal; {controller_line}')
   return counts
 
 
@@ -2386,7 +2639,8 @@ def _extension_run(name, config, steps=FLEET_STEPS):
     raise AssertionError(f'{name} losses: {losses}')
   timed_s, waited_s = _step_times(run, FLEET_TIMED_FROM)
   busy_ms = _busy_ms_or_fail(name, profiler)
-  log(f'{name}: {_verdict_line(_slo_verdict(name, config.logdir))}')
+  log(f'{name}: {_verdict_line(_slo_verdict(name, config.logdir))}; '
+      f'{_controller_logs(name, config.logdir)}')
   timing = dict(
       steps=steps,
       step_ms=1e3 * timed_s / (steps - FLEET_TIMED_FROM),
@@ -2555,6 +2809,7 @@ def phase_cli_full_feature():
       raise AssertionError('cli_full_feature: no PopArt statistics logged')
     with open(os.path.join(logdir, 'summaries.jsonl')) as f:
       events = [json.loads(line) for line in f]
+    controller_line = _controller_logs('cli_full_feature', logdir)
   tags = {e['tag']: e['value'] for e in events if 'value' in e}
   for key in ('total_loss', 'pixel_control_loss', 'popart_sigma_max'):
     if not math.isfinite(tags.get(key, math.nan)):
@@ -2562,7 +2817,7 @@ def phase_cli_full_feature():
   log(f'cli_full_feature: 1 step in {time.perf_counter() - t0:.1f} s; '
       f'last total_loss {tags["total_loss"]}, pixel_control_loss '
       f'{tags["pixel_control_loss"]}, popart_sigma_max '
-      f'{tags["popart_sigma_max"]}')
+      f'{tags["popart_sigma_max"]}; {controller_line}')
 
 
 def phase_impact_fleet():
@@ -2717,6 +2972,7 @@ def phase_popart_dp():
   atol 5e-6 (slice_dp's gate). Returns the fleet's launch counts."""
   with tempfile.TemporaryDirectory(prefix='chip_smoke_popart_dp_') as out:
     ranks = _run_ranks('popart_dp', _popart_dp_rank, out)
+    controller_line = _controller_logs('popart_dp', os.path.join(out, 'fleet'))
   counts = {name: sum(r['counts'][name] for r in ranks) for name in COUNTERS}
   for rank, r in enumerate(ranks):
     if (r['counts']['vtrace_sharded'] != POPART_DP_STEPS or
@@ -2747,7 +3003,7 @@ def phase_popart_dp():
       f'2 ranks {ranks[0]["step"]["loss"]} / {ranks[1]["step"]["loss"]}, '
       f'1 rank {single["loss"]}; pixel_control_loss '
       f'{ranks[0]["step"]["pc"]} / {single["pc"]}; max |param diff| '
-      f'{err:.3e}')
+      f'{err:.3e}; {controller_line}')
   return counts
 
 
@@ -3105,6 +3361,7 @@ def phase_filler_fleet():
     wall = time.perf_counter() - t0
     with open(os.path.join(logdir, 'summaries.jsonl')) as f:
       events = [json.loads(line) for line in f]
+    controller_line = _controller_logs('filler_fleet', logdir)
   filler = run.stats['filler']
   lr = [e['value'] for e in events if e['tag'] == 'learning_rate']
   schedule = learner.make_schedule(config)
@@ -3127,7 +3384,8 @@ def phase_filler_fleet():
       f'{filler["updates"] / FILLER_FLEET_STEPS:.3f} per learner step); fleet '
       f'clocks: update_steps {run.state.update_steps}, frames {run.frames}, '
       f'RMSProp count {int(run.state.opt_state.count)}; K1 launches '
-      f'{counts["vtrace"]}; prefetcher {run.stats["prefetcher"]}')
+      f'{counts["vtrace"]}; prefetcher {run.stats["prefetcher"]}; '
+      f'{controller_line}')
   return counts
 
 
@@ -3247,6 +3505,7 @@ def phase_eval_cli():
          f'--total_environment_frames='
          f'{EVAL_TRAIN_STEPS * config.frames_per_step}'] + flags,
         logdir, 'eval_cli train')
+    controller_line = _controller_logs('eval_cli train', logdir)
     eval_err, eval_s = _cli(
         ['--mode=test', f'--test_num_episodes={EVAL_EPISODES}'] + flags,
         logdir, 'eval_cli test')
@@ -3279,12 +3538,14 @@ def phase_eval_cli():
       f'in {eval_s:.1f} s (process wall time, set-up included); scores '
       f'{scores}; peak allocated {eval_peak / 2**30:.3f} GiB in eval '
       f'against {train_peak / 2**30:.3f} GiB in the trainer; '
-      f'{batch[-1].split("eval played ")[-1] if batch else "no server line"}')
+      f'{batch[-1].split("eval played ")[-1] if batch else "no server line"}'
+      f'; the trainer\'s {controller_line}')
 
 
 def _cache_run(name, config, steps, on_step=None,
-               timed_from=FLEET_TIMED_FROM):
-  """driver.train for `steps` learner steps; returns (run, counts, ms per
+               timed_from=FLEET_TIMED_FROM, controller=CONTROLLER_ANYWHERE):
+  """driver.train for `steps` learner steps, its controller's log checked
+  against the moves `controller` allows; returns (run, counts, ms per
   step over the steps after `timed_from`, the server's host<->device
   bytes per request)."""
   run, counts = _drive(name, lambda: driver.train(
@@ -3299,6 +3560,7 @@ def _cache_run(name, config, steps, on_step=None,
   losses = [e['value'] for e in events if e['tag'] == 'total_loss']
   if len(losses) != steps or not all(map(math.isfinite, losses)):
     raise AssertionError(f'{name} losses: {losses}')
+  log(f'{name}: {_controller_logs(name, config.logdir, controller)}')
   timed_s, _ = _step_times(run, timed_from)
   server = run.stats['server']
   wire = (server['h2d_bytes'] + server['d2h_bytes']) / server['requests']
@@ -3829,8 +4091,11 @@ def phase_admission():
                         inference_admission_timeout_secs=0.05,
                         fleet_quarantine_after=2),
                  logdir=logdir)
-    run, counts, step_ms, _ = _cache_run('admission_shed', cfg,
-                                         ADMISSION_STEPS)
+    # The shed actors are quarantined: the healthy fraction sits at 0.5,
+    # and the grow rule proposes a bigger fleet (virtually).
+    run, counts, step_ms, _ = _cache_run(
+        'admission_shed', cfg, ADMISSION_STEPS,
+        controller=CONTROLLER_ANYWHERE + ('fleet_healthy_fraction',))
     with open(os.path.join(logdir, 'summaries.jsonl')) as f:
       sheds = [e['value'] for e in map(json.loads, f)
                if e['tag'] == 'inference_sheds']
@@ -4109,6 +4374,7 @@ def _telemetry_run(name, traced, steps=TELEMETRY_STEPS):
       raise AssertionError(f'{name}: {run.state.update_steps} steps, '
                            f'launches {counts}')
     traces = _check_traces(name, logdir, run, steps) if traced else None
+    log(f'{name}: {_controller_logs(name, logdir)}')
   if traced:
     cycles = telemetry.registry().get('analysis/lock_cycles')
     if lock_check.cycles_detected() or cycles is None or cycles.value:
@@ -4211,6 +4477,7 @@ def phase_faults_fleet():
       faults.clear()
     with open(os.path.join(logdir, 'incidents.jsonl')) as f:
       incidents = [json.loads(line) for line in f]
+    controller_line = _controller_logs('faults_fleet', logdir)
   fleet = run.stats['fleet']
   respawned = [e for e in incidents if e['kind'] == 'actors_respawned']
   slow = [e for e in incidents if e['kind'] == 'fault_slow_learner']
@@ -4244,7 +4511,7 @@ def phase_faults_fleet():
       f'{fired["slow_learner"]}; steps 2 and 3 took '
       f'{[round(s, 3) for s in slept]} s; buffer/put_waits by step {waits}; '
       f'the respawned slot (index, respawns, streak) {slots} completed an '
-      f'unroll after its respawn; fleet {fleet}')
+      f'unroll after its respawn; fleet {fleet}; {controller_line}')
   return counts
 
 
@@ -4374,6 +4641,7 @@ def phase_remote_fleet():
                           if r.get('k') == 'publish' and 'rv' in r]
     losses = [v for _, v in _summary_values(logdir, 'total_loss')]
     verdict = _slo_verdict('remote_fleet', logdir)
+    controller_line = _controller_logs('remote_fleet', logdir)
   ingest = run.stats['ingest']
   if (run.state.update_steps != REMOTE_FLEET_STEPS
       or counts['vtrace'] != REMOTE_FLEET_STEPS
@@ -4443,7 +4711,8 @@ def phase_remote_fleet():
       f'{len(remote_publishes)} remote publishes, {serializations} '
       f'serializations, '
       f'{ingest["param_blobs"]} blobs served; peak allocated '
-      f'{peak_gib:.3f} GiB; the learner\'s {_verdict_line(verdict)}')
+      f'{peak_gib:.3f} GiB; the learner\'s {_verdict_line(verdict)}; '
+      f'{controller_line}')
   return counts
 
 
@@ -4512,6 +4781,11 @@ def phase_remote_faults():
     with open(os.path.join(logdir, 'incidents.jsonl')) as f:
       burned = [e['objective'] for e in map(json.loads, f)
                 if e['kind'] == 'slo_violation']
+    # Unrolls held across the crash can burn unroll_e2e_p99_ms: its rule
+    # flips admission block->shed, virtually.
+    controller_line = _controller_logs(
+        'remote_faults', logdir,
+        allowed=CONTROLLER_ANYWHERE + ('unroll_e2e_p99_ms',))
   _check_precision_line(second.stderr, 'remote_faults')
   steps = [s for s, _ in summaries['total_loss']]
   if steps != list(range(1, REMOTE_FAULTS_STEPS + 1)):
@@ -4552,7 +4826,7 @@ def phase_remote_faults():
       f'step {steps[-1]}; {wall:.1f} s in all; '
       f'summaries (step, value) {summaries}; actor host: {report}; '
       f'slo_violation incidents of both learners {burned}; the restarted '
-      f'learner\'s {_verdict_line(verdict)}')
+      f'learner\'s {_verdict_line(verdict)}, {controller_line}')
 
 
 def main():

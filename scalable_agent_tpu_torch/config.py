@@ -297,6 +297,25 @@ class Config:
   profile_dir: str = ''
   profile_start_step: int = 20            # past the warmup
   profile_num_steps: int = 5
+  # The self-healing controller (controller.py): a `controller` thread
+  # maps the SLO engine's burning set and margins to bounded moves of the
+  # fleet's knobs (replay_k, admission, the remote publish cadence, the
+  # fleet's and the pod's target size) through a policy table. 'observe'
+  # logs every move it would make (CONTROLLER_LOG.json, applied false)
+  # and touches nothing; 'act' applies them; 'off' runs no thread and
+  # writes no log. controller_policy: a JSON rule list ('' = the
+  # DEFAULT_RULES). controller_interval_secs: its tick (0 = the SLO
+  # engine's cadence). The two *_max fields bound the replay_k and
+  # publish_secs actuators.
+  controller: str = 'observe'             # off | observe | act
+  controller_policy: str = ''
+  controller_interval_secs: float = 0.0
+  controller_replay_k_max: int = 4
+  controller_publish_secs_max: float = 30.0
+  # The pod_size actuator's bound: a move writes the desired actor-host
+  # count to <logdir>/POD_TARGET.json (atomic) for the cluster's
+  # supervisor to reconcile; the learner spawns no host. 0 = no actuator.
+  pod_max_hosts: int = 0
   # The population engine (population.py). The level curriculum over the
   # procgen level set, inside the fused step (Anakin and the filler):
   # 'uniform' keeps the plain draw; 'regret' EMAs the positive value loss
@@ -323,6 +342,12 @@ class Config:
   pbt_quantile: float = 0.25
   pbt_perturb: float = 1.2
   pbt_vectorized: bool = False
+  # The JAX package's persistent XLA compile cache ('auto' = under the
+  # logdir). The port has no run-time compiler to cache: eager PyTorch
+  # compiles nothing, and the CUDA kernels are built by nvcc once per
+  # source digest into scalable_agent_tpu_torch/_build/ (ops/build.py),
+  # whatever this field says. Kept so a JAX config carries over.
+  compile_cache_dir: str = 'auto'
 
   def __post_init__(self):
     if self.compute_dtype not in COMPUTE_DTYPES:
@@ -827,6 +852,71 @@ def validate_slo(config: Config) -> List[str]:
         'slo_capture=True with health_watchdog=False: SLO burns '
         'cannot feed the external-incident ledger (no monitor), so '
         'drain manifests and halt bundles will not name them')
+  return warnings
+
+
+def validate_controller(config: Config) -> List[str]:
+  """The JAX package's `validate_controller`: the controller's knob
+  group. Raises ValueError on a hard error; returns the warnings of the
+  cross-links. The policy file itself is loaded (so validated) by
+  controller.load_rules when the controller is built."""
+  warnings = []
+  if config.controller not in ('off', 'observe', 'act'):
+    raise ValueError(f'controller must be off|observe|act, got '
+                     f'{config.controller!r}')
+  if config.controller_interval_secs < 0:
+    raise ValueError(f'controller_interval_secs must be >= 0, got '
+                     f'{config.controller_interval_secs}')
+  if config.controller_replay_k_max < 1:
+    raise ValueError(f'controller_replay_k_max must be >= 1, got '
+                     f'{config.controller_replay_k_max}')
+  if config.controller_publish_secs_max <= 0:
+    raise ValueError(f'controller_publish_secs_max must be > 0, got '
+                     f'{config.controller_publish_secs_max}')
+  if config.fleet_probation_secs < 0:
+    raise ValueError(f'fleet_probation_secs must be >= 0, got '
+                     f'{config.fleet_probation_secs}')
+  if config.pod_max_hosts < 0:
+    raise ValueError(f'pod_max_hosts must be >= 0, got '
+                     f'{config.pod_max_hosts}')
+  if config.pod_max_hosts > 0 and not config.remote_actor_port:
+    warnings.append(
+        'pod_max_hosts=%d with remote ingest disabled '
+        '(remote_actor_port=0): the pod_size actuator reads the '
+        'ingest membership ledger — it will not be registered'
+        % config.pod_max_hosts)
+  if (config.remote_heartbeat_secs == 0
+      and config.remote_conn_idle_timeout_secs > 0
+      and config.fleet_probation_secs >
+      config.remote_conn_idle_timeout_secs):
+    warnings.append(
+        'fleet_probation_secs=%.1f exceeds the idle-reaping window '
+        '(remote_conn_idle_timeout_secs=%.1f) with heartbeats '
+        'disabled: a remote client cooling down in CRC probation '
+        'cannot ping, so the learner will reap it as half-open '
+        'mid-probation — enable heartbeats or shorten the cool-down'
+        % (config.fleet_probation_secs,
+           config.remote_conn_idle_timeout_secs))
+  if config.controller == 'off':
+    if config.controller_policy:
+      warnings.append(
+          'controller_policy=%r with controller=off: the policy '
+          'table is loaded by the controller — nothing will read it'
+          % config.controller_policy)
+    return warnings
+  if not config.slo_engine:
+    warnings.append(
+        'controller=%s with slo_engine=False: the controller\'s only '
+        'input is the SLO engine\'s burning set and margins — it '
+        'will be disabled for this run' % config.controller)
+  if (config.controller == 'act' and config.surrogate == 'vtrace'
+      and config.controller_replay_k_max > 1):
+    warnings.append(
+        'controller=act may raise replay_k up to %d, but '
+        'surrogate=vtrace has no clipped-target anchor against '
+        'reused data (IMPACT, arXiv 1912.00167) — consider '
+        '--surrogate=impact, or cap --controller_replay_k_max=1'
+        % config.controller_replay_k_max)
   return warnings
 
 

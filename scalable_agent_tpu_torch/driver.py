@@ -36,6 +36,7 @@ import numpy as np
 import torch
 
 from scalable_agent_tpu_torch import checkpoint as checkpoint_lib
+from scalable_agent_tpu_torch import controller as controller_lib
 from scalable_agent_tpu_torch import health as health_lib
 from scalable_agent_tpu_torch import learner as learner_lib
 from scalable_agent_tpu_torch import observability
@@ -45,6 +46,7 @@ from scalable_agent_tpu_torch import slo as slo_lib
 from scalable_agent_tpu_torch import telemetry
 from scalable_agent_tpu_torch.analysis import runtime as lock_check
 from scalable_agent_tpu_torch.config import (COMPUTE_DTYPES, Config,
+                                             validate_controller,
                                              validate_fleet,
                                              validate_integrity,
                                              validate_population,
@@ -294,6 +296,9 @@ class TrainRun:
     self.tracer: Optional[telemetry.PipelineTracer] = None
     self.checkpointer: Optional[checkpoint_lib.Checkpointer] = None
     self.health: Optional[health_lib.HealthMonitor] = None
+    # The fleet's self-healing controller (controller.py), stopped and
+    # finalized; None with controller off or the SLO engine off.
+    self.controller: Optional[controller_lib.Controller] = None
     self.mesh = None
     self.carry = None
     self.members = None
@@ -513,16 +518,136 @@ def _start_slo_engine(config: Config, writer, incidents, flight=None,
   objectives = slo_lib.load_objectives(
       config.slo_spec, fast_window_secs=config.slo_fast_window_secs,
       slow_window_secs=config.slo_slow_window_secs)
-  interval = (config.slo_interval_secs if config.slo_interval_secs > 0 else
-              min(max(float(config.summary_secs), 1.0), 30.0,
-                  config.slo_fast_window_secs / 4.0))
   engine = slo_lib.SloEngine(
       objectives, config.logdir, writer=writer, incidents=incidents,
       flight=flight, health=health, capture=config.slo_capture,
-      interval_secs=interval,
+      interval_secs=_slo_interval(config),
       baseline=slo_lib.load_baseline(config.slo_fps_baseline))
   engine.start()
   return engine
+
+
+def _slo_interval(config: Config) -> float:
+  """The SLO engine's cadence: slo_interval_secs, else the summary
+  cadence clamped to [1, 30] s and to a quarter of the fast window."""
+  if config.slo_interval_secs > 0:
+    return config.slo_interval_secs
+  return min(max(float(config.summary_secs), 1.0), 30.0,
+             config.slo_fast_window_secs / 4.0)
+
+
+def _start_controller(config: Config, slo_engine, prefetcher, server, fleet,
+                      ingest, publish_cadence: Dict, rank: int, incidents,
+                      health) -> Optional[controller_lib.Controller]:
+  """The fleet's self-healing controller (controller.py), started; None
+  with controller off, or with the SLO engine off (its only input).
+
+  Its actuators, as JAX's driver registers them: `replay_k` (the
+  prefetcher, bounded by controller_replay_k_max), `admission` (the
+  server's policy), `publish_secs` (the loop's remote publish cadence
+  cell, with an ingest), `fleet_size` (the fleet's target, with local
+  actors) and, on rank 0 with an ingest and pod_max_hosts > 0,
+  `pod_size`: a move writes the desired actor-host count, the live hosts
+  and the membership to <logdir>/POD_TARGET.json (atomic) for the
+  cluster's supervisor to reconcile; the learner spawns no host. The
+  tick defaults to the SLO engine's cadence. The log is
+  CONTROLLER_LOG.json on rank 0 and CONTROLLER_LOG_p<rank>.json on
+  the others."""
+  if config.controller == 'off':
+    return None
+  if slo_engine is None:
+    log.warning('controller=%s ignored: the SLO engine is off and the '
+                'controller has no other input', config.controller)
+    return None
+  rules = controller_lib.load_rules(config.controller_policy)
+  actuators = [
+      controller_lib.Actuator(
+          'replay_k', kind='int', get_fn=lambda: prefetcher.replay_k,
+          set_fn=prefetcher.set_replay_k, minimum=1,
+          maximum=max(config.controller_replay_k_max, config.replay_k)),
+      controller_lib.Actuator(
+          'admission', kind='enum', get_fn=lambda: server.admission,
+          set_fn=server.set_admission,
+          values=inference_lib.ADMISSION_POLICIES),
+  ]
+  if ingest is not None:
+    actuators.append(controller_lib.Actuator(
+        'publish_secs', kind='float',
+        get_fn=lambda: publish_cadence['secs'],
+        set_fn=lambda v: publish_cadence.__setitem__('secs', float(v)),
+        minimum=float(config.remote_publish_secs),
+        maximum=max(config.controller_publish_secs_max,
+                    float(config.remote_publish_secs))))
+  if config.num_actors > 0 and hasattr(fleet, 'set_target_size'):
+    actuators.append(controller_lib.Actuator(
+        'fleet_size', kind='int', get_fn=fleet.target_size,
+        set_fn=fleet.set_target_size, minimum=1,
+        maximum=config.num_actors))
+  if ingest is not None and rank == 0 and config.pod_max_hosts > 0:
+    pod_target = {'hosts': None}  # None: never moved, mirror the live
+
+    def pod_target_get():
+      if pod_target['hosts'] is not None:
+        return pod_target['hosts']
+      return max(ingest.live_hosts(), 1)
+
+    def pod_target_set(n):
+      pod_target['hosts'] = int(n)
+      payload = {'target_hosts': int(n), 'live_hosts': ingest.live_hosts(),
+                 'membership': ingest.membership(),
+                 'wall_time': round(time.time(), 3)}
+      path = os.path.join(config.logdir, 'POD_TARGET.json')
+      tmp = f'{path}.tmp'
+      with open(tmp, 'w') as f:
+        json.dump(payload, f, indent=2)
+      os.replace(tmp, path)
+
+    actuators.append(controller_lib.Actuator(
+        'pod_size', kind='int', get_fn=pod_target_get,
+        set_fn=pod_target_set, minimum=1, maximum=config.pod_max_hosts))
+  interval = (config.controller_interval_secs
+              if config.controller_interval_secs > 0
+              else _slo_interval(config))
+  ctrl = controller_lib.Controller(
+      slo_engine, rules, actuators, config.logdir, mode=config.controller,
+      interval_secs=interval, incidents=incidents, health=health,
+      log_name=('CONTROLLER_LOG.json' if rank == 0
+                else f'CONTROLLER_LOG_p{rank}.json'))
+  ctrl.start()
+  log.info('controller started in %r mode: %d rule(s) over %d '
+           'actuator(s)', config.controller, len(ctrl._rules),
+           len(actuators))
+  return ctrl
+
+
+def _finish_controller(ctrl: controller_lib.Controller) -> None:
+  """Stop the controller's thread (it reads the engine and moves
+  component knobs, both about to close) and write CONTROLLER_LOG.json,
+  on every exit path."""
+  try:
+    ctrl.stop()
+    counts = ctrl.finalize()
+    log.info('controller [%s]: %d action(s) (%d escalation(s), %d '
+             'revert(s), %d applied) -> %s', ctrl.mode, counts['actions'],
+             counts['escalations'], counts['reverts'], counts['applied'],
+             os.path.basename(ctrl._log_path))
+  except Exception:
+    log.exception('controller finalize failed')
+
+
+def _write_controller_summaries(writer, ctrl, prefetcher,
+                                publish_cadence: Dict, step: int) -> None:
+  """The controller's counts and the live actuator values, in the
+  stream the objectives are judged from."""
+  if ctrl is None:
+    return
+  counts = ctrl.counts()
+  writer.scalars({'controller_actions': counts['actions'],
+                  'controller_reverts': counts['reverts'],
+                  'controller_engaged': ctrl.engaged_rules(),
+                  'controller_replay_k': prefetcher.replay_k,
+                  'controller_publish_secs': publish_cadence['secs']},
+                 step)
 
 
 def _finish_slo(engine: slo_lib.SloEngine, path: str, extra: Dict) -> None:
@@ -808,7 +933,7 @@ def train(config: Config, max_steps: Optional[int] = None, device='cuda',
   for warning in (validate_runtime(config) + validate_integrity(config) +
                   validate_replay(config) + validate_population(config) +
                   validate_transport(config) + validate_slo(config) +
-                  validate_serving(config)):
+                  validate_controller(config) + validate_serving(config)):
     log.warning('%s', warning)
   device = resolve_device(device)
   set_float32_precision()
@@ -977,7 +1102,10 @@ def train(config: Config, max_steps: Optional[int] = None, device='cuda',
 
   process_seed_base = rank * max(config.num_actors, 1000)
   buffer = server = fleet = prefetcher = writer = incidents = None
-  filler = tracer = ingest = slo_engine = None
+  filler = tracer = ingest = slo_engine = ctrl = None
+  # The remote publish cadence, a cell the controller's publish_secs
+  # actuator may stretch; the loop reads it in place of the config.
+  publish_cadence = {'secs': float(config.remote_publish_secs)}
   try:
     # The replay tier retains consumed unrolls behind the FIFO; their
     # staleness counts in published param versions.
@@ -1043,12 +1171,13 @@ def train(config: Config, max_steps: Optional[int] = None, device='cuda',
         buffer, local_batch_size, place_fn=stage,
         depth=config.staging_depth, stack_fn=stack, stager=stager,
         replay_k=config.replay_k, reserve_fn=reserve_view)
-    if config.reuse_on:
+    if config.reuse_on or config.controller == 'act':
       # Under sample reuse a learner step consumes fewer fresh frames
       # than frames_per_step: the frame budget, the fps meter, the run's
       # frames and the drain manifest count the fresh slots at their
       # first serve (scaled from this rank's rows to the global batch).
-      # Steps before a resume count at frames_per_step.
+      # An acting controller may raise replay_k mid-run, so it counts
+      # them so too. Steps before a resume count at frames_per_step.
       frames_per_unroll = config.unroll_length * config.num_action_repeats
       scale = max(config.batch_size // max(local_batch_size, 1), 1)
       resumed_frames = initial_steps * config.frames_per_step
@@ -1093,7 +1222,15 @@ def train(config: Config, max_steps: Optional[int] = None, device='cuda',
         flight=tracer.flight if tracer is not None else None,
         health=run.health)
     fleet.start()
+    # The controller moves knobs of the started fleet; observe mode only
+    # logs the moves it would make.
+    ctrl = _start_controller(config, slo_engine, prefetcher, server, fleet,
+                             ingest, publish_cadence, rank, incidents,
+                             run.health)
+    run.controller = ctrl
   except BaseException:
+    if ctrl is not None:
+      ctrl.stop()  # no log: the run never started
     if slo_engine is not None:
       slo_engine.stop()  # no verdict: the run never started
     if ingest is not None:
@@ -1300,7 +1437,7 @@ def train(config: Config, max_steps: Optional[int] = None, device='cuda',
           if rolled_back is not None:
             remote_version = ingest.publish_params(host_params(published))
           elif (time.monotonic() - last_remote_publish >=
-                config.remote_publish_secs and ingest.stats()['live'] > 0):
+                publish_cadence['secs'] and ingest.stats()['live'] > 0):
             last_remote_publish = time.monotonic()
             remote_version = ingest.publish_params(host_params(published))
         if tracer is not None:
@@ -1324,6 +1461,8 @@ def train(config: Config, max_steps: Optional[int] = None, device='cuda',
         last_filler_skipped = _write_filler_summaries(
             writer, incidents, filler, step_now, last_filler_skipped,
             run.health)
+        _write_controller_summaries(writer, ctrl, prefetcher,
+                                    publish_cadence, step_now)
         action_counts_acc[:] = 0
         # Step-synchronous judging where summaries are frequent; the
         # engine's thread covers long summary gaps.
@@ -1355,18 +1494,23 @@ def train(config: Config, max_steps: Optional[int] = None, device='cuda',
       _write_filler_summaries(writer, incidents, filler,
                               initial_steps + steps_done,
                               last_filler_skipped, run.health)
+      _write_controller_summaries(writer, ctrl, prefetcher, publish_cadence,
+                                  initial_steps + steps_done)
     if draining:
       _finish_drain(config, run, ladder, checkpointer, incidents, writer,
                     initial_steps + steps_done, last_publish_step,
                     drain_source, drain_t0, drain_deadline, filler,
-                    slo_engine)
+                    slo_engine, ctrl)
     if run.state.popart is not None:
       log.info('PopArt statistics per task: %s', json.dumps(
           popart_lib.stats_summary(run.state.popart, levels)))
     exiting_clean = True
   finally:
-    # The verdict before the components close, so its last observation
-    # still reads their gauges.
+    # The controller stops first (it reads the engine and moves the
+    # components' knobs); then the verdict, before the components close,
+    # so its last observation still reads their gauges.
+    if ctrl is not None:
+      _finish_controller(ctrl)
     if slo_engine is not None:
       _finish_slo(slo_engine, os.path.join(
           config.logdir, 'SLO_VERDICT.json' if rank == 0 else
@@ -1419,7 +1563,7 @@ def _write_filler_summaries(writer, incidents, filler, step: int,
 
 def _finish_drain(config, run, ladder, checkpointer, incidents, writer,
                   step_final, last_publish_step, drain_source, drain_t0,
-                  drain_deadline, filler=None, slo_engine=None):
+                  drain_deadline, filler=None, slo_engine=None, ctrl=None):
   """The drain's end: join the fleet (bounded), close the prefetcher
   (its partial batch's unrolls go back to the buffer), take a verified
   save (withheld mid-burst, as every save is) and write the manifest."""
@@ -1457,9 +1601,11 @@ def _finish_drain(config, run, ladder, checkpointer, incidents, writer,
       # reads too.
       'metrics': dict(metrics, **telemetry.registry().snapshot()),
       # The verdict so far: which objectives were burning at the drain.
-      # The controller is the next part of ROADMAP A7.4.
       'slo': slo_engine.verdict() if slo_engine is not None else None,
-      'controller': None,
+      # What the run did to itself before the drain, beside the health
+      # ledger's controller_<actuator> entries.
+      'controller': (dict(ctrl.counts(), mode=ctrl.mode)
+                     if ctrl is not None else None),
       'drain_source': drain_source,
       'drain_latency_secs': round(latency, 3),
       'wall_time': round(time.time(), 3),
@@ -1516,6 +1662,11 @@ def train_anakin(config: Config, max_steps: Optional[int] = None,
   for warning in (validate_runtime(config) + validate_population(config) +
                   validate_slo(config)):
     log.warning('%s', warning)
+  if config.controller != 'off':
+    log.info('controller=%s is a fleet-runtime feature: the anakin '
+             'runtime has no actuators (no prefetcher/admission/'
+             'publish/fleet knobs) — running without it',
+             config.controller)
   _, agent, step, carry = anakin_lib.build_run(config, device=device,
                                                mesh=mesh)
   primary = distributed.rank() == 0
@@ -2199,10 +2350,13 @@ def evaluate(config: Config, device='cuda',
   test scores. A dead or wedged actor is respawned; no unroll for
   `eval_drought_secs` raises the last actor error (or TimeoutError).
   `device` defaults to CUDA and raises without it."""
+  # Every knob group, as JAX's evaluate runs them: a range error fails an
+  # eval as it fails a train.
   validate_fleet(config)
-  for warning in (validate_runtime(config) + validate_integrity(config) +
-                  validate_replay(config) + validate_serving(config) +
-                  validate_population(config)):
+  for warning in (validate_replay(config) + validate_transport(config) +
+                  validate_integrity(config) + validate_slo(config) +
+                  validate_controller(config) + validate_runtime(config) +
+                  validate_serving(config) + validate_population(config)):
     log.warning('%s', warning)
   device = resolve_device(device)
   set_float32_precision()

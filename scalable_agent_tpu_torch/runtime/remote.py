@@ -2496,8 +2496,11 @@ def run_remote_actor(config, learner_address: str, task: int = 0,
   device = driver_lib.resolve_device(device)
   if reconnect_secs is None:
     reconnect_secs = config.actor_reconnect_secs
+  # validate_controller carries the cross-link of the CRC probation
+  # cool-down (slept on this host's pump) and the idle-reaping window.
   for warning in (config_lib.validate_transport(config)
-                  + config_lib.validate_integrity(config)):
+                  + config_lib.validate_integrity(config)
+                  + config_lib.validate_controller(config)):
     log.warning('%s', warning)
   # The idle window is also how long this host waits on a silent
   # learner.

@@ -494,6 +494,14 @@ class SloEvaluator:
     return [n for n, e in self._state.items()
             if e['state'] == BURNING]
 
+  def states(self) -> Dict[str, Dict]:
+    """A copy of every objective's judged state ({name: {state, value,
+    target, margin, severity, burns, ...}}). Each entry was written by
+    one `entry.update(...)`, so each copy is consistent in itself; a
+    caller that needs consistency across objectives holds the owning
+    engine's lock (SloEngine.control_snapshot does)."""
+    return {n: dict(e) for n, e in self._state.items()}
+
   def verdict(self) -> Dict:
     """Pass or fail, and every objective's final state and burn count:
     `pass` fails on any ticket or page objective that ever burned."""
@@ -642,6 +650,23 @@ class SloEngine:
     except Exception:  # judging survives a sick disk
       log.exception('SLO violation emission failed')
     return newly
+
+  # --- the control surface (controller.py) ---
+
+  def burning(self) -> List[str]:
+    """The names of the objectives burning now, read under the engine's
+    lock (stable against a concurrent observe(); the controller thread's
+    read API)."""
+    with self._lock:
+      return self._evaluator.burning()
+
+  def control_snapshot(self) -> Dict[str, Dict]:
+    """A copy of every objective's judged state, taken under the lock,
+    so it describes one evaluation pass: two objectives over the same
+    metric never disagree about its value inside one snapshot. The
+    controller's input."""
+    with self._lock:
+      return self._evaluator.states()
 
   def flush_captures(self):
     """Write the queued capture artifacts (the engine thread each tick;

@@ -37,8 +37,13 @@ def test_every_port_field_has_the_jax_default():
   # actor_reconnect_secs, remote_heartbeat_secs,
   # remote_conn_idle_timeout_secs, ingest_workers and wire_crc; routed
   # serving and the SLO engine (A7.3b, A7.4's second part) the eight slo_*
-  # fields and profile_dir, profile_start_step and profile_num_steps.
-  assert len(port) == 138
+  # fields and profile_dir, profile_start_step and profile_num_steps; the
+  # controller (the rest of A7.4) controller, controller_policy,
+  # controller_interval_secs, controller_replay_k_max,
+  # controller_publish_secs_max and pod_max_hosts, and A7.5
+  # compile_cache_dir: every JAX field.
+  assert len(port) == 145
+  assert set(port) == set(ref)
 
 
 def test_the_checkpoint_and_health_fields_reach_the_cli():

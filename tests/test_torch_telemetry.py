@@ -18,10 +18,10 @@ inputs through both packages.
   their gauges; the drain manifest holds the registry's snapshot.
 - Name parity: the literal names the two packages register through
   `telemetry.counter/gauge/histogram` (and the bare calls inside
-  telemetry.py and analysis/runtime.py) are equal, but for the names
-  only the routing, SLO and controller modules register (ROADMAP A7.3b,
-  A7.4's second part); every ingest/* name of JAX's runtime/remote.py,
-  and the driver's `driver/remote_live_hosts`, is the port's too.
+  telemetry.py and analysis/runtime.py) are equal, the routing, SLO and
+  controller modules' names included; every ingest/* name of JAX's
+  runtime/remote.py, and the driver's `driver/remote_live_hosts`, is the
+  port's too.
 """
 
 import ast
@@ -559,11 +559,14 @@ def test_the_drain_manifest_holds_the_registry_snapshot(tmp_path):
   for prefix in ('buffer/', 'staging/', 'checkpoint/', 'driver/'):
     assert any(k.startswith(prefix) for k in metrics), prefix
   assert metrics['driver/update_steps'] == manifest['update_steps']
-  # The SLO engine's verdict so far, with JAX's keys; the controller is
-  # not ported yet.
+  # The SLO engine's verdict so far, with JAX's keys, and the
+  # controller's counts block (observe mode by default: nothing applied).
   assert set(manifest['slo']) == {'pass', 'violations', 'wall_time',
                                   'objectives', 'captures'}
-  assert manifest['controller'] is None
+  assert set(manifest['controller']) == {'actions', 'escalations', 'reverts',
+                                         'applied', 'apply_errors', 'mode'}
+  assert manifest['controller']['mode'] == 'observe'
+  assert manifest['controller']['applied'] == 0
 
 
 # --------------------------------------------------------------------
@@ -571,9 +574,9 @@ def test_the_drain_manifest_holds_the_registry_snapshot(tmp_path):
 # --------------------------------------------------------------------
 
 _METRIC = re.compile(r'[a-z0-9_]+(?:/[a-z0-9_]+)+')
-# Registered only by a module the port has not yet: the controller (the
-# rest of ROADMAP A7.4's second part).
-_REMOTE_ONLY = ('controller.py',)
+# Registered only by a module the port has not yet: none since the
+# controller landed, so every JAX name is held.
+_REMOTE_ONLY = ()
 
 
 def _registered_names(package, exclude=()):
@@ -614,7 +617,9 @@ def test_the_port_registers_every_jax_name_outside_the_remote_planes():
   jax_names = set(_registered_names('scalable_agent_tpu',
                                     exclude=_REMOTE_ONLY))
   remote_only = set(jax_all) - jax_names
-  assert {n.split('/')[0] for n in remote_only} == {'controller'}
+  assert not remote_only
+  assert {'controller/actions', 'controller/reverts',
+          'controller/engaged'} <= jax_names
   assert {'serving/route_ms', 'serving/route_errors',
           'serving/route_failovers', 'serving/route_replicas',
           'slo/violations', 'slo/burning'} <= jax_names
