@@ -10,6 +10,13 @@ Phases, each of which raises (exit code != 0) when it fails:
 2. build   — build every CUDA kernel of the port with nvcc, one process per
              source, all at once; log each kernel's registers, shared
              memory and spills from `nvcc -Xptxas -v`, and fail on a spill.
+             Before the builds, alone and timed: the lint module
+             (`python -m scalable_agent_tpu_torch.scripts.lint`, every
+             checker over the tree) must exit 0. Beside the builds: the
+             batcher's native stress test (ops/batcher/batcher_test.cc,
+             built by g++) must pass. Then the us per
+             EventLog.event() of a durable (fsync'd) and a non-durable
+             incident kind.
    launch_floor — the device time of a one-element `add_` (torch.profiler):
              the least a kernel launch takes on the card.
 3. kernels — the fused V-trace kernel against its plain twin on the card at
@@ -88,7 +95,8 @@ Phases, each of which raises (exit code != 0) when it fails:
              learner step and idle share by torch.profiler over steps 7-8
              (the union of every stream's device events, the server's
              inference kernels included), which must not read empty, and
-             the SLO engine's verdict.
+             the SLO engine's verdict, with the slo_report module over the
+             logdir exiting as the verdict says (0 pass, 1 fail).
 14. fleet_reference — the inference server on the card against the same
              server on the CPU, same params, 32 concurrent callers at
              [72, 96] frames with random carries: logits, baseline and new
@@ -252,8 +260,9 @@ Phases, each of which raises (exit code != 0) when it fails:
              step.
 39. state_cache_reference — 32 fixed callers through the cache path and
              the carry path on the card, one merged batch per step, 3
-             steps with done edges and a slot reused after release: every
-             output and new carry bit-equal.
+             steps with done edges and a slot reused after release, the
+             callers started 20 ms apart so that both servers merge them
+             in the same order: every output and new carry bit-equal.
 40. serving — the version table at the slice's widths: 3 resident, 5
              publishes, version 1 pinned; A/B and shadow 0.25 (divergence 0
              on equal params, > 0 on perturbed ones); int8 resident bytes
@@ -261,7 +270,16 @@ Phases, each of which raises (exit code != 0) when it fails:
              the dequantized params (rtol 1e-5 / atol 1e-5), != the
              float32 params' and within the first-order bound
              max_abs_error gives, greedy agreement; serving_aot's flip to
-             the int8 structure with aot_misses 0.
+             the int8 structure with aot_misses 0. Then batch_fn: 24
+             threads with their own rows through
+             batch_fn_with_options(minimum_batch_size=16, timeout_ms=20)
+             around the full-width T=1 forward, each caller's logits and
+             baseline against an unbatched forward of its rows (rtol
+             1e-5 / atol 1e-5, float32, TF32 off), the mean merged batch
+             and us per merged call; and a FamilyBatcher over [72, 96]
+             and [48, 64] frames (each family's agent built on the card
+             by make_fn), held the same way, its padding_stats equal to
+             the request stream's counts.
 41. admission — 32 actors on 16 slots: block (handover, no raise), shed
              (driver.train for 3 learner steps, sheds in the summaries, K1
              once per step), grow (16 -> 32, carries bit-equal).
@@ -309,7 +327,13 @@ Phases, each of which raises (exit code != 0) when it fails:
              (torch.profiler, steps 2-4), unrolls/s and MB/s over the wire
              and the bytes of one unroll's frame, the ack p50/p99, the bf16
              param blob's bytes and a publish's ms, and peak memory; the
-             idle share must not read empty.
+             idle share must not read empty. At the last step, after the
+             timed window, the fleet_stats module (--json) against the
+             live ingest agrees with fetch_stats() taken in this process
+             around it. Actor
+             hosts run with faulthandler: one still running 60 s after
+             the learner's end gets SIGABRT (its threads' stacks go into
+             its log) before the kill, and the phase fails.
 46. remote_faults — the drill: one actor host (16 actors,
              actor_reconnect_secs=120) feeds the learner CLI (num_actors=0,
              a checkpoint every step) whose fault plan from the
@@ -420,6 +444,7 @@ from scalable_agent_tpu_torch.observability import cuda_median_ms
 from scalable_agent_tpu_torch.observability import profiled_device_us
 from scalable_agent_tpu_torch.ops import build
 from scalable_agent_tpu_torch.ops import conv_pool_cuda
+from scalable_agent_tpu_torch.ops import dynamic_batching
 from scalable_agent_tpu_torch.ops import vtrace_cuda
 from scalable_agent_tpu_torch.parallel import anakin
 from scalable_agent_tpu_torch.parallel import distributed
@@ -435,6 +460,7 @@ from scalable_agent_tpu_torch.runtime import routing
 from scalable_agent_tpu_torch.runtime.actor import batch_unrolls
 from scalable_agent_tpu_torch.runtime.inference import InferenceServer
 from scalable_agent_tpu_torch.scripts import conv_pool as conv_pool_script
+from scalable_agent_tpu_torch.scripts import fleet_stats as fleet_stats_script
 from scalable_agent_tpu_torch.structs import (ActorOutput, AgentOutput,
                                               StepOutput, StepOutputInfo,
                                               map_structure)
@@ -483,6 +509,62 @@ def log(*args):
   print(*args, flush=True)
 
 
+REPO_DIR = os.path.dirname(os.path.abspath(__file__))
+LINT_TIMEOUT_SECS = 300
+EVENT_COST_REPS = 200
+
+
+def _module_run(module, *args, timeout=LINT_TIMEOUT_SECS):
+  """`python -m <module> <args>` from the repo's root; the finished
+  process, its output captured."""
+  return subprocess.run([sys.executable, '-m', module, *args],
+                        capture_output=True, text=True, timeout=timeout,
+                        cwd=REPO_DIR)
+
+
+def _in_thread(fn, out):
+  """A started daemon thread that appends fn()'s result, or the
+  exception it raised, to `out`."""
+  def run():
+    try:
+      out.append(fn())
+    except BaseException as e:  # the caller raises it
+      out.append(e)
+  thread = threading.Thread(target=run, daemon=True)
+  thread.start()
+  return thread
+
+
+def _joined(name, thread, out, timeout):
+  """The result `_in_thread` left once the thread ends; raises what it
+  raised, or when it did not end in `timeout` seconds."""
+  thread.join(timeout)
+  if not out:
+    raise AssertionError(f'{name} did not end in {timeout} s')
+  if isinstance(out[0], BaseException):
+    raise AssertionError(f'{name} failed: {out[0]!r}') from out[0]
+  return out[0]
+
+
+def _event_costs(reps=EVENT_COST_REPS):
+  """us per EventLog.event() (median over `reps`) for a kind that holds a
+  durable marker (fsync'd) and one that holds none."""
+  costs = {}
+  with tempfile.TemporaryDirectory(prefix='chip_smoke_events_') as logdir:
+    events = observability.EventLog(logdir)
+    try:
+      for kind in ('rollback', 'actors_respawned'):
+        times = []
+        for i in range(reps):
+          t = time.perf_counter()
+          events.event(kind, step=i, detail='x')
+          times.append(1e6 * (time.perf_counter() - t))
+        costs[kind] = (statistics.median(times), max(times))
+    finally:
+      events.close()
+  return costs
+
+
 def phase_device():
   if not torch.cuda.is_available():
     raise SystemExit('chip_smoke: torch.cuda.is_available() is False')
@@ -499,12 +581,42 @@ def phase_device():
 
 
 def phase_build():
-  """Build every kernel; returns {source: {kernel: ptxas's numbers}}."""
+  """Run the lint module over the tree, then build every kernel (and,
+  beside the nvcc processes, the batcher's native stress test); returns
+  {source: {kernel: ptxas's numbers}}."""
+  t = time.perf_counter()
+  lint = _module_run('scalable_agent_tpu_torch.scripts.lint')
+  lint_secs = time.perf_counter() - t
+  if lint.returncode != 0:
+    raise AssertionError(f'scalable_agent_tpu_torch.scripts.lint exited '
+                         f'{lint.returncode}:\n{lint.stdout}{lint.stderr}')
+  log(f'build: the lint module (every checker, the whole tree) clean, '
+      f'{lint_secs:.2f} s alone (process start included): '
+      f'{lint.stderr.strip()}')
   t0 = time.perf_counter()
+  native = []
+  batcher_test = _in_thread(lambda: (
+      build.run_host_test('batcher_test', 'plain'), time.perf_counter()),
+                            native)
   paths = build.build_all()
   log(f'build: {len(paths)} kernel libraries in '
       f'{time.perf_counter() - t0:.2f} s: '
       + ', '.join(os.path.relpath(p) for p in paths))
+  proc, done = _joined('batcher_test', batcher_test, native,
+                       LINT_TIMEOUT_SECS)
+  if proc.returncode != 0:
+    raise AssertionError(f'batcher_test exited {proc.returncode}:\n'
+                         f'{proc.stdout}{proc.stderr}')
+  log(f'build: batcher_test (g++ {" ".join(build.HOST_TEST_FLAGS["plain"])}'
+      f') built and passed {done - t0:.2f} s from the start, beside the '
+      f'kernels\' builds: {proc.stdout.strip().splitlines()[-1]}')
+  costs = _event_costs()
+  log('build: EventLog.event() on this host\'s temp directory, median (max) '
+      f'over {EVENT_COST_REPS}: a durable kind (rollback, fsync\'d) '
+      f'{costs["rollback"][0]:.1f} us ({costs["rollback"][1]:.1f}); a '
+      f'non-durable kind (actors_respawned, line-buffered, no fsync) '
+      f'{costs["actors_respawned"][0]:.1f} us '
+      f'({costs["actors_respawned"][1]:.1f})')
   reports = {name: build.ptxas_report(name) for name in build.sources()}
   for name, kernels in reports.items():
     if not kernels:
@@ -1167,6 +1279,23 @@ def _slo_verdict(name, logdir, burned=()):
   return verdict
 
 
+def _slo_report(name, logdir, verdict):
+  """The slo_report module over the run's logdir: its exit code must be
+  the verdict's (0 pass, 1 fail) and its table must name every
+  violation. Returns a line for the log."""
+  t = time.perf_counter()
+  report = _module_run('scalable_agent_tpu_torch.scripts.slo_report', logdir)
+  want = 0 if verdict['pass'] else 1
+  header = '== SLO verdict: %s ==' % ('PASS' if verdict['pass'] else 'FAIL')
+  if (report.returncode != want or header not in report.stdout
+      or not all(v in report.stdout for v in verdict['violations'])):
+    raise AssertionError(f'{name}: slo_report exited {report.returncode} '
+                         f'for a verdict pass={verdict["pass"]}:\n'
+                         f'{report.stdout}{report.stderr}')
+  return (f'slo_report exit {report.returncode} (agrees with '
+          f'pass={verdict["pass"]}) in {time.perf_counter() - t:.2f} s')
+
+
 def _verdict_line(verdict):
   return (f'SLO verdict pass={verdict["pass"]} violations '
           f'{verdict["violations"]} captures {sorted(verdict["captures"])}')
@@ -1402,6 +1531,7 @@ def _fleet_run(config):
   busy = (f'{busy_ms / profiled_steps:.2f} ms per learner step, idle share '
           f'{1 - busy_ms / (1e3 * (window[1] - window[0])):.4f}')
   verdict = _slo_verdict('fleet', config.logdir)
+  report_line = _slo_report('fleet', config.logdir, verdict)
   controller_line = _controller_logs('fleet', config.logdir)
   idle_us, idle_max_us, moved, acting_ms, acting_max_ms = (
       _controller_tick_costs(run.controller._engine))
@@ -1433,7 +1563,7 @@ def _fleet_run(config):
       f'{run.stats["prefetcher"]}; {_verdict_line(verdict)}; an SLO observe '
       f'(registry snapshot + the default objectives) p50 '
       f'{statistics.median(observe_ms):.3f} ms max {max(observe_ms):.3f} ms '
-      f'over {SLO_OBSERVE_REPS} in step {FLEET_TIMED_FROM}')
+      f'over {SLO_OBSERVE_REPS} in step {FLEET_TIMED_FROM}; {report_line}')
   return counts
 
 
@@ -1453,7 +1583,11 @@ def _reference_callers(num, config, seed=0):
   return calls
 
 
-def _serve(server, calls):
+def _serve(server, calls, gap_secs=0.0):
+  """Each call from a thread of its own; their answers in order. With
+  `gap_secs`, the main thread sleeps that long after starting each thread,
+  so the calls reach the batcher in list order (the row of a merged batch
+  that a caller takes sets which noise its sampled action draws)."""
   outs = [None] * len(calls)
 
   def call(i):
@@ -1463,6 +1597,7 @@ def _serve(server, calls):
              for i in range(len(calls))]
   for t in threads:
     t.start()
+    time.sleep(gap_secs)
   for t in threads:
     t.join()
   return outs
@@ -3635,10 +3770,16 @@ def _cache_reference_calls(config, rng, n, done_rows=()):
   return calls
 
 
+# state_cache_reference's callers start this far apart, so both servers
+# merge them in the same order: a sampled action depends on its row.
+ARRIVAL_GAP_SECS = 0.02
+
+
 def phase_state_cache_reference():
   """The same 32 fixed callers through the cache path and the carry path
-  on the card, one merged batch per step, 3 steps: action, logits,
-  baseline and new carry bit-equal (torch.equal on the host copies).
+  on the card, one merged batch per step, 3 steps, the callers reaching
+  each server in the same order: action, logits, baseline and new carry
+  bit-equal (torch.equal on the host copies).
   Step 2 has done edges; before step 3 slot 0 is released and a fresh
   slot re-acquired (zeroed), against a zero carry on the carry path."""
   n = FLEET['num_actors']
@@ -3669,9 +3810,11 @@ def phase_state_cache_reference():
         handles[0] = cache_server.initial_core_state()
         states[0] = tuple(np.zeros((1, 256), np.float32) for _ in range(2))
       want = _serve(carry_server, [(a, e, s) for (a, e), s in
-                                   zip(calls, states)])
+                                   zip(calls, states)],
+                    gap_secs=ARRIVAL_GAP_SECS)
       got = _serve(cache_server, [(a, e, h) for (a, e), h in
-                                  zip(calls, handles)])
+                                  zip(calls, handles)],
+                   gap_secs=ARRIVAL_GAP_SECS)
       for i, ((w_out, w_carry), (g_out, handle)) in enumerate(zip(want,
                                                                   got)):
         g_carry = handle.snapshot()
@@ -3735,6 +3878,178 @@ def _logits_bound(agent, params, quantized, calls):
           agent.named_parameters(), grads) if g is not None))
     bounds.append(row)
   return np.asarray(bounds)
+
+
+# batch_fn and FamilyBatcher on the card: the full-width agent's T=1
+# forward (argmax, no sampling) behind the batcher, BATCHED_CALLERS threads
+# with their own rows each, against an unbatched forward of those rows in
+# float32 without TF32. The tolerance is float32 rounding: the merged
+# batch's convolutions may take another cuDNN algorithm than one caller's.
+BATCHED_CALLERS = 24
+BATCHED_ROWS = 2
+BATCHED_ROUNDS = 4
+BATCHED_MIN = 16
+BATCHED_TIMEOUT_MS = 20
+BATCHED_RTOL = BATCHED_ATOL = 1e-5
+FAMILY_FRAMES = ((72, 96), (48, 64))
+
+
+def _t1_forward(agent, sizes=None, times=None):
+  """The agent's T=1 forward over numpy rows (prev action, reward, done,
+  frame, instruction, carry c, carry h) on the card; returns (logits,
+  baseline) as numpy. Appends each call's rows and seconds to `sizes`
+  and `times` when given."""
+  def forward(action, reward, done, frame, instr, c, h):
+    t = time.perf_counter()
+    card = lambda a: torch.from_numpy(a)[None].cuda()  # noqa: E731
+    with torch.no_grad():
+      out, _ = agent(card(action), StepOutput(
+          card(reward), None, card(done), (card(frame), card(instr))),
+                     (torch.from_numpy(c).cuda(), torch.from_numpy(h).cuda()))
+    logits = out.policy_logits[0].cpu().numpy()
+    baseline = out.baseline[0].cpu().numpy()
+    if sizes is not None:
+      sizes.append(len(action))
+      times.append(time.perf_counter() - t)
+    return logits, baseline
+  return forward
+
+
+def _caller_rows(rng, frame, rows=BATCHED_ROWS):
+  """One caller's request: `rows` rows of the forward's inputs."""
+  carry = [(rng.randn(rows, 256) * 0.3).astype(np.float32)
+           for _ in range(2)]
+  return (rng.randint(SLICE['num_actions'], size=rows).astype(np.int32),
+          rng.randn(rows).astype(np.float32), rng.rand(rows) < 0.2,
+          rng.randint(0, 256, (rows,) + tuple(frame) + (3,)).astype(
+              np.uint8),
+          np.zeros((rows, 16), np.int32), *carry)
+
+
+def _concurrent_requests(fn, requests):
+  """Each thread's requests through `fn`, one thread per list; their
+  answers, in order."""
+  answers = [None] * len(requests)
+  errors = []
+
+  def run(i):
+    try:
+      answers[i] = [fn(*rows) for rows in requests[i]]
+    except BaseException as e:  # re-raised below
+      errors.append(e)
+
+  threads = [threading.Thread(target=run, args=(i,))
+             for i in range(len(requests))]
+  for t in threads:
+    t.start()
+  for t in threads:
+    t.join()
+  if errors:
+    raise errors[0]
+  return answers
+
+
+def _held_to_unbatched(name, answers, requests, reference):
+  """Every caller's logits and baseline against the unbatched forward of
+  its rows; the largest |difference|."""
+  worst = 0.0
+  for thread_answers, thread_requests in zip(answers, requests):
+    for got, rows in zip(thread_answers, thread_requests):
+      for a, b in zip(got, reference(*rows)):
+        if a.shape != b.shape or not np.allclose(
+            a, b, rtol=BATCHED_RTOL, atol=BATCHED_ATOL):
+          raise AssertionError(f'{name}: batched {a} against unbatched {b}')
+        worst = max(worst, float(np.abs(a - b).max()))
+  return worst
+
+
+def _batch_fn_check(agent):
+  """batch_fn_with_options over the full-width agent (see above)."""
+  sizes, times = [], []
+  batched = dynamic_batching.batch_fn_with_options(
+      minimum_batch_size=BATCHED_MIN, timeout_ms=BATCHED_TIMEOUT_MS)(
+          _t1_forward(agent, sizes, times))
+  rng = np.random.RandomState(21)
+  requests = [[_caller_rows(rng, FAMILY_FRAMES[0])
+               for _ in range(BATCHED_ROUNDS)]
+              for _ in range(BATCHED_CALLERS)]
+  try:
+    answers = _concurrent_requests(batched, requests)
+  finally:
+    batched.close()
+  total = BATCHED_CALLERS * BATCHED_ROUNDS * BATCHED_ROWS
+  if sum(sizes) != total or not max(sizes) > BATCHED_ROWS:
+    raise AssertionError(f'batch_fn: merged batches {sizes} for {total} '
+                         'rows')
+  worst = _held_to_unbatched('batch_fn', answers, requests,
+                             _t1_forward(agent))
+  log(f'serving batch_fn: {BATCHED_CALLERS} threads x {BATCHED_ROUNDS} '
+      f'calls of {BATCHED_ROWS} rows through batch_fn_with_options('
+      f'minimum_batch_size={BATCHED_MIN}, timeout_ms={BATCHED_TIMEOUT_MS}) '
+      f'around the full-width T=1 forward: {len(sizes)} merged calls, mean '
+      f'merged batch {total / len(sizes):.2f} rows (max {max(sizes)}), '
+      f'{1e6 * statistics.median(times):.1f} us per merged call (median; '
+      f'host to card and back included); max |batched - unbatched| of '
+      f'logits and baseline {worst:.3e} (rtol {BATCHED_RTOL} / atol '
+      f'{BATCHED_ATOL}, float32, TF32 off)')
+
+
+def _family_batcher_check(config):
+  """FamilyBatcher over two frame shapes, each family's agent built on
+  the card by make_fn; outputs against each family's unbatched forward,
+  padding_stats against the counts the request stream implies."""
+  agents, sizes, times = {}, [], []
+
+  def make_fn(key):
+    height, width, _ = key[3][1]  # the frame tensor's trailing shape
+    agents[(height, width)] = _seeded_agent(
+        dataclasses.replace(config, height=height, width=width), 'cuda')
+    return _t1_forward(agents[(height, width)], sizes, times)
+
+  batcher = dynamic_batching.FamilyBatcher(
+      make_fn, minimum_batch_size=BATCHED_MIN // 2,
+      timeout_ms=BATCHED_TIMEOUT_MS)
+  rng = np.random.RandomState(22)
+  frames = [FAMILY_FRAMES[i % 2] for i in range(BATCHED_CALLERS)]
+  requests = [[_caller_rows(rng, frame) for _ in range(BATCHED_ROUNDS)]
+              for frame in frames]
+  try:
+    answers = _concurrent_requests(batcher, requests)
+    stats = batcher.padding_stats()
+  finally:
+    batcher.close()
+  worst = 0.0
+  for frame in FAMILY_FRAMES:
+    mine = [i for i, f in enumerate(frames) if f == frame]
+    worst = max(worst, _held_to_unbatched(
+        f'FamilyBatcher {frame}', [answers[i] for i in mine],
+        [requests[i] for i in mine], _t1_forward(agents[frame])))
+  # The stream's own accounting: rows per family times its row bytes,
+  # against every row padded to the widest family.
+  row_bytes = {f: sum(a[:1].nbytes for a in _caller_rows(rng, f, rows=1))
+               for f in FAMILY_FRAMES}
+  rows = {f: frames.count(f) * BATCHED_ROUNDS * BATCHED_ROWS
+          for f in FAMILY_FRAMES}
+  useful = float(sum(rows[f] * row_bytes[f] for f in FAMILY_FRAMES))
+  widest = float(sum(rows.values()) * max(row_bytes.values()))
+  want = dict(families=2, rows=float(sum(rows.values())),
+              useful_bytes=useful, bucketed_bytes=useful,
+              max_shape_bytes=widest,
+              waste_ratio=(widest - useful) / widest)
+  if any(stats[k] != v for k, v in want.items()) or sorted(agents) != sorted(
+      FAMILY_FRAMES):
+    raise AssertionError(f'FamilyBatcher: padding_stats {stats}, the '
+                         f'stream {want}; families built {sorted(agents)}')
+  log(f'serving FamilyBatcher: {BATCHED_CALLERS} threads over frames '
+      f'{list(FAMILY_FRAMES)} (one agent built on the card per family): '
+      f'{len(sizes)} merged calls, mean merged batch '
+      f'{sum(sizes) / len(sizes):.2f} rows, '
+      f'{1e6 * statistics.median(times):.1f} us per merged call (median); '
+      f'max |batched - unbatched| {worst:.3e} (rtol {BATCHED_RTOL} / atol '
+      f'{BATCHED_ATOL}); padding_stats equal to the stream\'s counts: rows '
+      f'{stats["rows"]:.0f}, useful {stats["useful_bytes"]:.0f} bytes '
+      f'against {stats["max_shape_bytes"]:.0f} padded to the widest family '
+      f'(waste ratio {stats["waste_ratio"]:.4f})')
 
 
 def phase_serving():
@@ -3842,6 +4157,9 @@ def phase_serving():
       f'greedy agreement {agreement:.4f} over {len(calls)} callers; '
       f'serving_aot: aot_misses {stats8["aot_misses"]}, warmed pairs '
       f'{stats8["aot_compiled"]}')
+  card_agent = _seeded_agent(config, 'cuda').eval()
+  _batch_fn_check(card_agent)
+  _family_batcher_check(config)
 
 
 # Routed serving: two in-process replicas at the fleet's widths, each an
@@ -4558,10 +4876,13 @@ def _actor_host(port, task, num_actors, logdir, plan=None, reconnect=None):
   returns (Popen, the file's path)."""
   env = dict(os.environ)
   env.pop(faults.PLAN_ENV_VAR, None)
-  head = [sys.executable, '-m', 'scalable_agent_tpu_torch.experiment']
+  # faulthandler: a host that stalls gets SIGABRT before it is killed
+  # (_finish_hosts), and writes every thread's stack into its log.
+  head = [sys.executable, '-X', 'faulthandler', '-m',
+          'scalable_agent_tpu_torch.experiment']
   if plan is not None:
     env[faults.PLAN_ENV_VAR] = plan.to_json()
-    head = [sys.executable, '-c', _CLI_WITH_PLAN]
+    head = [sys.executable, '-X', 'faulthandler', '-c', _CLI_WITH_PLAN]
   flags = dict(FLEET, num_actors=num_actors)
   if reconnect is not None:
     flags['actor_reconnect_secs'] = reconnect
@@ -4576,15 +4897,22 @@ def _actor_host(port, task, num_actors, logdir, plan=None, reconnect=None):
 
 
 def _finish_hosts(hosts, name, timeout=60):
-  """Wait for every actor host to exit 0; kill and raise otherwise.
-  Returns their logs."""
+  """Wait for every actor host to exit 0; raise otherwise. A host still
+  running after `timeout` gets SIGABRT first (faulthandler writes its
+  threads' stacks into its log), then a kill. Returns their logs."""
   logs, failed = [], []
   for proc, path in hosts:
     try:
       proc.wait(timeout=timeout)
     except subprocess.TimeoutExpired:
-      proc.kill()
-      proc.wait()
+      log(f'{name}: actor host {path} still running after {timeout} s: '
+          'SIGABRT for its stacks')
+      proc.send_signal(signal.SIGABRT)
+      try:
+        proc.wait(timeout=10)
+      except subprocess.TimeoutExpired:
+        proc.kill()
+        proc.wait()
     with open(path) as f:
       logs.append(f.read())
     if proc.returncode != 0:
@@ -4611,7 +4939,7 @@ def phase_remote_fleet():
     profiler = torch.profiler.profile(activities=[
         torch.profiler.ProfilerActivity.CPU,
         torch.profiler.ProfilerActivity.CUDA])
-    window, unrolls = [], {}
+    window, unrolls, stats_line = [], {}, []
 
     def on_step(run, step, metrics):
       unrolls[step] = (time.perf_counter(), run.ingest.stats()['unrolls'])
@@ -4623,6 +4951,9 @@ def phase_remote_fleet():
         torch.cuda.synchronize()
         window.append(time.perf_counter())
         profiler.stop()
+        # fleet_stats against the live ingest, after the timed window and
+        # before the ingest closes at the loop's end.
+        stats_line.append(_fleet_stats_against_fetch(port))
 
     hosts = [_actor_host(port, task, REMOTE_HOST_ACTORS, logdir)
              for task in range(REMOTE_HOSTS)]
@@ -4712,8 +5043,62 @@ def phase_remote_fleet():
       f'serializations, '
       f'{ingest["param_blobs"]} blobs served; peak allocated '
       f'{peak_gib:.3f} GiB; the learner\'s {_verdict_line(verdict)}; '
-      f'{controller_line}')
+      f'{controller_line}; {stats_line[0]}')
   return counts
+
+
+# Monotone counters of a live ingest's stats reply that fleet_stats and an
+# in-process fetch_stats() must agree on (before <= the tool's <= after).
+FLEET_STATS_COUNTERS = ('unrolls', 'connections', 'hosts_joined',
+                        'param_blobs')
+
+
+def _fleet_stats_against_fetch(port):
+  """The fleet_stats module (--json) against the live ingest at `port`,
+  between two in-process fetch_stats() calls: the same registry names and
+  ingest keys as the second, each monotone counter between the two, and
+  its reply's text form holding both sections. Returns a line for the
+  log."""
+  def fetch():
+    client = remote.RemoteActorClient(f'127.0.0.1:{port}',
+                                      connect_timeout_secs=10)
+    try:
+      return client.fetch_stats()
+    finally:
+      client.close()
+
+  t = time.perf_counter()
+  before = fetch()
+  tool = _module_run('scalable_agent_tpu_torch.scripts.fleet_stats',
+                     f'127.0.0.1:{port}', '--json', timeout=120)
+  after = fetch()
+  if tool.returncode != 0:
+    raise AssertionError(f'remote_fleet: fleet_stats exited '
+                         f'{tool.returncode}: {tool.stderr}')
+  got = json.loads(tool.stdout)
+  text = fleet_stats_script.render(got, name_filter='ingest')
+  problems = []
+  for part in ('registry', 'ingest'):
+    if set(got[part]) != set(after[part]):
+      problems.append(f'{part} keys differ: '
+                      f'{sorted(set(got[part]) ^ set(after[part]))}')
+  pairs = [(f'ingest {k}', before['ingest'][k], got['ingest'][k],
+            after['ingest'][k]) for k in FLEET_STATS_COUNTERS]
+  pairs.append(('registry ingest/unrolls', before['registry']['ingest/unrolls'],
+                got['registry']['ingest/unrolls'],
+                after['registry']['ingest/unrolls']))
+  problems += [f'{what}: {a} <= {b} <= {c} fails'
+               for what, a, b, c in pairs if not a <= b <= c]
+  if ('== metrics registry' not in text or '== ingest server ==' not in text
+      or 'ingest/unrolls' not in text):
+    problems.append(f'text form: {text[:400]}')
+  if problems:
+    raise AssertionError(f'remote_fleet: fleet_stats against fetch_stats: '
+                         f'{problems}')
+  return (f'fleet_stats --json agrees with fetch_stats() taken around it: {len(got["registry"])} registry '
+          f'names, ingest unrolls {before["ingest"]["unrolls"]} <= '
+          f'{got["ingest"]["unrolls"]} <= {after["ingest"]["unrolls"]}, in '
+          f'{time.perf_counter() - t:.2f} s')
 
 
 def phase_remote_faults():

@@ -7,21 +7,22 @@ runtime half of the lock discipline.
   `--lock_order_check` or the LOCK_ORDER_CHECK environment variable).
 - `analysis.concurrency`: the `guarded-by` AST pass, which flags reads
   and writes of annotated attributes outside a `with self.<lock>` block.
+- `analysis.contracts`: the contract checkers (metric names, SLO
+  objectives, controller rules, config flags, validate coverage, durable
+  markers, protocol versions, summary scalars, the checker inventory, the
+  CI's wiring, the sharding registry) over the port's modules and its
+  own docs (`scalable_agent_tpu_torch/docs/`), with their `ALLOWLISTS`.
 - this module: `Finding`, `CheckContext`, the `checker` registry and
-  `run_checks(root)`, which runs every registered checker over the
-  port's package under `root` (`python -c "from scalable_agent_tpu_torch
-  import analysis; print(analysis.run_checks('.'))"` from the repo's
-  root). The live port checks clean.
-
-The contract checkers of the JAX package (`analysis/contracts.py`: metric
-names, SLO objectives, controller rules, config flags, validate coverage,
-protocol versions, summary scalars) read its docs and are not ported yet
-(ROADMAP A7.5); until they are, the allowlists live here and are empty.
+  `run_checks(root)`, which runs every registered checker over the repo
+  at `root`. The CLI is `python -m scalable_agent_tpu_torch.scripts.lint`
+  (`--check`, `--json`, `--list`, `--fix-docs`); the live port checks
+  clean.
 
 Extending: write `def check_<x>(ctx) -> List[Finding]`, register it with
-`@checker('name', 'description')` in a module `_load` imports, and seed
-one violation in tests/test_torch_analysis.py proving it can fire.
-Import-light by design: no torch, no numpy.
+`@checker('name', 'description')` in a module `_load` imports, add its
+row to the port's STATIC_ANALYSIS.md (the `checker-inventory` check holds
+the two equal), and seed one violation in tests/test_torch_contracts.py
+proving it can fire. Import-light by design: no torch, no numpy.
 """
 
 import ast
@@ -31,17 +32,12 @@ from typing import Callable, Dict, List, Optional, Tuple
 
 __all__ = [
     'Finding', 'CheckContext', 'checker', 'all_checkers',
-    'run_checks', 'ALLOWLISTS',
+    'run_checks',
 ]
 
 # The package the checkers walk, relative to the root given to
 # run_checks.
 PACKAGE = 'scalable_agent_tpu_torch'
-
-# Per-check suppressions: {check: {symbol: reason}}. A finding whose
-# symbol is listed is dropped; an entry that suppresses nothing is a
-# finding of its own ('allowlist'). Empty: the port checks clean.
-ALLOWLISTS: Dict[str, Dict[str, str]] = {}
 
 
 @dataclasses.dataclass(frozen=True)
@@ -117,6 +113,7 @@ def _load():
   global _loaded
   if not _loaded:
     from scalable_agent_tpu_torch.analysis import concurrency  # noqa: F401
+    from scalable_agent_tpu_torch.analysis import contracts  # noqa: F401
     _loaded = True
 
 
@@ -125,12 +122,13 @@ def run_checks(root, only: Optional[List[str]] = None
   """Run the (selected) checker suite over the repo at `root`.
 
   Allowlist semantics: a finding whose (check, symbol) appears in
-  `ALLOWLISTS` is suppressed; an allowlist entry that
+  `contracts.ALLOWLISTS` is suppressed; an allowlist entry that
   suppressed NOTHING is stale and becomes a finding itself (check
   `allowlist`) — suppressions must die with the violations they
   covered.
   """
   _load()
+  from scalable_agent_tpu_torch.analysis import contracts
   ctx = CheckContext(root)
   names = {n for n, _, _ in _REGISTRY}
   if only:
@@ -141,11 +139,11 @@ def run_checks(root, only: Optional[List[str]] = None
   findings: List[Finding] = []
   used: Dict[Tuple[str, str], bool] = {
       (check, sym): False
-      for check, entries in ALLOWLISTS.items()
+      for check, entries in contracts.ALLOWLISTS.items()
       for sym in entries}
   selected = [e for e in _REGISTRY if not only or e[0] in only]
   for name, _, fn in selected:
-    allow = ALLOWLISTS.get(name, {})
+    allow = contracts.ALLOWLISTS.get(name, {})
     for f in fn(ctx):
       if f.symbol in allow:
         used[(name, f.symbol)] = True
@@ -157,7 +155,7 @@ def run_checks(root, only: Optional[List[str]] = None
   for (check, sym), hit in sorted(used.items()):
     if check in ran and not hit:
       findings.append(Finding(
-          check='allowlist', path=f'{PACKAGE}/analysis/__init__.py',
+          check='allowlist', path=f'{PACKAGE}/analysis/contracts.py',
           line=1, symbol=f'{check}:{sym}',
           message=f'stale allowlist entry {sym!r} for check '
                   f'{check!r}: it no longer suppresses any finding — '

@@ -458,6 +458,13 @@ _INFERENCE_ADMISSIONS = ('block', 'shed', 'grow')
 _STAGING_MODES = ('batch', 'unroll')
 
 
+# Config fields that are deliberately no CLI flag, each with the reason
+# on its line: the `config-flags` checker (analysis/contracts.py) holds
+# that every other field is one, and that no entry here is stale. Empty,
+# as JAX's is: every field is operator-facing.
+INTERNAL_FIELDS = ()
+
+
 def validate_fleet(config: Config) -> None:
   """The fleet runtime's knob group: the JAX package's hard checks on
   these fields (ValueError)."""

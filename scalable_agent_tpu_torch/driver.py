@@ -47,6 +47,7 @@ from scalable_agent_tpu_torch import telemetry
 from scalable_agent_tpu_torch.analysis import runtime as lock_check
 from scalable_agent_tpu_torch.config import (COMPUTE_DTYPES, Config,
                                              validate_controller,
+                                             validate_distributed,
                                              validate_fleet,
                                              validate_integrity,
                                              validate_population,
@@ -344,12 +345,16 @@ class _HealthLadder:
   there, one event per check, perturbing one replica's probe lane."""
 
   def __init__(self, config: Config, monitor, checkpointer, incidents,
-               sdc=None, tracer=None):
+               sdc=None, tracer=None, sdc_summary=False):
     self._config = config
     self.monitor = monitor
     self._checkpointer = checkpointer
     self._incidents = incidents
     self._sdc = sdc
+    # The fleet loop writes `sdc_replica_mismatches` beside the other
+    # health counters, a 0 without the sentinel, as JAX's does; the
+    # Anakin loop, as JAX's, writes none.
+    self._sdc_summary = sdc_summary
     # The fleet's tracer: its flight recorder rides the halt bundle and
     # is dumped beside a rollback's incident.
     self._tracer = tracer
@@ -463,7 +468,7 @@ class _HealthLadder:
       stats = self.monitor.stats()
       writer.scalars({k: stats[k] for k in ('skipped_steps', 'flagged_steps',
                                             'rollbacks', 'halts')}, step)
-    if self._sdc is not None and self.monitor is not None:
+    if self._sdc_summary and self.monitor is not None:
       writer.scalar('sdc_replica_mismatches', self.monitor.sdc_mismatches,
                     step)
     writer.scalars({
@@ -917,6 +922,17 @@ def train(config: Config, max_steps: Optional[int] = None, device='cuda',
   (chip_smoke.py times and profiles with it). `device` defaults to CUDA
   and raises without it. Returns the TrainRun.
   """
+  # The declared topology first, as JAX's train does, before either
+  # runtime's dispatch (ROADMAP C6). A group that is already up (the CLI
+  # joins before calling here) re-checks the cross-links against its
+  # live size.
+  dist_warnings = validate_distributed(config)
+  live_processes = distributed.world_size()
+  if live_processes > max(config.num_processes, 1):
+    dist_warnings = validate_distributed(
+        config, live_process_count=live_processes)
+  for warning in dist_warnings:
+    log.warning('%s', warning)
   # Arm before any component builds its locks (make_lock reads the
   # armed state at construction), for both runtimes. Arm only: a False
   # flag must not strip the LOCK_ORDER_CHECK environment's arming.
@@ -1243,7 +1259,7 @@ def train(config: Config, max_steps: Optional[int] = None, device='cuda',
     raise
 
   ladder = _HealthLadder(config, run.health, checkpointer, incidents, sdc,
-                         tracer=tracer)
+                         tracer=tracer, sdc_summary=True)
   episodes = observability.EpisodeStats(
       levels, writer=writer,
       benchmark=(config.level_name if config.level_name in suites.SUITES
@@ -1271,7 +1287,10 @@ def train(config: Config, max_steps: Optional[int] = None, device='cuda',
                       fn=lambda: initial_steps + steps_done),
       telemetry.gauge('driver/env_frames', fn=lambda: run.frames),
   ]
-  planes = _PlaneSplit(config.num_actors)
+  planes = _PlaneSplit(
+      config.num_actors,
+      frames_per_unroll=config.unroll_length * config.num_action_repeats,
+      local_batch_size=local_batch_size)
   ingest_summaries = (_IngestSummaries(ingest) if ingest is not None
                       else None)
   last_remote_publish = float('-inf')
@@ -1453,7 +1472,7 @@ def train(config: Config, max_steps: Optional[int] = None, device='cuda',
             action_counts_acc, fleet, buffer, server, prefetcher,
             last_quarantined, stall_timeout_secs)
         planes.write(writer, step_now, buffer, prefetcher, fleet,
-                     stall_timeout_secs, ingest)
+                     stall_timeout_secs, ingest, steps_done=steps_done)
         if ingest_summaries is not None:
           ingest_summaries.write(writer, incidents, step_now, run.health)
         _write_telemetry_summaries(writer, tracer, step_now)
@@ -1485,7 +1504,7 @@ def train(config: Config, max_steps: Optional[int] = None, device='cuda',
                        server, prefetcher, last_quarantined,
                        stall_timeout_secs)
       planes.write(writer, initial_steps + steps_done, buffer, prefetcher,
-                   fleet, stall_timeout_secs, ingest)
+                   fleet, stall_timeout_secs, ingest, steps_done=steps_done)
       if ingest_summaries is not None:
         ingest_summaries.write(writer, incidents,
                                initial_steps + steps_done, run.health)
@@ -2350,8 +2369,10 @@ def evaluate(config: Config, device='cuda',
   test scores. A dead or wedged actor is respawned; no unroll for
   `eval_drought_secs` raises the last actor error (or TimeoutError).
   `device` defaults to CUDA and raises without it."""
-  # Every knob group, as JAX's evaluate runs them: a range error fails an
-  # eval as it fails a train.
+  # The declared topology first, then every knob group, as JAX's
+  # evaluate runs them: a range error fails an eval as it fails a train.
+  for warning in validate_distributed(config):
+    log.warning('%s', warning)
   validate_fleet(config)
   for warning in (validate_replay(config) + validate_transport(config) +
                   validate_integrity(config) + validate_slo(config) +
@@ -2530,8 +2551,10 @@ def _write_summaries(writer, incidents, step, metrics, fps_meter,
       'fresh_slots_served': prefetch_stats['fresh_slots_served'],
   }, step)
   # The replay tier's occupancy, evictions and reuse, when there is one.
-  writer.scalars({k: v for k, v in buffer_stats.items()
-                  if k.startswith('replay_')}, step)
+  writer.scalars({k: buffer_stats[k] for k in (
+      'replay_occupancy', 'replay_evictions_age', 'replay_evictions_version',
+      'replay_reused_unrolls', 'replay_mean_staleness')
+                  if k in buffer_stats}, step)
   quarantined = fleet_stats['slots_quarantined']
   if quarantined > last_quarantined:
     incidents.event('actor_slots_quarantined', step=step,
@@ -2584,20 +2607,31 @@ def _teardown(fleet, prefetcher, server, buffer, writer, incidents,
 
 
 class _PlaneSplit:
-  """The summary block's utilization split, as the JAX loop computes it,
-  over each summary interval: the learner plane's share of the wall
-  time not blocked on the feed (the prefetcher's wait), and the env
-  plane's share not parked on the buffer's backpressure (the actors'
-  summed put waits over `num_actors` producers). Written as the
-  `learner_plane_utilization` and `env_plane_utilization` scalars and
-  mirrored, with the fleet's healthy fraction, in the registry's
-  `driver/*` gauges, registered at the first interval (a 0.0 before any
-  measurement would read as a dead plane)."""
+  """The summary block's utilization split and sample-reuse counters, as
+  the JAX loop computes them, over each summary interval: the learner
+  plane's share of the wall time not blocked on the feed (the
+  prefetcher's wait), and the env plane's share not parked on the
+  buffer's backpressure (the actors' summed put waits over `num_actors`
+  producers), written as the `learner_plane_utilization` and
+  `env_plane_utilization` scalars and mirrored, with the fleet's healthy
+  fraction, in the registry's `driver/*` gauges, registered at the first
+  block (a 0.0 before any measurement would read as a dead plane);
+  learner steps per fresh env frame, fresh env frames/s and the feed's
+  exposed ms per learner step over the interval, the first interval
+  running from the loop's start; and the cumulative fresh and reused
+  frames (fresh slots served; tier replays and whole-batch re-serves)
+  and the staging mode that is running."""
 
-  def __init__(self, num_actors: int):
+  def __init__(self, num_actors: int, frames_per_unroll: int,
+               local_batch_size: int):
     self._num_actors = int(num_actors)
     self._producers = max(int(num_actors), 1)
-    self._last = None  # (time, feed wait secs, put wait secs)
+    self._frames_per_unroll = int(frames_per_unroll)
+    self._local_batch_size = int(local_batch_size)
+    # (time, feed wait secs, put wait secs, steps, fresh slots, gets),
+    # seeded at the loop's start as JAX's last_reuse_snap and
+    # last_pf_snap are, so the first block writes the interval scalars.
+    self._last = (time.monotonic(), 0.0, 0.0, 0, 0, 0)
     self._gauges: Dict[str, telemetry.Gauge] = {}
 
   def _set(self, name: str, value: float):
@@ -2614,26 +2648,44 @@ class _PlaneSplit:
     gauge.set(value)
 
   def write(self, writer, step: int, buffer, prefetcher, fleet,
-            stall_timeout_secs, ingest=None):
+            stall_timeout_secs, ingest, steps_done: int):
     """One interval's split; live ingest connections count as producers
     beside the local actors."""
     producers = self._producers
     if ingest is not None:
       producers = max(self._num_actors + ingest.stats()['live'], 1)
     now = time.monotonic()
-    snap = (now, prefetcher.stats()['wait_secs'],
-            buffer.stats()['put_wait_secs'])
+    served, buffered = prefetcher.stats(), buffer.stats()
+    frames = self._frames_per_unroll
+    snap = (now, served['wait_secs'], buffered['put_wait_secs'],
+            steps_done, served['fresh_slots_served'], served['gets'])
     last, self._last = self._last, snap
-    if last is None:
-      return
     interval = now - last[0]
-    if interval <= 0:
-      return
-    learner = min(max(1.0 - (snap[1] - last[1]) / interval, 0.0), 1.0)
-    env = min(max(1.0 - (snap[2] - last[2]) /
-                  (interval * producers), 0.0), 1.0)
-    writer.scalars({'learner_plane_utilization': learner,
-                    'env_plane_utilization': env}, step)
+    fresh_frames = (snap[4] - last[4]) * frames
+    gets = snap[5] - last[5]
+    learner = env = fresh_per_sec = 0.0
+    if interval > 0:
+      learner = min(max(1.0 - (snap[1] - last[1]) / interval, 0.0), 1.0)
+      env = min(max(1.0 - (snap[2] - last[2]) /
+                    (interval * producers), 0.0), 1.0)
+      fresh_per_sec = fresh_frames / interval
+    writer.scalars({
+        # Learner updates per fresh env frame (IMPACT's headline: scales
+        # with replay_k and 1/(1 - replay_ratio)).
+        'learner_updates_per_env_frame': ((snap[3] - last[3]) / fresh_frames
+                                          if fresh_frames else 0.0),
+        'env_frames_fresh_per_sec': fresh_per_sec,
+        'learner_plane_utilization': learner,
+        'env_plane_utilization': env,
+        'frames_fresh': served['fresh_slots_served'] * frames,
+        'frames_reused': (buffered.get('replay_reused_unrolls', 0) +
+                          served['batch_reserves'] *
+                          self._local_batch_size) * frames,
+        # The feed's wait not hidden behind compute, per learner step.
+        'staging_exposed_ms_per_step': ((snap[1] - last[1]) / gets * 1e3
+                                        if gets else 0.0),
+        'staging_unroll_active': 1.0 if served['mode'] == 'unroll' else 0.0,
+    }, step)
     self._set('env', env)
     self._set('learner', learner)
     self._set('fleet', fleet.stats(healthy_horizon_secs=(

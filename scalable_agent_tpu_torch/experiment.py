@@ -99,7 +99,7 @@ from typing import List, Optional
 
 import torch
 
-from scalable_agent_tpu_torch.config import Config
+from scalable_agent_tpu_torch.config import INTERNAL_FIELDS, Config
 from scalable_agent_tpu_torch.parallel import distributed
 from scalable_agent_tpu_torch.runtime import py_process
 
@@ -126,6 +126,8 @@ def _parser() -> argparse.ArgumentParser:
   defaults = Config()
   hints = typing.get_type_hints(Config)
   for field in dataclasses.fields(Config):
+    if field.name in INTERNAL_FIELDS:
+      continue
     hint = hints[field.name]
     default = getattr(defaults, field.name)
     optional = typing.get_origin(hint) is typing.Union

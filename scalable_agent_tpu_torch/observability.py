@@ -63,8 +63,22 @@ class SummaryWriter(_JsonlAppender):
 
 class EventLog(_JsonlAppender):
   """JSONL of structured incident events ({wall_time, kind, step, ...}),
-  written when something happens, not on a cadence. Each event is
-  fsync'd, so the record survives the crash it may precede."""
+  written when something happens, not on a cadence. Every line reaches
+  the operating system as it is written (the file is line-buffered, so
+  a killed process loses none); a kind that contains one of
+  `_DURABLE_MARKERS` is also fsync'd, so its record survives the machine
+  crash it may narrate."""
+
+  # JAX's tuple. Each marker covers the kinds a postmortem starts from:
+  # halts, rollbacks, SDC mismatches, quarantines, SLO violations and
+  # captures, controller moves, lock-order inversions, hosts joining and
+  # leaving, reshards and PBT exploits (the provenance of a member's
+  # weights). The durable-markers checker (analysis/contracts.py) holds
+  # it against the kinds the port emits and against the
+  # "Durable incident markers" section of the port's OBSERVABILITY.md.
+  _DURABLE_MARKERS = ('halt', 'rollback', 'sdc', 'quarantin', 'slo',
+                      'controller', 'lock_order', 'host_', 'reshard',
+                      'pbt')
 
   def __init__(self, logdir: str, filename: str = 'incidents.jsonl'):
     super().__init__(logdir, filename)
@@ -74,7 +88,8 @@ class EventLog(_JsonlAppender):
     if step is not None:
       record['step'] = int(step)
     record.update(fields)
-    self.write(record, durable=True, default=str)
+    durable = any(m in kind for m in self._DURABLE_MARKERS)
+    self.write(record, durable=durable, default=str)
 
 
 class FpsMeter:

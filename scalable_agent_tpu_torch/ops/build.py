@@ -15,7 +15,10 @@ ptxas's report of each kernel's registers, shared memory and spills
 
 Host C++ libraries (`ops/batcher/batcher.cc`, the dynamic batcher) are
 built the same way by g++ (`load_host`): no CUDA, so they build on any
-machine with a C++ compiler, and a failed build raises.
+machine with a C++ compiler, and a failed build raises. Host test
+executables (`ops/batcher/batcher_test.cc`, the batcher's native stress
+test) are built by g++ plain and under ThreadSanitizer
+(`build_host_tests`) and run by `run_host_test`.
 """
 
 import ctypes
@@ -38,6 +41,16 @@ NVCC_FLAGS = ('-gencode', 'arch=compute_90a,code=sm_90a', '-std=c++17',
 HOST_SOURCES = {'batcher': os.path.join(_PACKAGE_DIR, 'ops', 'batcher',
                                          'batcher.cc')}
 GXX_FLAGS = ('-std=c++17', '-O2', '-fPIC', '-shared', '-pthread')
+
+# Native test executables: the sources each links, and the g++ flags of
+# each variant (those of the JAX package's batcher Makefile).
+HOST_TESTS = {'batcher_test': (
+    os.path.join(_PACKAGE_DIR, 'ops', 'batcher', 'batcher_test.cc'),
+    HOST_SOURCES['batcher'])}
+HOST_TEST_FLAGS = {
+    'plain': ('-std=c++17', '-O2', '-Wall', '-Wextra', '-pthread'),
+    'tsan': ('-std=c++17', '-O1', '-g', '-fsanitize=thread'),
+}
 
 
 class KernelBuildError(RuntimeError):
@@ -170,6 +183,73 @@ def ptxas_report(name: str) -> Dict[str, Dict[str, int]]:
   return report
 
 
+def _gxx() -> str:
+  gxx = shutil.which('g++') or shutil.which('c++')
+  if gxx is None:
+    raise KernelBuildError('g++ not found on PATH: the host sources need '
+                           'a C++ compiler')
+  return gxx
+
+
+def host_test_path(name: str, variant: str = 'plain') -> str:
+  """Where the `variant` build of the test executable `name` goes, named
+  by a digest of its sources and flags."""
+  digest = hashlib.sha256(' '.join(HOST_TEST_FLAGS[variant]).encode())
+  for source in HOST_TESTS[name]:
+    with open(source, 'rb') as f:
+      digest.update(f.read())
+  return os.path.join(BUILD_DIR,
+                      f'{name}-{variant}-{digest.hexdigest()[:16]}')
+
+
+def build_host_tests(name: str, variants: Iterable[str] = ('plain',)
+                     ) -> List[str]:
+  """Build each variant of the test executable `name` with g++, one
+  process per variant, all at once; returns their paths. A failed build
+  raises KernelBuildError with g++'s output."""
+  variants = list(variants)
+  gxx = _gxx()
+  os.makedirs(BUILD_DIR, exist_ok=True)
+  builds = []
+  for variant in variants:
+    target = host_test_path(name, variant)
+    if os.path.exists(target):
+      continue
+    fd, tmp = tempfile.mkstemp(prefix=f'{name}-{variant}-', suffix='.tmp',
+                               dir=BUILD_DIR)
+    os.close(fd)
+    cmd = [gxx, *HOST_TEST_FLAGS[variant], *HOST_TESTS[name], '-o', tmp]
+    builds.append((subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                    stderr=subprocess.STDOUT, text=True),
+                   tmp, target, cmd))
+  errors = []
+  for proc, tmp, target, cmd in builds:
+    output, _ = proc.communicate()
+    if proc.returncode != 0:
+      os.unlink(tmp)
+      errors.append(f'{" ".join(cmd)} failed ({proc.returncode}):\n'
+                    f'{output}')
+    else:
+      os.replace(tmp, target)
+  if errors:
+    raise KernelBuildError('\n'.join(errors))
+  return [host_test_path(name, v) for v in variants]
+
+
+def run_host_test(name: str, variant: str = 'plain',
+                  timeout_secs: float = 120.0
+                  ) -> subprocess.CompletedProcess:
+  """Build (if needed) and run one variant of the test executable
+  `name`; a TSAN build halts on its first report. Returns the finished
+  process (the caller judges its exit code)."""
+  exe, = build_host_tests(name, [variant])
+  env = dict(os.environ)
+  if variant == 'tsan':
+    env['TSAN_OPTIONS'] = 'halt_on_error=1'
+  return subprocess.run([exe], env=env, capture_output=True, text=True,
+                        timeout=timeout_secs)
+
+
 _loaded: Dict[str, ctypes.CDLL] = {}
 _load_lock = threading.Lock()
 
@@ -180,12 +260,8 @@ def load_host(name: str) -> ctypes.CDLL:
   with _load_lock:
     lib = _loaded.get('host:' + name)
     if lib is None:
-      gxx = shutil.which('g++') or shutil.which('c++')
-      if gxx is None:
-        raise KernelBuildError('g++ not found on PATH: the host library '
-                               f'{name!r} needs a C++ compiler')
       _finish_build(_start(name, host_library_path(name),
-                           [gxx, *GXX_FLAGS, HOST_SOURCES[name]]))
+                           [_gxx(), *GXX_FLAGS, HOST_SOURCES[name]]))
       lib = ctypes.CDLL(host_library_path(name))
       _loaded['host:' + name] = lib
     return lib

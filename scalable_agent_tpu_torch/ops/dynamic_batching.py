@@ -1,5 +1,7 @@
 """Dynamic batching of concurrent inference calls, ported from the JAX
-package's ops/dynamic_batching.py (the low-level `Batcher`).
+package's ops/dynamic_batching.py: the low-level `Batcher`, the
+reference IMPALA's decorators `batch_fn` and `batch_fn_with_options`,
+and `FamilyBatcher`, which gives each obs-spec family its own batcher.
 
 The native piece is the port's own copy of the host C++ batcher
 (`ops/batcher/batcher.cc`), built by g++ at first use into `_build/`
@@ -9,7 +11,8 @@ there is no Python batcher to fall back to.
 Threading model (the reference's): N caller threads block in `compute`;
 one computation thread loops `get_batch_into` -> the batched function ->
 `set_outputs` (or `set_error`). Tensors cross as opaque byte rows; dtype
-and trailing shape are fixed by the first call.
+and trailing shape are fixed by the first call. As in the reference,
+actions within one unroll may be computed by different weight versions.
 """
 
 import ctypes
@@ -218,6 +221,22 @@ class Batcher:
       self.set_error(batch_id.value, f'{type(e).__name__}: {e}')
       raise
 
+  def get_batch(self):
+    """Block for the next merged batch -> (batch_id, [arrays]), or None
+    when the batcher is closed and drained."""
+
+    def alloc(total_rows):
+      with self._meta_lock:
+        in_meta = list(self._in_meta)
+      return [np.empty((total_rows,) + tuple(trail), dtype)
+              for dtype, trail in in_meta]
+
+    item = self.get_batch_into(alloc)
+    if item is None:
+      return None
+    batch_id, _, arrays = item
+    return batch_id, arrays
+
   def set_outputs(self, batch_id: int, arrays: Sequence[np.ndarray]):
     """Answer a batch: output row i goes to the caller of input row i."""
     arrays = _as_contiguous(arrays)
@@ -254,3 +273,162 @@ class Batcher:
         self._h = None
     except Exception:
       pass
+
+
+class _BatchedFunction:
+  """A callable that merges concurrent calls to `f` through a Batcher
+  and one computation thread (`batcher-<name>`), both started at the
+  first call."""
+
+  def __init__(self, f, minimum_batch_size, maximum_batch_size,
+               timeout_ms):
+    self._f = f
+    self._opts = (minimum_batch_size, maximum_batch_size, timeout_ms)
+    self._batcher: Optional[Batcher] = None
+    self._thread: Optional[threading.Thread] = None
+    self._start_lock = make_lock(
+        'dynamic_batching._BatchedFunction._start_lock')
+    self.__name__ = getattr(f, '__name__', 'batched_fn')
+
+  def _loop(self):
+    while True:
+      item = self._batcher.get_batch()
+      if item is None:
+        return
+      batch_id, arrays = item
+      try:
+        outs = self._f(*arrays)
+        if isinstance(outs, np.ndarray):
+          outs = (outs,)
+        self._batcher.set_outputs(batch_id, [np.asarray(o) for o in outs])
+      except Exception as e:  # the batch's callers get the error
+        self._batcher.set_error(batch_id, f'{type(e).__name__}: {e}')
+
+  def _ensure_started(self, num_tensors):
+    with self._start_lock:
+      if self._batcher is None:
+        mn, mx, to = self._opts
+        self._batcher = Batcher(num_tensors, mn, mx, to)
+        self._thread = threading.Thread(
+            target=self._loop, name=f'batcher-{self.__name__}',
+            daemon=True)
+        self._thread.start()
+
+  def __call__(self, *arrays):
+    self._ensure_started(len(arrays))
+    outs = self._batcher.compute([np.asarray(a) for a in arrays])
+    return outs[0] if len(outs) == 1 else tuple(outs)
+
+  def close(self):
+    """Cancel the waiting callers and stop the computation thread; a
+    later call raises BatcherCancelled."""
+    with self._start_lock:
+      if self._batcher is not None:
+        self._batcher.close()
+        self._thread.join(timeout=5)
+
+
+def batch_fn_with_options(minimum_batch_size: int = 1,
+                          maximum_batch_size: int = 1024,
+                          timeout_ms: int = 100):
+  """Decorator: merge concurrent calls to `f` (numpy arrays in, arrays
+  out, leading dim the batch) into batched calls of at least
+  `minimum_batch_size` rows, or fewer after `timeout_ms`, and at most
+  `maximum_batch_size` (the reference's batch_fn_with_options)."""
+
+  def decorator(f):
+    return _BatchedFunction(f, minimum_batch_size, maximum_batch_size,
+                            timeout_ms)
+
+  return decorator
+
+
+def batch_fn(f):
+  """`batch_fn_with_options` with its defaults (the reference's
+  batch_fn)."""
+  return _BatchedFunction(f, 1, 1024, 100)
+
+
+def family_key(arrays: Sequence[np.ndarray]):
+  """The obs-spec family of a request: dtype and trailing shape per
+  tensor (merging is free to vary the leading batch dim). Hashable: the
+  FamilyBatcher's routing key."""
+  return tuple((np.asarray(a).dtype.str, np.asarray(a).shape[1:])
+               for a in arrays)
+
+
+class FamilyBatcher:
+  """One logical batched function whose callers may carry different
+  tensor specs (e.g. a mixed fleet's 16x16 and 24x32 frames): each
+  family gets its own Batcher and computation thread at first sight, so
+  merges never cross families and no frame is padded beyond its family's
+  shape. The cost is one thread per family and no merging across
+  families.
+
+  `make_fn(key)` builds a family's handler (once, with the `family_key`
+  of its first request). `padding_stats()` sets the bytes served per
+  family against what the same request stream costs padded to the widest
+  family seen (`population.padding_report`)."""
+
+  _families: guarded_by('_lock')
+  _rows: guarded_by('_lock')
+
+  def __init__(self, make_fn, minimum_batch_size: int = 1,
+               maximum_batch_size: int = 1024, timeout_ms: int = 100):
+    self._make_fn = make_fn
+    self._opts = (minimum_batch_size, maximum_batch_size, timeout_ms)
+    self._lock = make_lock('dynamic_batching.FamilyBatcher._lock')
+    self._families = {}  # family key -> _BatchedFunction
+    self._rows = {}      # family key -> rows served
+    self._closed = False
+
+  def _family(self, key):
+    with self._lock:
+      if self._closed:
+        raise BatcherCancelled('family batcher is closed')
+      fn = self._families.get(key)
+      if fn is None:
+        mn, mx, to = self._opts
+        fn = _BatchedFunction(self._make_fn(key), mn, mx, to)
+        fn.__name__ = f'family{len(self._families)}'
+        self._families[key] = fn
+        self._rows[key] = 0
+      return fn
+
+  def __call__(self, *arrays):
+    arrays = [np.asarray(a) for a in arrays]
+    key = family_key(arrays)
+    out = self._family(key)(*arrays)
+    with self._lock:
+      self._rows[key] += arrays[0].shape[0]
+    return out
+
+  @staticmethod
+  def _row_bytes(key) -> int:
+    return sum(_row_bytes(trail, np.dtype(dtype_str).itemsize)
+               for dtype_str, trail in key)
+
+  def padding_stats(self):
+    """Bytes accounting over everything served so far: the keys of
+    `population.padding_report` (bucketed equals useful: family merges
+    pad nothing; max_shape_bytes is the same stream padded to the widest
+    family), plus `families` and `rows`."""
+    from scalable_agent_tpu_torch import population
+    with self._lock:
+      counts = {(self._row_bytes(key),): rows
+                for key, rows in self._rows.items() if rows}
+      families = len(self._families)
+      total_rows = float(sum(self._rows.values()))
+    report = population.padding_report(counts)
+    report['families'] = families
+    report['rows'] = total_rows
+    return report
+
+  def close(self):
+    """Close every family's batcher; a later call raises
+    BatcherCancelled."""
+    with self._lock:
+      self._closed = True
+      families = list(self._families.values())
+    for fn in families:
+      fn.close()

@@ -301,6 +301,67 @@ class InferenceServer:
       level steps at once, so one bucket serves every merged call).
   """
 
+  # Lock discipline (the guarded-by checker, analysis/concurrency.py).
+  # JAX's class holds its version table under _params_lock, its counters
+  # under _stats_lock and its warm-up state under _aot_lock; here `_lock`
+  # (named 'inference._params_lock') holds all three roles. Where locks nest:
+  # _slot_lock -> _arena_lock and _slot_lock -> _lock (admission), _lock
+  # is taken alone otherwise. JAX's four other annotations have no
+  # counterpart: `_aot` (its AOT executable table; serving_aot here runs
+  # warm forwards, `_warmed`), `_remote_calls` and `_key` (counters of
+  # its PRNG keys; the port draws from torch.Generators) and
+  # `_devices_last_call` (its mesh's device count per call).
+  _versions: guarded_by('_lock')
+  _live_key: guarded_by('_lock')
+  _serve_tick: guarded_by('_lock')
+  _anon_seq: guarded_by('_lock')
+  _ab_fraction: guarded_by('_lock')
+  _ab_key: guarded_by('_lock')
+  _ab_acc: guarded_by('_lock')
+  _shadow_fraction: guarded_by('_lock')
+  _shadow_key: guarded_by('_lock')
+  _shadow_acc: guarded_by('_lock')
+  _warm_meta: guarded_by('_lock')
+  _warm_buckets: guarded_by('_lock')
+  _arena: guarded_by('_arena_lock')
+  _free: guarded_by('_slot_lock')
+  _waiters: guarded_by('_slot_lock')
+  _waiter_seq: guarded_by('_slot_lock')
+  _closed: guarded_by('_slot_lock')
+  _admission: guarded_by('_slot_lock')
+  # The grow path swaps the arena (and its size) holding both
+  # _slot_lock and _arena_lock, so readers under either are safe.
+  _num_slots: guarded_by('_slot_lock', '_arena_lock')
+  _calls: guarded_by('_lock')
+  _merged_requests: guarded_by('_lock')
+  _params_version: guarded_by('_lock')
+  _publishes_skipped: guarded_by('_lock')
+  _inflight: guarded_by('_lock')
+  _inflight_peak: guarded_by('_lock')
+  _acquires: guarded_by('_lock')
+  _admission_waits: guarded_by('_lock')
+  _sheds: guarded_by('_lock')
+  _admission_timeouts: guarded_by('_lock')
+  _arena_grows: guarded_by('_lock')
+  _unjoined_threads: guarded_by('_lock')
+  _latencies: guarded_by('_lock')
+  _chain_recoveries: guarded_by('_lock')
+  _version_flips: guarded_by('_lock')
+  _evictions: guarded_by('_lock')
+  _ab_calls: guarded_by('_lock')
+  _shadow_calls: guarded_by('_lock')
+  _shadow_divergence: guarded_by('_lock')
+  _aot_misses: guarded_by('_lock')
+  # The port's own shared state: the transfer counters, the snapshot
+  # pool, the warmed (bucket, structure) pairs and the admission-wait
+  # reservoir.
+  _h2d_bytes: guarded_by('_lock')
+  _d2h_bytes: guarded_by('_lock')
+  _snapshots: guarded_by('_lock')
+  _retired: guarded_by('_lock')
+  _warmed: guarded_by('_lock')
+  _admission_wait_reservoir: guarded_by('_lock')
+
   def __init__(self, agent, params, config, seed=0, fleet_size=None,
                device=None, pad_batch_to=None):
     validate_fleet(config)
@@ -535,7 +596,8 @@ class InferenceServer:
               f'({self._num_slots} slots, {len(self._waiters)} other '
               'waiter(s)); raise --inference_state_slots, or pick '
               '--inference_admission=grow')
-    self._admission_wait_reservoir.record(time.monotonic() - t0)
+    with self._lock:
+      self._admission_wait_reservoir.record(time.monotonic() - t0)
     return slot
 
   def _grow_arena_locked(self):
@@ -614,7 +676,8 @@ class InferenceServer:
               torch.empty(p.shape, dtype=torch.int8, device=self._device),
               torch.empty((), dtype=torch.float32, device=self._device))
           for name, p in self._template.named_parameters()})
-    self._snapshots.append(snapshot)
+    with self._lock:
+      self._snapshots.append(snapshot)
     return snapshot
 
   def _reusable_snapshot(self, kind):
@@ -992,38 +1055,46 @@ class InferenceServer:
       return self._forward(snapshot, inputs, staging, shadow, generator)
 
   def _forward(self, snapshot, inputs, staging, shadow, generator):
-    outputs = []
-    cache = self._state_cache
-    with self._arena_lock if cache else contextlib.nullcontext():
-      if cache:
+    if self._state_cache:
+      # The gather, the step and the scatter in one hold of the arena
+      # lock: a grow in between would copy the carries before the step's.
+      with self._arena_lock:
         slot_ids, inputs = inputs[0], inputs[1:]
-        arena = self._arena
         rows = slot_ids.long()
         # Padded rows (and any id past the arena) take the extra row.
         rows = torch.where(rows < self._num_slots, rows, self._num_slots)
-        core = tuple(a.index_select(0, rows) for a in arena)
-      else:
-        inputs, core = inputs[:5], tuple(inputs[5:])
-      if shadow is not None:
-        # Before the live step: both read the same carries.
-        outputs.append(self._apply(shadow, inputs, core, None)[1])
-      state = generator.get_state()
-      try:
-        results = self._apply(snapshot, inputs, core, generator)
-        # The cache path's staging has no carry outputs: zip stops at
-        # (action, logits, baseline).
-        self._copy_out(staging, results, outputs)
-      except BaseException:
-        self._recover_chain(generator, state)
-        raise
-      if cache:
-        for a, new in zip(arena, results[3:]):
+        core = tuple(a.index_select(0, rows) for a in self._arena)
+        results = self._step(snapshot, inputs, core, staging, shadow,
+                             generator)
+        for a, new in zip(self._arena, results[3:]):
           a.index_copy_(0, rows, new)
+    else:
+      inputs, core = inputs[:5], tuple(inputs[5:])
+      self._step(snapshot, inputs, core, staging, shadow, generator)
     if not self._cuda:
       return None
     event = torch.cuda.Event()
     event.record(self._stream)
     return event
+
+  def _step(self, snapshot, inputs, core, staging, shadow, generator):
+    """The shadow's and the live version's forwards on the gathered
+    carries, their outputs copied to the staging buffers; returns the
+    live results."""
+    outputs = []
+    if shadow is not None:
+      # Before the live step: both read the same carries.
+      outputs.append(self._apply(shadow, inputs, core, None)[1])
+    state = generator.get_state()
+    try:
+      results = self._apply(snapshot, inputs, core, generator)
+      # The cache path's staging has no carry outputs: zip stops at
+      # (action, logits, baseline).
+      self._copy_out(staging, results, outputs)
+    except BaseException:
+      self._recover_chain(generator, state)
+      raise
+    return results
 
   def _copy_out(self, staging, results, shadow_out):
     for pinned, result in zip(staging.out_tensors, results):
@@ -1043,10 +1114,13 @@ class InferenceServer:
   def _note_serve(self, snapshot, padded):
     """Count a serve of a (bucket, structure) pair no warm forward
     covered (serving_aot)."""
-    if self._serving_aot and (padded, snapshot.kind) not in (
-        self._warmed):
-      with self._lock:
+    if not self._serving_aot:
+      return
+    with self._lock:
+      missed = (padded, snapshot.kind) not in self._warmed
+      if missed:
         self._aot_misses += 1
+    if missed:
       _AOT_MISSES.inc()
 
   def _dispatch_loop(self):
@@ -1142,7 +1216,9 @@ class InferenceServer:
     """One forward of zero inputs in bucket `padded` on `snapshot`
     (padded slot ids: no live slot is touched), waited for."""
     out_meta = self._out_meta()
-    staging = _Staging(padded, self._in_meta(self._warm_meta), out_meta,
+    with self._lock:
+      warm_meta = self._warm_meta
+    staging = _Staging(padded, self._in_meta(warm_meta), out_meta,
                        self._num_actions, self._cuda)
     if self._state_cache:
       staging.inputs[0][:] = _PAD_SLOT_ID
@@ -1155,16 +1231,19 @@ class InferenceServer:
         event.synchronize()
     finally:
       self._release((snapshot,), event)
-    self._warmed.add((padded, snapshot.kind))
+    with self._lock:
+      self._warmed.add((padded, snapshot.kind))
 
   def _warm_structure(self, snapshot):
     """serving_aot at publish: a warm forward per warmed bucket not yet
     run under `snapshot`'s structure, on a scratch generator (the live
     one is the dispatch thread's)."""
-    for padded in sorted(self._warm_buckets):
-      if (padded, snapshot.kind) not in self._warmed:
-        self._warm_bucket(padded, snapshot,
-                          torch.Generator(self._device).manual_seed(0))
+    with self._lock:
+      cold = [padded for padded in sorted(self._warm_buckets)
+              if (padded, snapshot.kind) not in self._warmed]
+    for padded in cold:
+      self._warm_bucket(padded, snapshot,
+                        torch.Generator(self._device).manual_seed(0))
 
   def warmup(self, obs_spec, sizes=None, max_size=None):
     """Run each padded bucket once before the fleet starts (the first
@@ -1172,7 +1251,8 @@ class InferenceServer:
     those of the unpadded `sizes`, else every bucket up to `max_size`
     (None: inference_max_batch). `obs_spec` is {'frame': (H, W, C),
     'instr_len': L}."""
-    self._warm_meta = obs_spec
+    with self._lock:
+      self._warm_meta = obs_spec
     if sizes is None:
       cap = self._max_batch if max_size is None else min(
           _next_power_of_two(max_size), self._max_batch)
@@ -1183,7 +1263,8 @@ class InferenceServer:
     with self._lock:
       snapshot = self._versions[self._live_key].snapshot
     for padded in sorted({self._padded_size(s) for s in sizes}):
-      self._warm_buckets.add(padded)
+      with self._lock:
+        self._warm_buckets.add(padded)
       self._warm_bucket(padded, snapshot)
 
   def stats(self):

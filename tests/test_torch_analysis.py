@@ -18,6 +18,7 @@ import pytest
 from scalable_agent_tpu import analysis as jax_analysis
 from scalable_agent_tpu_torch import analysis
 from scalable_agent_tpu_torch.analysis import concurrency
+from scalable_agent_tpu_torch.analysis import contracts
 
 REPO_ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -164,7 +165,9 @@ def test_seeded_fixtures_fire_as_in_jax(tmp_path, fixture):
 def test_the_live_port_checks_clean():
   findings = analysis.run_checks(REPO_ROOT)
   assert findings == [], '\n'.join(f.render() for f in findings)
-  assert [name for name, _, _ in analysis.all_checkers()] == ['guarded-by']
+  # The contract checkers landed beside guarded-by: JAX's whole suite.
+  assert ({name for name, _, _ in analysis.all_checkers()} ==
+          {name for name, _, _ in jax_analysis.all_checkers()})
 
 
 def test_the_checker_walks_every_annotated_class_of_the_port():
@@ -198,16 +201,16 @@ def test_unknown_checker_name_raises():
 def test_a_stale_allowlist_entry_is_a_finding(tmp_path, monkeypatch):
   root = _mini_repo(tmp_path, 'scalable_agent_tpu_torch',
                     {'widget.py': _WIDGET})
-  monkeypatch.setitem(analysis.ALLOWLISTS, 'guarded-by', {
+  monkeypatch.setitem(contracts.ALLOWLISTS, 'guarded-by', {
       'Widget.bad_read._items': 'seeded',
       'Widget.gone._items': 'covers nothing'})
-  findings = analysis.run_checks(root)
+  findings = analysis.run_checks(root, only=['guarded-by'])
   symbols = sorted(f.symbol for f in findings)
   assert symbols == ['Widget._mixed_locked._meta',
                      'Widget.bad_wrong_lock._items',
                      'guarded-by:Widget.gone._items']
   stale = [f for f in findings if f.check == 'allowlist']
-  assert stale[0].path == 'scalable_agent_tpu_torch/analysis/__init__.py'
+  assert stale[0].path == 'scalable_agent_tpu_torch/analysis/contracts.py'
 
 
 def test_the_framework_s_types_are_jax_s():

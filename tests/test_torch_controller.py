@@ -10,8 +10,9 @@ action rows, the knobs' writes, the incident and health-ledger records,
 the counts and CONTROLLER_LOG.json equal (its top-level wall time
 aside); `validate_controller` on a seeded grid of configs; the SLO
 engine's `control_snapshot`/`burning`/`states` on the same scripted
-registry snapshots; and `evaluate`'s validation of the knobs JAX's
-refuses (fault C5). The driver test runs the port's fleet on the CPU
+registry snapshots; `evaluate`'s validation of the knobs JAX's
+refuses (fault C5); and `train`'s and `evaluate`'s validation of the
+declared topology (fault C6). The driver test runs the port's fleet on the CPU
 with an acting controller under an always-burning objective.
 """
 
@@ -623,6 +624,36 @@ def test_evaluate_refuses_what_jax_s_evaluate_refuses(tmp_path, knob):
   with pytest.raises(ValueError) as got:
     driver.evaluate(Config(**base, **knob), device='cpu')
   assert str(got.value) == str(want.value)
+
+
+# --------------------------------------------------------------------
+# Fault C6: train and evaluate validate the declared topology first, as
+# JAX's do.
+# --------------------------------------------------------------------
+
+
+_C6_KNOBS = [dict(num_processes=0), dict(tp_compute='bogus'),
+             dict(coordinator_address='nohostport'),
+             dict(sharding_rules='bogus')]
+
+
+@pytest.mark.parametrize('entry', ['train', 'evaluate'])
+@pytest.mark.parametrize('knob', _C6_KNOBS,
+                         ids=[next(iter(k)) for k in _C6_KNOBS])
+def test_train_and_evaluate_refuse_the_topology_jax_s_refuse(
+    tmp_path, entry, knob):
+  # ROADMAP C6's probe: a small bandit fleet plus one bad knob.
+  from scalable_agent_tpu import driver as jax_driver
+  base = dict(env_backend='bandit', height=24, width=32, torso='shallow',
+              num_actors=2, batch_size=2, unroll_length=5,
+              use_py_process=False, logdir=str(tmp_path))
+  kwargs = {'max_steps': 0} if entry == 'train' else {}
+  with pytest.raises(ValueError) as want:
+    getattr(jax_driver, entry)(JaxConfig(**base, **knob), **kwargs)
+  with pytest.raises(ValueError) as got:
+    getattr(driver, entry)(Config(**base, **knob), device='cpu', **kwargs)
+  assert str(got.value) == str(want.value)
+  assert not list(tmp_path.iterdir())  # refused before writing anything
 
 
 # --------------------------------------------------------------------
