@@ -363,6 +363,19 @@ Phases, each of which raises (exit code != 0) when it fails:
              against the CPU's forward (rtol 1e-4 / atol 1e-5); the
              routed-latency objective and serving_latency_p99_ms judged
              by the port's SloEvaluator, never burning.
+48. chaos_fault — the port's fault storm (`python -m
+             scalable_agent_tpu_torch.scripts.chaos --device=cuda` with
+             CHAOS_SMOKE=1 CHAOS_STORM=fault, seed 1) as a process on the
+             card, its actor-host child on the card too: env hang and
+             raise, socket garbage, a NaN burst and an interrupted save
+             under the armed lock-order checker. Exit 0, `chaos_ok` true,
+             no crash, health rollbacks >= 1, ingest quarantined >= 1,
+             zero lock-order cycles, and an SLO verdict whose violations
+             include ingest_quarantine_zero and rollbacks_zero (JAX's
+             storm's asserts); it prints the storm's figures and the full
+             set of violations. Its learner is a subprocess: its launches
+             are not counted (the drills' configs leave use_pallas_vtrace
+             off, as JAX's do).
 
 The SLO engine (slo.py) runs at its default, on, in every fleet, Anakin
 and population run here; the phases' own profiler windows refuse to start
@@ -383,7 +396,7 @@ Every CLI phase checks that its process logged `float32 precision: tf32 off
 Phases whose work is in subprocesses and whose checks are of correctness
 run at once, to keep the script inside its time limit: cli, cli_bf16 and
 cli_dp; and, last, drain_fleet, cli_fleet_dp, cli_full_feature,
-remote_faults and eval_cli.
+remote_faults, eval_cli and chaos_fault.
 
 The forkserver that env processes fork from is started before the first
 CUDA call. Every kernel's launch count is set to 0 just before each path
@@ -5214,6 +5227,59 @@ def phase_remote_faults():
       f'learner\'s {_verdict_line(verdict)}, {controller_line}')
 
 
+CHAOS_TIMEOUT_SECS = 300
+# What JAX's fault storm asserts its verdict violates (scripts/chaos.py).
+CHAOS_VIOLATIONS = ('ingest_quarantine_zero', 'rollbacks_zero')
+
+
+def phase_chaos_fault():
+  """The port's fault storm at smoke size on the card, as a process;
+  returns its record."""
+  out_dir = tempfile.mkdtemp(prefix='chaos_fault_')
+  out_path = os.path.join(out_dir, 'CHAOS_TORCH.json')
+  env = dict(os.environ, CHAOS_SMOKE='1', CHAOS_STORM='fault',
+             CHAOS_SEED='1', CHAOS_OUT=out_path)
+  env.pop(faults.PLAN_ENV_VAR, None)
+  t0 = time.perf_counter()
+  proc = subprocess.run(
+      [sys.executable, '-m', 'scalable_agent_tpu_torch.scripts.chaos',
+       '--device=cuda'], cwd=REPO_DIR, env=env, capture_output=True,
+      text=True, timeout=CHAOS_TIMEOUT_SECS)
+  secs = time.perf_counter() - t0
+  tail = (proc.stdout[-1500:] + '\n' + proc.stderr[-3000:])
+  lines = proc.stdout.strip().splitlines()
+  summary = json.loads(lines[-1]) if lines else {}
+  if proc.returncode != 0 or not summary.get('chaos_ok'):
+    raise AssertionError(f'chaos_fault: the storm exited {proc.returncode}'
+                         f' (chaos_ok {summary.get("chaos_ok")}): {tail}')
+  with open(out_path) as f:
+    result = json.load(f)
+  violations = set((result.get('slo_verdict') or {}).get('violations')
+                   or [])
+  checks = {
+      'device cuda': result.get('device', '').startswith('cuda'),
+      'no crash': result.get('crash') is None,
+      'rollbacks >= 1': result['health']['rollbacks'] >= 1,
+      'quarantined >= 1': result['ingest']['quarantined'] >= 1,
+      'lock-order cycles 0': result['lock_order']['cycles'] == 0,
+      f'violations include {CHAOS_VIOLATIONS}':
+          set(CHAOS_VIOLATIONS) <= violations,
+  }
+  failed = [name for name, ok in checks.items() if not ok]
+  if failed:
+    raise AssertionError(f'chaos_fault: {failed}: {json.dumps(result)}')
+  log(f'chaos_fault: exit 0 in {secs:.1f} s (storm wall {result["wall_secs"]}'
+      f' s), {result["device_update_steps"]} learner steps, time to '
+      f'recover {result["time_to_recover_secs"]} s, rollbacks '
+      f'{result["health"]["rollbacks"]}, skipped steps '
+      f'{result["health"]["skipped_steps"]}, ingest {result["ingest"]}, '
+      f'fleet {result["fleet"]}, save_errors '
+      f'{result["checkpoint"]["save_errors"]}, lock order '
+      f'{result["lock_order"]}, verdict pass '
+      f'{result["slo_verdict"]["pass"]} violations {sorted(violations)}')
+  return result
+
+
 def main():
   # Before any CUDA call: the fleet's env processes fork from this
   # server, which has this script's imports loaded.
@@ -5312,9 +5378,9 @@ def run_phases():
   # load. The parent's cached blocks go back to the card first.
   _free_the_card('the fleet CLIs')
   timed('drain_fleet, cli_fleet_dp, cli_full_feature, remote_faults, '
-        'eval_cli', _together, (phase_drain_fleet,), (phase_cli_fleet_dp,),
-        (phase_cli_full_feature,), (phase_remote_faults,),
-        (phase_eval_cli,))
+        'eval_cli, chaos_fault', _together, (phase_drain_fleet,),
+        (phase_cli_fleet_dp,), (phase_cli_full_feature,),
+        (phase_remote_faults,), (phase_eval_cli,), (phase_chaos_fault,))
   log('phases: ' + ', '.join(f'{n} {s:.1f} s' for n, s in phases))
   launches = {name: {path: counts[name] for path, counts in paths.items()}
               for name in COUNTERS}

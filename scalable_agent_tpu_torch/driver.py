@@ -800,9 +800,21 @@ def _final_save(checkpointer, ladder, state, grouped: bool = False):
 def train(config: Config, max_steps: Optional[int] = None, device='cuda',
           stall_timeout_secs: Optional[float] = None,
           on_step: Optional[Callable] = None,
-          drain_event: Optional[threading.Event] = None):
+          drain_event: Optional[threading.Event] = None,
+          max_seconds: Optional[float] = None,
+          fleet_factory: Optional[Callable] = None):
   """IMPALA training until total_environment_frames (or `max_steps` more
-  learner steps).
+  learner steps, or `max_seconds`: the loop leaves after the step during
+  which the wall clock, counted from the loop's start, passed it; one
+  process only, as in JAX, since ranks' clocks would leave the loop at
+  different steps).
+
+  `fleet_factory(config, policy, buffer, levels, initial_state_fn)`
+  replaces make_fleet when given (the drills' seam: a fleet that parks
+  slots or flakes on a schedule). It gets what the port's make_fleet
+  needs: the server's policy and `initial_core_state`, not JAX's
+  `(config, agent, policy, buffer, levels)`, whose agent the port's
+  fleet never reads. The fleet runtime only: Anakin and PBT refuse it.
 
   `config.pbt_population >= 2` runs `train_population` (Anakin
   members), and `config.runtime == 'anakin'` runs `train_anakin`. The
@@ -940,11 +952,23 @@ def train(config: Config, max_steps: Optional[int] = None, device='cuda',
     lock_check.arm()
   if config.pbt_population >= 2:
     # The population owns its members' Anakin runs end to end.
+    if fleet_factory is not None:
+      raise ValueError('fleet_factory is a fleet-runtime seam; PBT '
+                       'members are fused-loop anakin replicas')
     return train_population(config, max_steps=max_steps, device=device,
-                            drain_event=drain_event)
+                            drain_event=drain_event,
+                            max_seconds=max_seconds)
   if config.runtime == 'anakin':
+    if fleet_factory is not None:
+      raise ValueError('fleet_factory is a fleet-runtime seam; '
+                       '--runtime=anakin has no fleet')
     return train_anakin(config, max_steps=max_steps, device=device,
-                        drain_event=drain_event)
+                        drain_event=drain_event, max_seconds=max_seconds)
+  if max_seconds is not None and distributed.world_size() > 1:
+    # Ranks' wall clocks differ: a time-based exit would leave the loop
+    # at different steps and strand the others in a collective.
+    raise ValueError('max_seconds is single-host only; bound multi-host '
+                     'runs by max_steps/total_environment_frames')
   validate_fleet(config)
   for warning in (validate_runtime(config) + validate_integrity(config) +
                   validate_replay(config) + validate_population(config) +
@@ -1170,9 +1194,13 @@ def train(config: Config, max_steps: Optional[int] = None, device='cuda',
       # server, attached after the warmup so a routed batch of a warm size
       # pays no first-use set-up.
       ingest.attach_serving(server.serve_remote)
-    fleet = make_fleet(config, server.policy, buffer, levels,
-                       server.initial_core_state,
-                       seed_base=process_seed_base, tasks=fleet_tasks)
+    if fleet_factory is None:
+      fleet = make_fleet(config, server.policy, buffer, levels,
+                         server.initial_core_state,
+                         seed_base=process_seed_base, tasks=fleet_tasks)
+    else:
+      fleet = fleet_factory(config, server.policy, buffer, levels,
+                            server.initial_core_state)
     suffix = '' if rank == 0 else f'_p{rank}'
     if config.telemetry_trace:
       # Installed before the prefetcher's thread and the fleet start, so
@@ -1296,6 +1324,7 @@ def train(config: Config, max_steps: Optional[int] = None, device='cuda',
   last_remote_publish = float('-inf')
   exiting_clean = False
   profiles = _ProfileWindows(config, slo_engine, device)
+  loop_start = time.monotonic()
 
   def check_fleet():
     """fleet.check_health, and an `actors_respawned` incident naming the
@@ -1347,6 +1376,9 @@ def train(config: Config, max_steps: Optional[int] = None, device='cuda',
       if frames >= config.total_environment_frames:
         break
       if max_steps is not None and steps_done >= max_steps:
+        break
+      if (max_seconds is not None and
+          time.monotonic() - loop_start > max_seconds):
         break
       if filler is not None and not draining and not prefetcher.ready():
         # Nothing staged: one filler step on the live state, then probe
@@ -1644,7 +1676,8 @@ def _finish_drain(config, run, ladder, checkpointer, incidents, writer,
 
 def train_anakin(config: Config, max_steps: Optional[int] = None,
                  device='cuda', drain_event: Optional[threading.Event] = None,
-                 mesh=None, initial_state=None) -> TrainRun:
+                 mesh=None, initial_state=None,
+                 max_seconds: Optional[float] = None) -> TrainRun:
   """The Anakin runtime as a production run (`--mode=train
   --runtime=anakin`): fused act+learn steps (parallel/anakin.py) with the
   lifecycle the fleet gets — the restore of the newest restorable
@@ -1676,6 +1709,8 @@ def train_anakin(config: Config, max_steps: Optional[int] = None,
   engine runs as in `train` (on rank 0, which writes the logdir): judged
   in each summary block, a page burn's profiler capture taken in this
   loop, SLO_VERDICT.json (with runtime 'anakin') on every exit path.
+  `max_seconds` ends the loop after the step during which the wall
+  clock, counted from the loop's start, passed it (as `train`'s).
   Returns a TrainRun whose fleet, server and prefetcher are None."""
   from scalable_agent_tpu_torch.parallel import anakin as anakin_lib
   for warning in (validate_runtime(config) + validate_population(config) +
@@ -1797,6 +1832,7 @@ def train_anakin(config: Config, max_steps: Optional[int] = None,
     flag = torch.tensor([int(stop)], device=mesh.device)
     return bool(mesh.broadcast_(flag, src=0)[0])
 
+  loop_start = time.monotonic()
   try:
     while True:
       if stop_requested():
@@ -1812,6 +1848,9 @@ def train_anakin(config: Config, max_steps: Optional[int] = None,
           config.total_environment_frames):
         break
       if max_steps is not None and steps_done >= max_steps:
+        break
+      if (max_seconds is not None and
+          time.monotonic() - loop_start > max_seconds):
         break
       carry, metrics = step(carry)
       steps_done += 1
@@ -2105,8 +2144,8 @@ def _run_rounds(config: Config, members, record: _PopulationLog,
 
 def train_population(config: Config, max_steps: Optional[int] = None,
                      device='cuda',
-                     drain_event: Optional[threading.Event] = None
-                     ) -> TrainRun:
+                     drain_event: Optional[threading.Event] = None,
+                     max_seconds: Optional[float] = None) -> TrainRun:
   """Population-based training over Anakin members (PBT, arXiv
   1711.09846): `pbt_population` members, each a `train_anakin` run in
   `<logdir>/member_XX` with its own checkpoint ladder and summaries,
@@ -2123,9 +2162,10 @@ def train_population(config: Config, max_steps: Optional[int] = None,
   With pbt_vectorized (one suite) and model_parallelism 1 the members
   advance in lockstep instead (`_train_population_fused`); with a model
   axis the serial loop runs, with a warning (JAX's rule). `max_steps`
-  bounds each member run (the fused path: each round); `drain_event`
-  stops at the next member or round boundary. One process only. Returns
-  the winning member's TrainRun."""
+  and `max_seconds` bound each member run (the fused path: `max_steps`
+  each round, `max_seconds` the lockstep loop from its start, as JAX's);
+  `drain_event` stops at the next member or round boundary. One process
+  only. Returns the winning member's TrainRun."""
   for warning in validate_population(config):
     log.warning('%s', warning)
   if config.pbt_population < 2:
@@ -2137,7 +2177,8 @@ def train_population(config: Config, max_steps: Optional[int] = None,
   if config.pbt_vectorized:
     if config.model_parallelism <= 1:
       return _train_population_fused(config, max_steps=max_steps,
-                                     device=device, drain_event=drain_event)
+                                     device=device, drain_event=drain_event,
+                                     max_seconds=max_seconds)
     log.warning('pbt_vectorized ignored (model_parallelism=%d): running '
                 'the serial member loop', config.model_parallelism)
   suites = list(config.resolved_pbt_suites)
@@ -2158,7 +2199,7 @@ def train_population(config: Config, max_steps: Optional[int] = None,
       runs[k] = train_anakin(
           _member_config(config, m, total_environment_frames=target),
           max_steps=max_steps, device=device, drain_event=drain_event,
-          initial_state=inherited.pop(k, None))
+          initial_state=inherited.pop(k, None), max_seconds=max_seconds)
       advanced.append(k)
     return advanced
 
@@ -2183,7 +2224,8 @@ def train_population(config: Config, max_steps: Optional[int] = None,
 
 def _train_population_fused(config: Config, max_steps: Optional[int] = None,
                             device='cuda',
-                            drain_event: Optional[threading.Event] = None
+                            drain_event: Optional[threading.Event] = None,
+                            max_seconds: Optional[float] = None
                             ) -> TrainRun:
   """The vectorized population (pbt_vectorized): every member advances
   in lockstep, one `make_vectorized_anakin_step` per step (one V-trace
@@ -2267,6 +2309,9 @@ def _train_population_fused(config: Config, max_steps: Optional[int] = None,
           break
         if max_steps is not None and round_steps >= max_steps:
           break
+        if (max_seconds is not None and
+            time.monotonic() - loop_start > max_seconds):
+          break
         carries, metrics = vstep(carries, hypers)
         steps_done += 1
         round_steps += 1
@@ -2296,6 +2341,7 @@ def _train_population_fused(config: Config, max_steps: Optional[int] = None,
       for k in range(n):
         checkpointers[k].save(carries[k].train_state, force=True)
 
+    loop_start = time.monotonic()
     winner = _run_rounds(config, members, record, rng, drain_event,
                          advance, inherit, settle)
     run = TrainRun(member_configs[winner], agents[winner],
@@ -2708,17 +2754,19 @@ class _IngestSummaries:
   its counters (remote_*, the CRC, digest and discard ledger, the ack
   percentiles, the liveness counters), per-interval rates, the
   membership gauge `driver/remote_live_hosts` (registered only with an
-  ingest), and incidents when a refusal, reap, wedged thread or
-  membership change shows since the last interval."""
+  ingest, at the first block, as JAX's: a 0 before any block would read
+  as a pod with no host, ROADMAP C12), and incidents when a refusal,
+  reap, wedged thread or membership change shows since the last
+  interval."""
 
   def __init__(self, ingest):
     self._ingest = ingest
     self._last = {'unrolls': 0, 'per_conn_unrolls': {}}
     self._last_time = time.monotonic()
-    self._hosts = telemetry.gauge('driver/remote_live_hosts')
+    self._hosts = None
 
   def gauges(self) -> List:
-    return [self._hosts]
+    return [self._hosts] if self._hosts is not None else []
 
   def write(self, writer, incidents, step: int, health=None):
     ing, last = self._ingest.stats(), self._last
@@ -2770,6 +2818,8 @@ class _IngestSummaries:
       log.error('ingest watchdog: %d wedged thread(s): %s', wedged,
                 ', '.join(names))
     live_hosts = ing['live_hosts']
+    if self._hosts is None:
+      self._hosts = telemetry.gauge('driver/remote_live_hosts')
     self._hosts.set(live_hosts)
     for event in self._ingest.drain_membership_events():
       if event.get('kind') == 'host_left':

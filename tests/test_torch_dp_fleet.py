@@ -10,6 +10,9 @@ its params after every step and its seeds), one where only rank 0 asks
 to stop (the `preempt_signal` fault), and the SDC drill (the
 `replica_divergence` fault with the rollback after one bad check).
 A second spawn runs the CLI as two declared nodes (LOCAL_WORLD_SIZE=1).
+A third has each rank bind its own ingest port, rank 0 fed by an
+actor-host CLI process alone (JAX's test_remote_actor_feeds_sharded_training
+over two ranks).
 
 Tolerances: the ranks' params are bit-equal to each other after every
 step (one all-reduced gradient, applied alike). Against the one-rank
@@ -24,6 +27,7 @@ import hashlib
 import json
 import os
 import socket
+import subprocess
 import sys
 import time
 
@@ -340,3 +344,81 @@ def test_the_cli_runs_a_two_node_group(tmp_path):
     assert result['left_group'] and result['num_nodes'] == 2
   assert ranks[0]['digest'] == ranks[1]['digest']
   assert (tmp_path / 'summaries_p1.jsonl').exists()
+
+
+# --- a remote actor host feeding rank 0 of the group -----------------
+
+
+def _actor_host_cli(port, logdir):
+  """The `--job_name=actor` CLI on the CPU, feeding the ingest at port."""
+  flags = dict(_KW, num_actors=2)
+  cmd = [sys.executable, '-m', 'scalable_agent_tpu_torch.experiment',
+         '--job_name=actor', '--task=0', '--device=cpu',
+         f'--learner_address=127.0.0.1:{port}', f'--logdir={logdir}'] + [
+             f'--{k}={v}' for k, v in flags.items()
+             if k not in ('runtime', 'use_pallas_vtrace')]
+  return subprocess.Popen(cmd, cwd=os.path.dirname(os.path.dirname(
+      os.path.abspath(__file__))), stdout=subprocess.PIPE,
+                          stderr=subprocess.STDOUT, text=True)
+
+
+def _ingest_rank(rank, world, port, outdir, ingest_ports):
+  """Rank 0 trains on its actor host's wire alone (no local actors);
+  rank 1 on its own local fleet. Each binds its own ingest port."""
+  torch.set_num_threads(1)
+  base = dict(_KW, batch_size=2, coordinator_address=f'localhost:{port}',
+              num_processes=world, process_id=rank,
+              remote_actor_port=ingest_ports[rank],
+              num_actors=0 if rank == 0 else 2)
+  distributed.maybe_initialize(Config(**base), backend='gloo', device='cpu',
+                               timeout_secs=GROUP_TIMEOUT_SECS)
+  digests = []
+  run = driver.train(
+      Config(**base, logdir=os.path.join(outdir, 'run')), max_steps=2,
+      device='cpu', stall_timeout_secs=60,
+      on_step=lambda run, steps, metrics: digests.append(
+          _digest(run.state.params)))
+  all_digests = [None] * world
+  torch.distributed.all_gather_object(all_digests, digests)
+  torch.save({'update_steps': run.state.update_steps,
+              'all_digests': all_digests,
+              'ingest_port': run.ingest.port,
+              'ingest_unrolls': run.ingest.stats()['unrolls'],
+              'fleet_unrolls': run.fleet.stats()['unrolls'],
+              'sdc_mismatches': run.health.sdc_mismatches,
+              'jax_modules': _loaded_jax()},
+             os.path.join(outdir, f'ingest{rank}.pt'))
+  distributed.shutdown()
+
+
+def test_a_remote_actor_host_feeds_rank_0_of_a_group(tmp_path):
+  """The 2-rank counterpart of JAX's
+  test_remote_actor_feeds_sharded_training (tests/test_remote.py): an
+  actor-host CLI child feeds rank 0's ingest, the global batch of 2 is
+  one row per rank, and the group trains 2 steps with the params
+  bit-equal across ranks after each step. Every row rank 0 trained on
+  came over the wire; the child exits 0 on the learner's bye."""
+  ingest_ports = [_free_port(), _free_port()]
+  while ingest_ports[1] == ingest_ports[0]:
+    ingest_ports[1] = _free_port()
+  host = _actor_host_cli(ingest_ports[0], str(tmp_path / 'host'))
+  try:
+    _spawn(_ingest_rank, str(tmp_path), ingest_ports)
+    out = host.communicate(timeout=60)[0]
+  finally:
+    if host.poll() is None:
+      host.kill()
+      host.communicate()
+  assert host.returncode == 0, out[-3000:]
+  ranks = [torch.load(tmp_path / f'ingest{r}.pt', weights_only=False)
+           for r in range(WORLD)]
+  for r, result in enumerate(ranks):
+    assert result['jax_modules'] == []
+    assert result['update_steps'] == 2
+    assert result['ingest_port'] == ingest_ports[r]
+    digests = result['all_digests']
+    assert len(digests[0]) == 2 and digests[0] == digests[1]
+    assert result['sdc_mismatches'] == 0
+  assert ranks[0]['fleet_unrolls'] == 0
+  assert ranks[0]['ingest_unrolls'] >= 2  # one row per step, over TCP
+  assert ranks[1]['ingest_unrolls'] == 0 and ranks[1]['fleet_unrolls'] >= 2
