@@ -398,6 +398,13 @@ run at once, to keep the script inside its time limit: cli, cli_bf16 and
 cli_dp; and, last, drain_fleet, cli_fleet_dp, cli_full_feature,
 remote_faults, eval_cli and chaos_fault.
 
+The script makes itself its descendants' subreaper (prctl
+PR_SET_CHILD_SUBREAPER), so a process orphaned by a killed parent (a
+SIGKILLed learner's or actor host's forkserver and env processes) is
+still its child. When the phases end, pass or fail, it waits up to 10 s
+for every child left to exit, SIGKILLs the rest, reaps them, and logs
+each one and the count, before it prints its last two lines.
+
 The forkserver that env processes fork from is started before the first
 CUDA call. Every kernel's launch count is set to 0 just before each path
 (the three slices, the fleet, the K2 entry point, resume_anakin's second
@@ -5280,14 +5287,98 @@ def phase_chaos_fault():
   return result
 
 
+PR_SET_CHILD_SUBREAPER = 36
+# How long processes left at the end may take to exit on their own (a
+# killed host's forkserver and env processes see their pipes close).
+LEFTOVER_GRACE_SECS = 10.0
+
+
+def _become_subreaper():
+  """Make this process the reaper of its descendants' orphans (Linux
+  prctl), so the sweep at the end finds every process the phases
+  started, also one whose parent was killed. Returns whether it took."""
+  import ctypes
+  try:
+    libc = ctypes.CDLL(None, use_errno=True)
+    return libc.prctl(PR_SET_CHILD_SUBREAPER, 1, 0, 0, 0) == 0
+  except (OSError, AttributeError):
+    return False
+
+
+def _children():
+  """{pid: (state, command line)} of this process's children, zombies
+  included, from /proc."""
+  me, found = os.getpid(), {}
+  for entry in os.listdir('/proc'):
+    if not entry.isdigit():
+      continue
+    try:
+      with open(f'/proc/{entry}/stat') as f:
+        fields = f.read().rsplit(')', 1)[1].split()
+      if int(fields[1]) != me:
+        continue
+      with open(f'/proc/{entry}/cmdline', 'rb') as f:
+        cmd = f.read().replace(b'\0', b' ').decode(errors='replace')
+    except (OSError, IndexError, ValueError):
+      continue  # it exited while being read
+    found[int(entry)] = (fields[0], cmd.strip()[:200])
+  return found
+
+
+def _reap(pids):
+  for pid in pids:
+    try:
+      os.waitpid(pid, os.WNOHANG)
+    except ChildProcessError:
+      pass
+
+
+def _stop_leftover_processes():
+  """Reap every child still there once the phases have ended: wait up
+  to LEFTOVER_GRACE_SECS for them to exit, then SIGKILL the rest (and
+  whatever their deaths hand to this reaper). Logs each one stopped;
+  returns how many were killed."""
+  deadline = time.monotonic() + LEFTOVER_GRACE_SECS
+  seen, killed = {}, 0
+  while True:
+    kids = _children()
+    _reap(kids)
+    live = {pid: cmd for pid, (state, cmd) in kids.items() if state != 'Z'}
+    seen.update(live)
+    if not live:
+      break
+    if time.monotonic() >= deadline:
+      for pid, cmd in live.items():
+        log(f'leftover process {pid} still running after the phases; '
+            f'SIGKILL: {cmd}')
+        try:
+          os.kill(pid, signal.SIGKILL)
+          killed += 1
+        except ProcessLookupError:
+          pass
+      deadline = time.monotonic() + 2.0  # for the killed to be reaped
+    time.sleep(0.1)
+  log(f'processes at the end: {len(seen)} outlived the phases, '
+      f'{killed} killed' + (f': {sorted(seen.values())}' if seen else ''))
+  return killed
+
+
 def main():
+  reaper = _become_subreaper()
   # Before any CUDA call: the fleet's env processes fork from this
   # server, which has this script's imports loaded.
   py_process.warm_forkserver(preload=['chip_smoke'])
   try:
-    run_phases()
+    records = run_phases()
   finally:
     py_process.stop_forkserver()
+    if not reaper:
+      log('prctl(PR_SET_CHILD_SUBREAPER) refused: the sweep sees only '
+          'direct children')
+    _stop_leftover_processes()
+  # The kernels line and the ok line come last, after the sweep's.
+  for record in records:
+    print(json.dumps(record), flush=True)
 
 
 def _together(*calls):
@@ -5421,10 +5512,10 @@ def run_phases():
       bound_by=k1b['bound_by'], library_ms=None,
       device_us=k1b['device_us'], launch_floor_us=floor_us,
       ok=True, max_err=k1b['max_abs_err'], kernel_ms=k1b['ms'])
-  print(json.dumps({'kernels': [vtrace, conv_pool, vtrace_sharded]}))
-  print(json.dumps({'ok': True, 'device': {
-      'platform': 'gpu', 'kind': torch.cuda.get_device_name(0),
-      'count': torch.cuda.device_count()}}))
+  return [{'kernels': [vtrace, conv_pool, vtrace_sharded]},
+          {'ok': True, 'device': {
+              'platform': 'gpu', 'kind': torch.cuda.get_device_name(0),
+              'count': torch.cuda.device_count()}}]
 
 
 if __name__ == '__main__':
