@@ -295,21 +295,30 @@ Phases, each of which raises (exit code != 0) when it fails:
              no dropped record, every span stamped done <= staged <= serve
              <= step in HOP_ORDER, one lag entry per unroll with a known
              behaviour version, 0 lock-order cycles; per-hop p50/p99 and
-             the policy-lag histogram by scripts/trace_report.py (loaded
-             by path). Both runs: ms per learner step (the pair's traced /
-             untraced ratio), host CPU seconds per learner step by thread
-             group (actors, inference dispatch and completion, the
-             prefetcher, the learner's main thread, the rest) and of the
-             env processes from /proc. The tracer's own cost, replayed on
+             the policy-lag histogram by the port's trace_report
+             (`scalable_agent_tpu_torch.scripts.trace_report`), whose CLI
+             (`main([logdir, '--json', out])`) must exit 0 with the same
+             batch count in its JSON; the port's to_tensorboard converts
+             the logdir, and TensorBoard's EventAccumulator must read
+             back every tag of summaries.jsonl in the train run and the
+             lag, e2e and per-hop tags in the trace run. Both runs: ms
+             per learner step (the pair's traced / untraced ratio), host
+             CPU seconds per learner step by thread group (actors,
+             inference dispatch and completion, the prefetcher, the
+             learner's main thread, the rest) and of the env processes
+             from /proc. The tracer's own cost, replayed on
              a traced run's counts (us per unroll, ms per on_step), and
              an acquire of an ordered lock against a plain one times the
              run's acquires per step.
-44. faults_fleet — the fleet phase's widths, 4 learner steps: an env_step
+44. faults_fleet — the fleet phase's widths with 20-step unrolls, 4 learner
+             steps: an env_step
              'raise' in one actor (respawned, an actors_respawned
              incident, an unroll completed after the respawn) and
              slow_learner 'hang' 12 s before steps 2 and 3
              (fault_slow_learner incidents, buffer/put_waits rising in the
-             registry, the steps completed); the incident lines printed.
+             registry, the steps completed); the incident lines printed;
+             the port's trace_report over the run's traces and incidents
+             reads 4 batches and marks the respawn and both slow steps.
 45. remote_fleet — remote actors at the fleet phase's widths:
              `driver.train` with num_actors=0 and remote_actor_port for 4
              learner steps, publishing at step 3 (the param lane sends no
@@ -376,6 +385,15 @@ Phases, each of which raises (exit code != 0) when it fails:
              set of violations. Its learner is a subprocess: its launches
              are not counted (the drills' configs leave use_pallas_vtrace
              off, as JAX's do).
+49. compare_torsos — the port's deep against deep_fast harness (`python
+             -m scalable_agent_tpu_torch.scripts.compare_torsos
+             --device=cuda` with SMOKE=1: cue_memory, 2 actors, B=2, T=8,
+             24x32, float32, 8 learner steps per torso) as a process on
+             the card: exit 0, JAX's artifact keys, both torsos with 8
+             steps and 128 frames on cuda, decile curves of 10 buckets or
+             none, finite tail means. It launches no kernel
+             (use_pallas_vtrace off, as in JAX's script); the full size
+             (400 steps each, 72x96 bf16) runs on its own, not here.
 
 The SLO engine (slo.py) runs at its default, on, in every fleet, Anakin
 and population run here; the phases' own profiler windows refuse to start
@@ -396,7 +414,7 @@ Every CLI phase checks that its process logged `float32 precision: tf32 off
 Phases whose work is in subprocesses and whose checks are of correctness
 run at once, to keep the script inside its time limit: cli, cli_bf16 and
 cli_dp; and, last, drain_fleet, cli_fleet_dp, cli_full_feature,
-remote_faults, eval_cli and chaos_fault.
+remote_faults, eval_cli, chaos_fault and compare_torsos.
 
 The script makes itself its descendants' subreaper (prctl
 PR_SET_CHILD_SUBREAPER), so a process orphaned by a killed parent (a
@@ -423,10 +441,11 @@ either.
 """
 
 import collections
+import contextlib
 import dataclasses
 import gc
 import hashlib
-import importlib.util
+import io
 import itertools
 import json
 import math
@@ -481,6 +500,8 @@ from scalable_agent_tpu_torch.runtime.actor import batch_unrolls
 from scalable_agent_tpu_torch.runtime.inference import InferenceServer
 from scalable_agent_tpu_torch.scripts import conv_pool as conv_pool_script
 from scalable_agent_tpu_torch.scripts import fleet_stats as fleet_stats_script
+from scalable_agent_tpu_torch.scripts import to_tensorboard
+from scalable_agent_tpu_torch.scripts import trace_report
 from scalable_agent_tpu_torch.structs import (ActorOutput, AgentOutput,
                                               StepOutput, StepOutputInfo,
                                               map_structure)
@@ -4507,11 +4528,14 @@ TELEMETRY_FLEET = dict(FLEET, publish_params_every=1)
 TELEMETRY_PAIRS = 1
 TELEMETRY_STEPS = 3
 # The fault drill: an env_step crash in one actor early in the first
-# unrolls, and the learner sleeping before steps 2 and 3. 12 s a sleep:
-# before an actor's put blocks, the prefetcher's two staged batches, the
-# batch it assembles and the buffer take 128 unrolls, 10-16 s of the 32
-# actors' output at the fleet's rate (2 s sleeps left buffer/put_waits
-# at 0 on the card).
+# unrolls, and the learner sleeping before steps 2 and 3. Before an
+# actor's put blocks, the prefetcher's two staged batches, the batch it
+# assembles and the buffer take 128 unrolls: 10-16 s of the 32 actors'
+# output at the fleet's rate with its 100-step unrolls, so 12 s sleeps
+# left buffer/put_waits at 0 on a slow host (and 2 s sleeps on any).
+# Unrolls of 20 steps make those 128 unrolls 2-3.2 s of output, inside
+# one 12 s sleep on a host twice as slow; the widths stay the fleet's.
+FAULTS_FLEET = dict(FLEET, unroll_length=20)
 FAULTS_FLEET_STEPS = 4
 FAULTS_PLAN = dict(env_raise_at=500, slow_learner_at=1, slow_learner_len=2,
                    slow_learner_secs=12.0)
@@ -4573,17 +4597,6 @@ def _host_cpu_split(first, last, steps):
   return {g: round(s / steps, 4) for g, s in sorted(split.items())}
 
 
-def _trace_report_module():
-  """scripts/trace_report.py, loaded by path (it imports neither
-  package)."""
-  spec = importlib.util.spec_from_file_location(
-      'trace_report', os.path.join(os.path.dirname(
-          os.path.abspath(__file__)), 'scripts', 'trace_report.py'))
-  module = importlib.util.module_from_spec(spec)
-  spec.loader.exec_module(module)
-  return module
-
-
 def _check_traces(name, logdir, run, steps):
   """The traced run's checks; returns (batch records, report summary)."""
   stats = run.stats['trace']
@@ -4609,12 +4622,55 @@ def _check_traces(name, logdir, run, steps):
           [order.index(h) for h in hops] != sorted(map(order.index, hops))
           or times != sorted(times)):
         raise AssertionError(f'{name}: span {span}')
-  report = _trace_report_module()
-  summary = report.summarize(report.load_traces(logdir))
+  summary = trace_report.summarize(trace_report.load_traces(logdir))
   if summary['batches'] != steps:
     raise AssertionError(f'{name}: trace_report read {summary["batches"]} '
                          'batches')
+  # The operator's CLI on the same file: exit 0 and the same count in
+  # its JSON (its text report goes to a buffer, not this log).
+  out = os.path.join(logdir, 'trace_report.json')
+  with contextlib.redirect_stdout(io.StringIO()) as text:
+    rc = trace_report.main([logdir, '--json', out])
+  with open(out) as f:
+    cli = json.load(f)
+  if rc != 0 or cli['batches'] != steps or 'policy lag' not in text.getvalue():
+    raise AssertionError(f'{name}: trace_report CLI exit {rc}, '
+                         f'{cli["batches"]} batches in its JSON')
+  _check_tensorboard(name, logdir, summary)
   return batches, summary
+
+
+def _check_tensorboard(name, logdir, summary):
+  """The port's to_tensorboard over the traced run's logdir, read back
+  with TensorBoard's EventAccumulator: the train run holds every tag of
+  summaries.jsonl, the trace run the lag, e2e and one tag per hop that
+  trace_report read."""
+  from tensorboard.backend.event_processing import event_accumulator
+  t0 = time.perf_counter()
+  written = to_tensorboard.convert(logdir)
+  with open(os.path.join(logdir, 'summaries.jsonl')) as f:
+    summary_tags = {json.loads(line)['tag'] for line in f}
+  trace_tags = {'trace/hop_{}_{}_ms'.format(*row['hop'].split('->'))
+                for row in summary['hops']}
+  if summary['policy_lag']['histogram']:
+    trace_tags |= {'trace/policy_lag_mean', 'trace/policy_lag_max'}
+  if summary['e2e_ms']['count']:
+    trace_tags.add('trace/e2e_ms')
+  expect = {'train': summary_tags, 'trace': trace_tags}
+  tags = {}
+  for run in expect:
+    acc = event_accumulator.EventAccumulator(
+        os.path.join(logdir, 'tb', run),
+        size_guidance={event_accumulator.SCALARS: 0,
+                       event_accumulator.HISTOGRAMS: 0})
+    acc.Reload()
+    tags[run] = set(acc.Tags()['scalars']) | set(acc.Tags()['histograms'])
+  if tags != expect or not all(written.get(run) for run in expect):
+    raise AssertionError(f'{name}: to_tensorboard wrote {written}; tags '
+                         f'{tags}, expected {expect}')
+  log(f'{name}: to_tensorboard wrote {written} events in '
+      f'{time.perf_counter() - t0:.2f} s; read back: {len(tags["train"])} '
+      f'train tags, {len(tags["trace"])} trace tags')
 
 
 def _tracer_cost(unrolls, batches, batch_size):
@@ -4754,7 +4810,7 @@ def phase_telemetry_fleet():
       log(f'{name}: traces.jsonl {len(batches)} batch records, '
           f'{sum(len(b["spans"]) for b in batches)} spans, untagged 0, '
           f'dropped 0, lock-order cycles 0; per-hop (count, p50 ms, p99 ms) '
-          f'by scripts/trace_report.py: {hops}; policy lag histogram '
+          f'by the port\'s trace_report: {hops}; policy lag histogram '
           f'{lag["histogram"]} (p50 {lag.get("p50")}, p99 {lag.get("p99")})')
       unroll_us, step_ms = _tracer_cost(run.stats['trace']['unrolls'],
                                         run.stats['trace']['batches'],
@@ -4787,7 +4843,8 @@ def phase_telemetry_fleet():
 
 def phase_faults_fleet():
   """The two fault sites that need no transport on one short fleet run
-  at the fleet phase's widths: an env_step 'raise' crashes one actor,
+  at the fleet phase's widths (20-step unrolls, FAULTS_FLEET): an
+  env_step 'raise' crashes one actor,
   which the fleet respawns (an actors_respawned incident) and which
   rejoins; slow_learner 'hang's 12 s before learner steps 2 and 3, the
   buffer fills and buffer/put_waits rises in the registry snapshot; the
@@ -4804,7 +4861,7 @@ def phase_faults_fleet():
                    for s in run.fleet._slots if s.respawns)
 
   with tempfile.TemporaryDirectory(prefix='chip_smoke_faults_') as logdir:
-    config = Config(**FLEET, logdir=logdir)
+    config = Config(**FAULTS_FLEET, logdir=logdir)
     faults.install(faults.FaultPlan.storm(seed=0, **FAULTS_PLAN))
     try:
       run, counts = _drive('faults_fleet', lambda: driver.train(
@@ -4816,6 +4873,8 @@ def phase_faults_fleet():
     with open(os.path.join(logdir, 'incidents.jsonl')) as f:
       incidents = [json.loads(line) for line in f]
     controller_line = _controller_logs('faults_fleet', logdir)
+    report = trace_report.summarize(trace_report.load_traces(logdir),
+                                    trace_report.load_incidents(logdir))
   fleet = run.stats['fleet']
   respawned = [e for e in incidents if e['kind'] == 'actors_respawned']
   slow = [e for e in incidents if e['kind'] == 'fault_slow_learner']
@@ -4842,6 +4901,11 @@ def phase_faults_fleet():
       waits[2] > waits[0]):
     raise AssertionError(f'faults_fleet: steps 2-3 took {slept} s, '
                          f'buffer/put_waits by step {waits}')
+  marked = collections.Counter(e['kind'] for e in report['incidents'])
+  if (report['batches'] != FAULTS_FLEET_STEPS or
+      marked['actors_respawned'] != 1 or marked['fault_slow_learner'] != 2):
+    raise AssertionError(f'faults_fleet: trace_report read '
+                         f'{report["batches"]} batches, incidents {marked}')
   for e in respawned + slow:
     log(f'faults_fleet incident: {json.dumps(e)}')
   log(f'faults_fleet: {FAULTS_FLEET_STEPS} learner steps, vtrace launches '
@@ -4849,7 +4913,9 @@ def phase_faults_fleet():
       f'{fired["slow_learner"]}; steps 2 and 3 took '
       f'{[round(s, 3) for s in slept]} s; buffer/put_waits by step {waits}; '
       f'the respawned slot (index, respawns, streak) {slots} completed an '
-      f'unroll after its respawn; fleet {fleet}; {controller_line}')
+      f'unroll after its respawn; fleet {fleet}; trace_report: '
+      f'{report["batches"]} batches, {report["unrolls"]} unrolls, timeline '
+      f'{report["timeline"]} with incidents {dict(marked)}; {controller_line}')
   return counts
 
 
@@ -5287,6 +5353,61 @@ def phase_chaos_fault():
   return result
 
 
+COMPARE_TORSOS_TIMEOUT_SECS = 300
+# The artifact keys of JAX's scripts/compare_torsos.py, and of each run.
+COMPARE_TORSOS_KEYS = ('task', 'note', 'runs')
+COMPARE_TORSOS_RUN_KEYS = ('torso', 'steps', 'frames',
+                           'return_curve_deciles', 'tail_mean_return')
+# Its SMOKE size: 8 learner steps of B=2, T=8 per torso.
+COMPARE_TORSOS_SMOKE_STEPS = 8
+COMPARE_TORSOS_SMOKE_FRAMES = COMPARE_TORSOS_SMOKE_STEPS * 2 * 8
+
+
+def phase_compare_torsos():
+  """The port's deep against deep_fast harness at its SMOKE size on the
+  card, as a process; returns its artifact."""
+  out_dir = tempfile.mkdtemp(prefix='compare_torsos_')
+  out_path = os.path.join(out_dir, 'TORSO_COMPARE.json')
+  env = dict(os.environ, SMOKE='1', TORSO_COMPARE_OUT=out_path)
+  env.pop(faults.PLAN_ENV_VAR, None)
+  t0 = time.perf_counter()
+  proc = subprocess.run(
+      [sys.executable, '-m', 'scalable_agent_tpu_torch.scripts.compare_torsos',
+       '--device=cuda'], cwd=REPO_DIR, env=env, capture_output=True,
+      text=True, timeout=COMPARE_TORSOS_TIMEOUT_SECS)
+  secs = time.perf_counter() - t0
+  if proc.returncode != 0 or not os.path.exists(out_path):
+    raise AssertionError(f'compare_torsos: exit {proc.returncode}: '
+                         f'{proc.stdout[-1500:]}\n{proc.stderr[-3000:]}')
+  with open(out_path) as f:
+    result = json.load(f)
+  runs = result.get('runs') or []
+  checks = {
+      'JAX\'s keys': all(k in result for k in COMPARE_TORSOS_KEYS) and all(
+          k in r for r in runs for k in COMPARE_TORSOS_RUN_KEYS),
+      'deep, deep_fast': [r.get('torso') for r in runs] == ['deep',
+                                                            'deep_fast'],
+      'device cuda': all(r.get('device', '').startswith('cuda')
+                         for r in runs),
+      f'{COMPARE_TORSOS_SMOKE_STEPS} steps, {COMPARE_TORSOS_SMOKE_FRAMES} '
+      'frames': all(r.get('steps') == COMPARE_TORSOS_SMOKE_STEPS and
+                    r.get('frames') == COMPARE_TORSOS_SMOKE_FRAMES
+                    for r in runs),
+      'curves of 10 deciles or none': all(
+          len(r.get('return_curve_deciles', ())) in (0, 10) for r in runs),
+      'finite tail means': all(math.isfinite(r.get('tail_mean_return',
+                                                    math.nan)) for r in runs),
+  }
+  failed = [name for name, ok in checks.items() if not ok]
+  if failed:
+    raise AssertionError(f'compare_torsos: {failed}: {json.dumps(result)}')
+  log(f'compare_torsos: exit 0 in {secs:.1f} s; ' + '; '.join(
+      f'{r["torso"]} {r["steps"]} steps, {r["frames"]} frames, '
+      f'{r["wall_secs"]} s, tail mean {r["tail_mean_return"]}, deciles '
+      f'{r["return_curve_deciles"]}' for r in runs))
+  return result
+
+
 PR_SET_CHILD_SUBREAPER = 36
 # How long processes left at the end may take to exit on their own (a
 # killed host's forkserver and env processes see their pipes close).
@@ -5469,9 +5590,10 @@ def run_phases():
   # load. The parent's cached blocks go back to the card first.
   _free_the_card('the fleet CLIs')
   timed('drain_fleet, cli_fleet_dp, cli_full_feature, remote_faults, '
-        'eval_cli, chaos_fault', _together, (phase_drain_fleet,),
-        (phase_cli_fleet_dp,), (phase_cli_full_feature,),
-        (phase_remote_faults,), (phase_eval_cli,), (phase_chaos_fault,))
+        'eval_cli, chaos_fault, compare_torsos', _together,
+        (phase_drain_fleet,), (phase_cli_fleet_dp,),
+        (phase_cli_full_feature,), (phase_remote_faults,), (phase_eval_cli,),
+        (phase_chaos_fault,), (phase_compare_torsos,))
   log('phases: ' + ', '.join(f'{n} {s:.1f} s' for n, s in phases))
   launches = {name: {path: counts[name] for path, counts in paths.items()}
               for name in COUNTERS}

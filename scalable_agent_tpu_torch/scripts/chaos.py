@@ -58,7 +58,6 @@ fall back to the CPU.
 """
 
 import argparse
-import importlib.util
 import json
 import os
 import socket
@@ -68,6 +67,8 @@ import tempfile
 import threading
 import time
 from typing import List, Optional
+
+from scalable_agent_tpu_torch.scripts import trace_report
 
 REPO = os.path.dirname(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))))
@@ -657,16 +658,6 @@ def _spawn_learner_child(overrides, max_steps, plan_json, device,
       stderr=subprocess.STDOUT, text=True)
 
 
-def trace_report_module():
-  """The root scripts/trace_report.py, loaded by path (it imports
-  neither package)."""
-  spec = importlib.util.spec_from_file_location(
-      'trace_report', os.path.join(REPO, 'scripts', 'trace_report.py'))
-  module = importlib.util.module_from_spec(spec)
-  spec.loader.exec_module(module)
-  return module
-
-
 def run_partition_storm(logdir: str, smoke: bool = SMOKE, seed: int = SEED,
                         device='cuda'):
   """The transport partition and hard-crash drill; returns (results,
@@ -913,7 +904,6 @@ def run_partition_storm(logdir: str, smoke: bool = SMOKE, seed: int = SEED,
   # The trace plane across both incarnations: batch records, and the
   # remote hops' spans.
   try:
-    trace_report = trace_report_module()
     trace_summary = trace_report.summarize(
         trace_report.load_traces(logdir),
         trace_report.load_incidents(logdir))

@@ -459,8 +459,7 @@ def soak(smoke: bool, churn: bool, seconds: float, device='cuda',
   # The trace plane stays alive over the window.
   telemetry_block = {'registry_names': len(registry_snap)}
   if cfg.telemetry_trace:
-    from scalable_agent_tpu_torch.scripts import chaos
-    trace_report = chaos.trace_report_module()
+    from scalable_agent_tpu_torch.scripts import trace_report
     trace_summary = trace_report.summarize(
         trace_report.load_traces(logdir))
     telemetry_block.update({

@@ -48,6 +48,7 @@ from typing import Callable, Dict, List, Optional
 
 from scalable_agent_tpu_torch import telemetry
 from scalable_agent_tpu_torch.analysis.runtime import guarded_by, make_lock
+from scalable_agent_tpu_torch.scripts import trace_report
 
 log = logging.getLogger('scalable_agent_tpu_torch')
 
@@ -768,12 +769,7 @@ def _trace_slice(logdir: str, window_secs: float, out_path: str,
                  state: Dict) -> bool:
   """The violation window's hop-delta slice: trace_report.summarize over
   the records inside the last `window_secs`, written as JSON beside the
-  other capture artifacts. scripts/ is imported lazily: an install
-  without it skips the slice."""
-  try:
-    from scripts import trace_report
-  except ImportError:
-    return False
+  other capture artifacts."""
   now = time.time()
   records = [r for r in trace_report.load_traces(logdir)
              if r.get('t') is None or r['t'] >= now - window_secs]

@@ -2,13 +2,21 @@
 ml_dtypes (the card's machine has neither), no module of the port (nor
 chip_smoke.py) imports the JAX package or ml_dtypes, no code of
 the port names a path inside it (so nothing of it, such as its batcher
-library, is loaded), and the port holds its own batcher source."""
+library, is loaded), and the port holds its own batcher source.
+
+Nor does the port reach into the repo's root `scripts/` (C13): no port
+source and not chip_smoke.py imports the root `scripts`, none loads a
+module by path (`spec_from_file_location`), and the SLO engine's trace
+slice is written by a port run whose cwd is not the repo root and whose
+sys.path lacks it."""
 
 import ast
+import json
 import os
 import re
 import subprocess
 import sys
+import textwrap
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PACKAGE = os.path.join(REPO, 'scalable_agent_tpu_torch')
@@ -239,3 +247,84 @@ def test_the_serving_and_eval_paths_load_no_jax():
   proc = subprocess.run([sys.executable, '-c', script], cwd=REPO,
                         capture_output=True, text=True, timeout=120)
   assert proc.returncode == 0, proc.stderr
+
+
+def _calls_named(path, name):
+  """Line numbers of the calls to `name` (as `name(...)` or `x.name(...)`)
+  in a module."""
+  with open(path) as f:
+    tree = ast.parse(f.read(), filename=path)
+  for node in ast.walk(tree):
+    if isinstance(node, ast.Call):
+      func = node.func
+      called = (func.attr if isinstance(func, ast.Attribute) else
+                func.id if isinstance(func, ast.Name) else None)
+      if called == name:
+        yield node.lineno
+
+
+def test_c13_no_port_source_reaches_into_the_root_scripts():
+  """The root `scripts/` is the JAX package's tooling: the port imports
+  its own `scalable_agent_tpu_torch.scripts`, by name, and loads nothing
+  by path."""
+  sources = _port_sources() + [os.path.join(REPO, 'chip_smoke.py')]
+  found = []
+  for path in sources:
+    rel = os.path.relpath(path, REPO)
+    if 'scripts' in set(_imported_roots(path)):
+      found.append(f'{rel} imports the root scripts')
+    for line in _calls_named(path, 'spec_from_file_location'):
+      found.append(f'{rel}:{line} loads a module by path')
+  assert not found, found
+  for name in ('trace_report', 'to_tensorboard', 'compare_torsos'):
+    assert os.path.isfile(os.path.join(PACKAGE, 'scripts', f'{name}.py'))
+
+
+def test_c13_the_slo_trace_slice_is_written_outside_the_repo_root(tmp_path):
+  """A port importable only through its own package directory (a link to
+  it in a directory of its own), run from elsewhere: the root `scripts`
+  cannot be imported there, and `slo._trace_slice` still writes its slice
+  of a traced logdir."""
+  site = tmp_path / 'site'
+  site.mkdir()
+  os.symlink(PACKAGE, site / 'scalable_agent_tpu_torch')
+  logdir = tmp_path / 'run'
+  logdir.mkdir()
+  import time
+  now = time.time()
+  with open(logdir / 'traces.jsonl', 'w') as f:
+    for step in (1, 2, 3):
+      f.write(json.dumps({
+          'k': 'batch', 'step': step, 't': now - 3 + step, 'lag': [0, 1],
+          'n_fresh': 1, 'spans': [{'a': 'a0', 's': step, 'bv': 0, 'h': [
+              ['done', now - 4 + step], ['staged', now - 3.5 + step],
+              ['serve', now - 3.2 + step], ['step', now - 3 + step]]}]})
+              + '\n')
+  out = tmp_path / 'slo_trace_rollbacks_zero.json'
+  script = textwrap.dedent(f"""
+      import json, sys
+      assert {REPO!r} not in [p.rstrip('/') for p in sys.path], sys.path
+      try:
+        import scripts
+      except ImportError:
+        pass
+      else:
+        raise AssertionError(f'the root scripts imported: {{scripts}}')
+      from scalable_agent_tpu_torch import slo
+      ok = slo._trace_slice({str(logdir)!r}, 300.0, {str(out)!r},
+                            {{'state': 'violated'}})
+      assert ok is True, ok
+      bad = sorted(m for m in sys.modules if m.split('.')[0] in
+                   ('jax', 'scalable_agent_tpu', 'scripts'))
+      assert not bad, bad
+      """)
+  env = {k: v for k, v in os.environ.items() if k != 'PYTHONPATH'}
+  env['PYTHONPATH'] = str(site)
+  proc = subprocess.run([sys.executable, '-c', script], cwd=str(tmp_path),
+                        env=env, capture_output=True, text=True, timeout=120)
+  assert proc.returncode == 0, proc.stderr
+  with open(out) as f:
+    sliced = json.load(f)
+  assert sliced['batches'] == 3 and sliced['unrolls'] == 3
+  assert sliced['slo_objective'] == {'state': 'violated'}
+  assert sliced['window_secs'] == 300.0

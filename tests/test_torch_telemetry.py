@@ -12,8 +12,9 @@ inputs through both packages.
   once the wall times ('t', 't_seen' and every hop's time) are masked.
 - A tiny CPU fleet (2 actors, T=5, the shallow agent) with tracing on
   writes one batch record per learner step, every span stamped done <=
-  staged <= serve <= step in HOP_ORDER, and no untagged unroll;
-  scripts/trace_report.py summarises the port's file as it is.
+  staged <= serve <= step in HOP_ORDER, and no untagged unroll; the
+  port's trace_report summarises the port's file as it is (and as the
+  JAX package's scripts/trace_report.py does).
 - The halt bundle carries the flight dump; closed components unregister
   their gauges; the drain manifest holds the registry's snapshot.
 - Name parity: the literal names the two packages register through
@@ -49,9 +50,10 @@ from scalable_agent_tpu_torch.config import Config
 from scalable_agent_tpu_torch.models import ImpalaAgent
 from scalable_agent_tpu_torch.runtime import faults
 from scalable_agent_tpu_torch.runtime import ring_buffer
+from scalable_agent_tpu_torch.scripts import trace_report
 from scalable_agent_tpu_torch.structs import (ActorOutput, AgentOutput,
                                               StepOutput, StepOutputInfo)
-from scripts import trace_report
+from scripts import trace_report as jax_trace_report
 
 torch.set_num_threads(1)
 
@@ -210,7 +212,8 @@ def test_make_trace_and_stamp(module):
 
 def test_hop_order_matches_jax_and_trace_report():
   assert telemetry.HOP_ORDER == jax_telemetry.HOP_ORDER
-  assert tuple(trace_report.HOP_ORDER) == telemetry.HOP_ORDER
+  assert trace_report.HOP_ORDER is telemetry.HOP_ORDER
+  assert tuple(jax_trace_report.HOP_ORDER) == telemetry.HOP_ORDER
 
 
 @pytest.mark.parametrize('module', BOTH)
@@ -467,6 +470,10 @@ def test_trace_report_reads_the_port_traces(traced_fleet, capsys):
   hops = {row['hop'] for row in summary['hops']}
   assert {'done->staged', 'staged->serve', 'serve->step'} <= hops
   assert sum(summary['policy_lag']['histogram'].values()) == 8
+  # NaN-aware and exact: the JSON texts (floats by repr) are equal.
+  assert json.dumps(summary, sort_keys=True) == json.dumps(
+      jax_trace_report.summarize(jax_trace_report.load_traces(logdir)),
+      sort_keys=True)
   assert trace_report.main([logdir]) == 0
   assert 'policy lag' in capsys.readouterr().out
 
